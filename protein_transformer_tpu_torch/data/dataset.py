@@ -1,0 +1,193 @@
+"""Host-side data pipeline for the port: splits, bucketed collation, loading.
+
+Port of the eval-split parts of protein_transformer_tpu/data/dataset.py.
+Batches carry zero-filled arrays plus explicit boolean masks, padded to a
+bucketed (B, L) shape lattice. Collation is numpy on the host, element for
+element the JAX package's; ``Batch.to(device)`` moves a batch onto a torch
+device. The training sampler (binned batches) comes with the training port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Iterator, Sequence
+
+import numpy as np
+import torch
+
+from protein_transformer_tpu.protein.constants import (
+    MAX_SEQ_LEN, NUM_PREDICTED_ANGLES, NUM_PREDICTED_COORDS)
+from protein_transformer_tpu.protein.vocab import VOCAB
+
+VALID_SPLITS = (10, 20, 30, 40, 50, 70, 90)
+ALL_SPLITS = ("train",) + tuple(f"valid-{s}" for s in VALID_SPLITS) + ("test",)
+
+
+@dataclasses.dataclass
+class Batch:
+    """One padded batch with explicit masks: numpy arrays from ``collate``,
+    torch tensors after ``to(device)``."""
+    seq: np.ndarray | torch.Tensor          # (B, L) ids, pad_id at padding
+    ang: np.ndarray | torch.Tensor          # (B, L, 24) f32, zero where masked
+    ang_mask: np.ndarray | torch.Tensor     # (B, L, 24) bool
+    crd: np.ndarray | torch.Tensor          # (B, L, 14, 3) f32, zero where masked
+    crd_mask: np.ndarray | torch.Tensor     # (B, L, 14) bool
+    protein_mask: np.ndarray | torch.Tensor  # (B,) bool: row is a real protein
+    n_res: int                               # real residues (throughput)
+
+    def to(self, device: torch.device) -> "Batch":
+        """The same batch as torch tensors on ``device`` (ids as int64)."""
+        def put(x):
+            return torch.as_tensor(x).to(device)
+        return Batch(put(self.seq).long(), put(self.ang), put(self.ang_mask),
+                     put(self.crd), put(self.crd_mask),
+                     put(self.protein_mask), self.n_res)
+
+
+class ProteinSplit:
+    """One split: ragged (seq string, angles (L, 24), coords (L*14, 3)).
+
+    Inputs use the reference's storage conventions (NaN = missing); the
+    stored views are zero-filled, with the NaN pattern kept in masks."""
+
+    def __init__(self, seqs, angs, crds, ids=None,
+                 skip_missing_residues=True, max_seq_len=MAX_SEQ_LEN):
+        self.seqs, self.angs, self.crds, self.ids = [], [], [], []
+        self.seq_enc: list[np.ndarray] = []
+        self.ang_masks: list[np.ndarray] = []
+        self.crd_masks: list[np.ndarray] = []
+        ids = ids if ids is not None else [f"p{i}" for i in range(len(seqs))]
+        for i in range(len(seqs)):
+            ang = np.asarray(angs[i], np.float32)
+            # skip proteins with fully-missing residues
+            if skip_missing_residues and np.isnan(ang).all(axis=-1).any():
+                continue
+            crd = np.asarray(crds[i], np.float32)
+            self.seqs.append(seqs[i])
+            self.ids.append(ids[i])
+            self.seq_enc.append(VOCAB.str2array(seqs[i][:max_seq_len]))
+            ang_mask = np.isfinite(ang)
+            self.ang_masks.append(ang_mask)
+            self.crd_masks.append(
+                np.isfinite(crd).all(-1).reshape(-1, NUM_PREDICTED_COORDS))
+            self.angs.append(np.where(ang_mask, ang, 0.0))
+            self.crds.append(np.where(np.isfinite(crd), crd, 0.0))
+        self.lens = np.array(
+            [min(len(s), max_seq_len) for s in self.seqs], np.int64)
+        self.max_seq_len = max_seq_len
+
+    def __len__(self):
+        return len(self.seqs)
+
+
+def bucket_length(length: int, buckets: Sequence[int], max_len: int) -> int:
+    """Smallest bucket >= length (clamped to max_len)."""
+    length = min(length, max_len)
+    for b in buckets:
+        if b >= length:
+            return min(b, max_len)
+    return max_len
+
+
+BATCH_BUCKETS = (1, 2, 4, 8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512)
+
+
+def bucket_batch_size(n: int) -> int:
+    """Smallest batch bucket >= n; the rows beyond n are masked dummies."""
+    for b in BATCH_BUCKETS:
+        if b >= n:
+            return b
+    return n
+
+
+def collate(split: ProteinSplit, indices: np.ndarray,
+            length_buckets: Sequence[int],
+            max_seq_len: int = MAX_SEQ_LEN) -> Batch:
+    """Assemble a static-shape masked batch (numpy) from dataset rows."""
+    lens = [min(int(split.lens[i]), max_seq_len) for i in indices]
+    lmax = bucket_length(max(lens), length_buckets, max_seq_len)
+    b = bucket_batch_size(len(indices))
+
+    seq = np.full((b, lmax), VOCAB.pad_id, np.int32)
+    ang = np.zeros((b, lmax, NUM_PREDICTED_ANGLES * 2), np.float32)
+    ang_mask = np.zeros((b, lmax, NUM_PREDICTED_ANGLES * 2), bool)
+    crd = np.zeros((b, lmax, NUM_PREDICTED_COORDS, 3), np.float32)
+    crd_mask = np.zeros((b, lmax, NUM_PREDICTED_COORDS), bool)
+    protein_mask = np.zeros((b,), bool)
+    for row, idx in enumerate(indices):
+        li = lens[row]
+        seq[row, :li] = split.seq_enc[idx][:li]
+        ang[row, :li] = split.angs[idx][:li]
+        ang_mask[row, :li] = split.ang_masks[idx][:li]
+        crd[row, :li] = split.crds[idx][: li * NUM_PREDICTED_COORDS].reshape(
+            li, NUM_PREDICTED_COORDS, 3)
+        crd_mask[row, :li] = split.crd_masks[idx][:li]
+        protein_mask[row] = True
+    return Batch(seq, ang, ang_mask, crd, crd_mask, protein_mask,
+                 n_res=int(sum(lens)))
+
+
+def load_reference_pt(path: str) -> dict:
+    """Load a reference-schema torch .pt dataset dict."""
+    return torch.load(path, weights_only=False)
+
+
+def load_native(path: str) -> dict:
+    """Load the native .npz shard directory (protein_transformer_tpu's
+    data/convert.py layout)."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    data = {"settings": manifest["settings"], "date": manifest.get("date")}
+    for split in manifest["splits"]:
+        with np.load(os.path.join(path, f"{split}.npz"),
+                     allow_pickle=False) as z:
+            offs = z["offsets"]
+            seqs = [str(s) for s in z["seqs"]]
+            ang_flat, crd_flat = z["ang"], z["crd"]
+            ids = [str(s) for s in z["ids"]]
+        angs = [ang_flat[offs[i]:offs[i + 1]] for i in range(len(seqs))]
+        crds = [crd_flat[offs[i] * NUM_PREDICTED_COORDS:
+                         offs[i + 1] * NUM_PREDICTED_COORDS]
+                for i in range(len(seqs))]
+        data[split] = {"seq": seqs, "ang": angs, "crd": crds, "ids": ids}
+    return data
+
+
+def load_dataset(path: str) -> dict:
+    if os.path.isdir(path):
+        return load_native(path)
+    return load_reference_pt(path)
+
+
+class DataModule:
+    """Splits and collation for the evaluation loop."""
+
+    def __init__(self, data: dict, cfg):
+        self.cfg = cfg
+        settings = data.get("settings", {})
+        self.angle_means = np.asarray(
+            settings.get("angle_means",
+                         np.zeros(NUM_PREDICTED_ANGLES * 2)), np.float32)
+        self.max_seq_len = min(int(settings.get("max_len", cfg.max_seq_len))
+                               if settings.get("max_len") else cfg.max_seq_len,
+                               cfg.max_seq_len)
+        self.eval_splits: dict[str, ProteinSplit] = {}
+        for split in ALL_SPLITS[1:]:
+            if split in data:
+                self.eval_splits[split] = ProteinSplit(
+                    data[split]["seq"], data[split]["ang"],
+                    data[split]["crd"], ids=data[split].get("ids"),
+                    skip_missing_residues=cfg.skip_missing_res_train,
+                    max_seq_len=self.max_seq_len)
+
+    def eval_index_batches(self, split: str) -> Iterator[np.ndarray]:
+        ds = self.eval_splits[split]
+        order = np.argsort(-ds.lens)  # length-sorted like the reference loader
+        for start in range(0, len(ds), self.cfg.batch_size):
+            yield order[start:start + self.cfg.batch_size]
+
+    def eval_batches(self, split: str) -> Iterator[Batch]:
+        ds = self.eval_splits[split]
+        for idx in self.eval_index_batches(split):
+            yield collate(ds, idx, self.cfg.bucket_sizes, self.max_seq_len)

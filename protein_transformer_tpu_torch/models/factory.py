@@ -1,0 +1,55 @@
+"""Model construction from a training config.
+
+Supports the reference's model-name sugar: 'conv-enc|k1,k2,k3|r1,r2,r3'
+encodes the convolution topology, and a 'linear-out' substring drops the
+output tanh.
+"""
+from __future__ import annotations
+
+from torch import nn
+
+from protein_transformer_tpu_torch.models.conv_encoder import (
+    ConvEncoderOnlyTransformer)
+from protein_transformer_tpu_torch.models.encoder_only import (
+    EncoderOnlyTransformer)
+
+
+def parse_conv_kernel_info_from_model_name(mname: str):
+    """'conv-enc|3,7,11|2,2,2' -> ([3, 7, 11], [2.0, 2.0, 2.0])."""
+    try:
+        _, kernel_sizes, dim_reducs = mname.split("|")
+    except ValueError:
+        return [], []
+    return ([int(k) for k in kernel_sizes.split(",")],
+            [float(r) for r in dim_reducs.split(",")])
+
+
+def make_model(cfg, angle_means) -> nn.Module:
+    """Build the model cfg names (on the CPU; the caller moves it)."""
+    name = cfg.model
+    common = dict(
+        n_layers=cfg.n_layers, n_heads=cfg.n_heads, d_model=cfg.d_model,
+        d_ff=cfg.d_ff, max_len=cfg.max_seq_len, vocab_size=cfg.vocab_size,
+        angle_means=[float(a) for a in angle_means],
+        use_tanh_out="linear-out" not in name, dropout=cfg.dropout,
+        pad_id=cfg.pad_id, prenorm=not cfg.postnorm)
+    if name.startswith("enc-only"):
+        return EncoderOnlyTransformer(**common)
+    if "conv-enc" in name:
+        kernels, reducs = parse_conv_kernel_info_from_model_name(name)
+        if not kernels:
+            kernels = [k for k in (cfg.conv1_size, cfg.conv2_size,
+                                   cfg.conv3_size) if k]
+            reducs = [r for r in (cfg.conv1_reduc, cfg.conv2_reduc,
+                                  cfg.conv3_reduc) if r]
+        if len(kernels) > 3:
+            raise ValueError("at most 3 convolution layers supported")
+        return ConvEncoderOnlyTransformer(
+            conv_kernel_sizes=kernels, conv_dim_reductions=reducs,
+            use_embedding=cfg.use_embedding,
+            conv_out_matches_dm=cfg.conv_out_matches_dm, **common)
+    if name == "enc-dec":
+        raise NotImplementedError(
+            "the enc-dec model is not ported yet (ROADMAP.md, Queue 1: "
+            "enc-dec model)")
+    raise ValueError(f"Unknown model architecture: {name}")

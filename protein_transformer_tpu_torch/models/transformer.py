@@ -1,0 +1,162 @@
+"""Transformer encoder building blocks as torch ``nn.Module``s.
+
+Port of protein_transformer_tpu/models/transformer.py (encoder side):
+
+* scaled embeddings (x sqrt(dm)) and sinusoidal positional encoding, with
+  the reference's quirk kept: ``PositionalEncoding`` returns x + pe and the
+  encoder adds x once more, so the embedding enters twice;
+* pre-LN (or post-LN) residual sublayers, no final layer norm;
+* multi-head attention over a key-padding mask: masked scores get the
+  smallest fp32 value (not -inf), the softmax runs in fp32, and padded
+  queries still attend to the real keys.
+
+Layer norms use eps 1e-6, flax's default (torch's is 1e-5). Dropout sits
+where the JAX modules have it and is inactive in ``eval()`` mode. The port
+computes in fp32 throughout (the JAX package's bf16 option is not ported).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+LAYER_NORM_EPS = 1e-6
+
+
+def sinusoidal_positions(max_len: int, dim: int) -> np.ndarray:
+    """Sinusoidal positional encodings (max_len, dim), float32."""
+    pe = np.zeros((max_len, dim), np.float32)
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div = np.exp(np.arange(0, dim, 2, dtype=np.float32)
+                 * -(np.log(10000.0) / dim))
+    pe[:, 0::2] = np.sin(position * div)
+    pe[:, 1::2] = np.cos(position * div[: pe[:, 1::2].shape[1]])
+    return pe
+
+
+class PositionalEncoding(nn.Module):
+    """Returns dropout(x + pe)."""
+
+    def __init__(self, dim: int, max_len: int, dropout: float = 0.1):
+        super().__init__()
+        self.register_buffer(
+            "pe", torch.from_numpy(sinusoidal_positions(max_len, dim)),
+            persistent=False)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dropout(x + self.pe[None, : x.shape[1]])
+
+
+class Embeddings(nn.Module):
+    """Token embedding scaled by sqrt(dim)."""
+
+    def __init__(self, vocab_size: int, dim: int):
+        super().__init__()
+        self.embed = nn.Embedding(vocab_size, dim)
+        self.scale = math.sqrt(dim)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.embed(ids) * self.scale
+
+
+class MultiHeadedAttention(nn.Module):
+    """Multi-head attention; mask broadcastable to (B, 1, Lq, Lk), True where
+    a key may be attended to. The scores materialise (B, H, Lq, Lk), the
+    JAX package's 'xla' branch."""
+
+    def __init__(self, dim: int, n_heads: int, dropout: float = 0.1):
+        super().__init__()
+        if dim % n_heads:
+            raise ValueError(f"d_model {dim} is not divisible by {n_heads} "
+                             "heads")
+        self.n_heads = n_heads
+        self.wq = nn.Linear(dim, dim)
+        self.wk = nn.Linear(dim, dim)
+        self.wv = nn.Linear(dim, dim)
+        self.wo = nn.Linear(dim, dim)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, q_in, k_in, v_in, mask=None):
+        bsz, lq, dim = q_in.shape
+        dk = dim // self.n_heads
+
+        def split(x):
+            return x.reshape(bsz, x.shape[1], self.n_heads, dk).transpose(1, 2)
+
+        q, k, v = split(self.wq(q_in)), split(self.wk(k_in)), split(self.wv(v_in))
+        scores = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(dk)
+        if mask is not None:
+            scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
+        probs = self.dropout(torch.softmax(scores, dim=-1))
+        out = torch.matmul(probs, v)
+        return self.wo(out.transpose(1, 2).reshape(bsz, lq, dim))
+
+
+class PositionwiseFeedForward(nn.Module):
+    """ReLU MLP with dropout on the hidden layer."""
+
+    def __init__(self, dim: int, hidden: int, dropout: float = 0.1):
+        super().__init__()
+        self.w_1 = nn.Linear(dim, hidden)
+        self.w_2 = nn.Linear(hidden, dim)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x):
+        return self.w_2(self.dropout(torch.relu(self.w_1(x))))
+
+
+class SublayerConnection(nn.Module):
+    """prenorm: x + dropout(f(norm(x))); postnorm: norm(x + dropout(f(x)))."""
+
+    def __init__(self, dim: int, dropout: float = 0.1, prenorm: bool = True):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.dropout = nn.Dropout(dropout)
+        self.prenorm = prenorm
+
+    def forward(self, x, sublayer):
+        if self.prenorm:
+            return x + self.dropout(sublayer(self.norm(x)))
+        return self.norm(x + self.dropout(sublayer(x)))
+
+
+class EncoderLayer(nn.Module):
+    """Self-attention + feed-forward encoder layer."""
+
+    def __init__(self, dim: int, dff: int, n_heads: int, dropout: float = 0.1,
+                 prenorm: bool = True):
+        super().__init__()
+        self.attn = MultiHeadedAttention(dim, n_heads, dropout)
+        self.ff = PositionwiseFeedForward(dim, dff, dropout)
+        self.sublayer = nn.ModuleList(
+            [SublayerConnection(dim, dropout, prenorm) for _ in range(2)])
+
+    def forward(self, x, mask):
+        x = self.sublayer[0](x, lambda y: self.attn(y, y, y, mask))
+        return self.sublayer[1](x, self.ff)
+
+
+class Encoder(nn.Module):
+    """Embedding + positional encoding + N encoder layers."""
+
+    def __init__(self, vocab_size: int, dim: int, dff: int, n_heads: int,
+                 n_layers: int, max_len: int, dropout: float = 0.1,
+                 prenorm: bool = True):
+        super().__init__()
+        self.embeddings = Embeddings(vocab_size, dim)
+        self.pe = PositionalEncoding(dim, max_len, dropout)
+        self.dropout = nn.Dropout(dropout)
+        self.layers = nn.ModuleList(
+            [EncoderLayer(dim, dff, n_heads, dropout, prenorm)
+             for _ in range(n_layers)])
+
+    def forward(self, ids, mask):
+        x = self.embeddings(ids)
+        # Reference quirk: x + PE(x), where PE(x) already adds x.
+        x = self.dropout(x + self.pe(x))
+        for layer in self.layers:
+            x = layer(x, mask)
+        return x

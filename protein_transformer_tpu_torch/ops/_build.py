@@ -1,0 +1,72 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. It is
+compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library at
+first use, under ``build/torch_kernels/`` at the root of the checkout, and
+loaded with ``ctypes``. The library's file name carries a hash of the source
+and the flags, so an edited source is rebuilt and a stale library is never
+loaded. A failed build raises; nothing falls back to a plain version.
+
+Nothing here runs at import time: the CPU tests import this module on
+machines that have no CUDA toolkit.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: $CUDA_HOME/bin, then $PATH, then DEFAULT_NVCC."""
+    cuda_home = os.environ.get("CUDA_HOME")
+    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(DEFAULT_NVCC)
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "cannot build the port's CUDA kernels: nvcc not found (looked in "
+        "$CUDA_HOME/bin, $PATH and " + str(DEFAULT_NVCC) + "). Install the "
+        "CUDA toolkit or set CUDA_HOME.")
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` into a shared library; return its path."""
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed to build {src.name} "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library ``name``, once per
+    process."""
+    return ctypes.CDLL(str(build(name)))
