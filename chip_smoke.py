@@ -6,11 +6,15 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
 
 1. device: card name, torch and CUDA versions, nvidia-smi name and power
    limit;
-2. build: compiles the dRMSD kernel (csrc/drmsd_fwd.cu) from this checkout;
-3. kernel against its plain PyTorch version on the card, B=8 proteins at
-   N = 600, 768, 3584, 7000 atoms (one protein all masked): |d dRMSD| <=
-   1e-4 A, equal pair counts, finite values, and median times of both over
-   25 runs (CUDA events);
+2. build: compiles both kernel libraries from this checkout at once, one
+   nvcc each: csrc/drmsd_fwd.cu (K1a) and csrc/drmsd_train.cu (K1b, K1c);
+3. kernels against their plain PyTorch versions on the card, ~70% of atoms
+   valid and one protein all masked, at B=8 x N = 600, 768, 3584, 7000 and
+   at the training step's B=16 x N = 768, 3584: equal pair counts,
+   |d dRMSD| <= 1e-4 A, K1b's S equal to K1a's bit for bit, gradients
+   (K1b: dS/da, K1c: dS/db) within 1e-4 * max(1, max|g|), zero statistic
+   and gradient for the all-masked protein, the same bits on a second
+   call, and median times of kernel and plain over 25 runs (CUDA events);
 4. goldens on the card: NeRF coordinates (tests/golden/coords.npz,
    realistic_coords.npz) <= 1e-3 A, and the conv-enc model forward
    (tests/golden/model_parity_conv-enc.npz) <= 2e-5 with TF32 off;
@@ -18,7 +22,17 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    512, d_ff 2048, 8 heads, 6 layers), B=8 x L=256, random seeded weights:
    ``Trainer.eval_epoch`` over 2 batches with the kernel, then with the
    plain version; metrics finite and equal within 1e-4 (dRMSD family) and
-   1e-6 (MSE); ms per eval step and residues/s for both.
+   1e-6 (MSE); ms per eval step and residues/s for both; K1a launched
+   twice per step;
+6. the training slice at the same width (combined loss, Adam, Noam,
+   coupled weight decay, clip 1.0, dropout 0.1), residue-budget batches of
+   15 proteins of length 255-256 padded to B=16 x L=256:
+   ``Trainer.train_epoch`` over 9 steps with the kernels, then with the
+   plain versions; finite losses; K1b launched twice per step and K1a, K1c
+   never; ms per step and residues/s for both from interleaved epochs; and
+   at dropout 0 from identical weights, one step's loss (within 1e-4
+   relative) and every parameter's gradient (within 1e-3 of its largest
+   entry) of the kernel path against the plain path.
 
 It prints the kernel table as one JSON line, and as its last line
 {"ok": true, "device": {...}}. It needs one CUDA device and no network.
@@ -31,11 +45,13 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from protein_transformer_tpu_torch.config import TrainConfig
+from protein_transformer_tpu_torch.data.dataset import collate
 from protein_transformer_tpu_torch.data.synthetic import make_dataset
 from protein_transformer_tpu_torch.device import cuda_device
 from protein_transformer_tpu_torch.models.conv_encoder import (
@@ -49,9 +65,15 @@ from protein_transformer_tpu_torch.training.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
-KERNEL_NS = (600, 768, 3584, 7000)
-MAIN_PATH_N = 3584  # the full-atom sweep at L=256; the backbone one is 768
+LIBRARIES = ("drmsd_fwd", "drmsd_train")
+# (B, N): the sizes of the TPU kernel's tests, then the training step's
+# full-atom (14 x 256) and backbone (3 x 256) sweeps at B=16
+KERNEL_CASES = ((8, 600), (8, 768), (8, 3584), (8, 7000), (16, 768),
+                (16, 3584))
+EVAL_CASE = (8, 3584)    # the eval step's full-atom sweep
+TRAIN_CASE = (16, 3584)  # the train step's full-atom sweep
 TIMED_RUNS = 25
+TRAIN_REPEAT = 8         # 16 proteins x 8 / (8 x 500 residues) -> 9 steps
 
 
 def require(ok: bool, what: str) -> None:
@@ -90,43 +112,82 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    lib = _build.build("drmsd_fwd")
-    _build.load("drmsd_fwd")
-    print(f"[build] drmsd_fwd built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s ({os.path.relpath(lib, ROOT)})")
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        libs = list(pool.map(_build.build, LIBRARIES))
+    for name in LIBRARIES:
+        _build.load(name)
+    print(f"[build] {', '.join(LIBRARIES)} built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s ("
+          + ", ".join(os.path.relpath(lib, ROOT) for lib in libs) + ")")
 
 
 def drmsd_from(s, c):
     return torch.sqrt(torch.clamp(s / c.clamp(min=1).to(s.dtype), min=1e-30))
 
 
+def grad_err(got, want, what):
+    """max |got - want|, held to 1e-4 * max(1, max|want|)."""
+    err = float((got - want).abs().max())
+    bound = 1e-4 * max(1.0, float(want.abs().max()))
+    require(err <= bound, f"{what}: gradient error {err:.3e} <= {bound:.3e}")
+    return err
+
+
+def kernel_case(dev, card, rng, bsz, n):
+    """All three kernels against their plain versions on one (B, N) case;
+    returns {kernel: (max abs error, kernel ms, plain ms)}."""
+    a, b = (torch.from_numpy(rng.normal(0, 10, (bsz, n, 3)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    m = torch.from_numpy(rng.random((bsz, n)) < 0.7).to(dev)
+    m[-1] = False  # an all-masked protein
+    fs, fc = D.drmsd_stats_cuda(a, b, m)
+    gs, gc, ga = D.drmsd_stats_grad_cuda(a, b, m)
+    gb = D.drmsd_grad_b_cuda(a, b, m)
+    ps, pc = D.drmsd_stats_torch(a, b, m)
+    _, _, pga = D.drmsd_stats_grad_torch(a, b, m)
+    pgb = D.drmsd_grad_b_torch(a, b, m)
+    torch.cuda.synchronize()
+    where = f"B={bsz} N={n}"
+    require(torch.isfinite(fs).all().item(), f"K1a values finite, {where}")
+    require(torch.equal(fc, pc) and torch.equal(gc, pc),
+            f"pair counts equal, {where}")
+    require(torch.equal(gs, fs), f"K1b's S has K1a's bits, {where}")
+    require(int(fc[-1]) == 0 and float(fs[-1]) == 0.0
+            and not ga[-1].any() and not gb[-1].any(),
+            f"all-masked protein gives zero S, C and gradients, {where}")
+    err = float((drmsd_from(fs, fc) - drmsd_from(ps, pc)).abs().max())
+    require(err <= 1e-4, f"|d dRMSD| {err:.3e} <= 1e-4 A, {where}")
+    ga_err = grad_err(ga, pga, f"K1b dS/da, {where}")
+    gb_err = grad_err(gb, pgb, f"K1c dS/db, {where}")
+    gs2, _, ga2 = D.drmsd_stats_grad_cuda(a, b, m)
+    require(torch.equal(gs2, gs) and torch.equal(ga2, ga)
+            and torch.equal(D.drmsd_grad_b_cuda(a, b, m), gb)
+            and torch.equal(D.drmsd_stats_cuda(a, b, m)[0], fs),
+            f"a second call gives the same bits, {where}")
+    out = {
+        "drmsd_fwd": (err, cuda_ms(lambda: D.drmsd_stats_cuda(a, b, m)),
+                      cuda_ms(lambda: D.drmsd_stats_torch(a, b, m))),
+        "drmsd_fwd_grad": (
+            ga_err, cuda_ms(lambda: D.drmsd_stats_grad_cuda(a, b, m)),
+            cuda_ms(lambda: D.drmsd_stats_grad_torch(a, b, m))),
+        "drmsd_grad_b": (
+            gb_err, cuda_ms(lambda: D.drmsd_grad_b_cuda(a, b, m)),
+            cuda_ms(lambda: D.drmsd_grad_b_torch(a, b, m))),
+    }
+    scale = float(pga.abs().max())
+    print(f"[kernel] {where}: counts equal, K1b S == K1a S (bits), "
+          f"|d dRMSD| {err:.3e} A, |d dS/da| {ga_err:.3e} (max|g| "
+          f"{scale:.3e}), |d dS/db| {gb_err:.3e}; kernel vs plain ms: "
+          + ", ".join(f"{k} {v[1]:.4f} vs {v[2]:.4f}"
+                      for k, v in out.items())
+          + f" (median of {TIMED_RUNS}; {card})")
+    return out
+
+
 def phase_kernel(dev, card):
     rng = np.random.default_rng(0)
-    table = {}
-    for n in KERNEL_NS:
-        bsz = 8
-        a = torch.from_numpy(rng.normal(0, 10, (bsz, n, 3)).astype(
-            np.float32)).to(dev)
-        b = torch.from_numpy(rng.normal(0, 10, (bsz, n, 3)).astype(
-            np.float32)).to(dev)
-        m = torch.from_numpy(rng.random((bsz, n)) < 0.7).to(dev)
-        m[-1] = False  # an all-masked protein
-        ks, kc = D.drmsd_stats_cuda(a, b, m)
-        ps, pc = D.drmsd_stats_torch(a, b, m)
-        torch.cuda.synchronize()
-        require(torch.isfinite(ks).all().item(), f"kernel values finite, N={n}")
-        require(torch.equal(kc, pc), f"pair counts equal, N={n}")
-        require(int(kc[-1]) == 0 and float(ks[-1]) == 0.0,
-                f"all-masked protein gives (0, 0), N={n}")
-        err = float((drmsd_from(ks, kc) - drmsd_from(ps, pc)).abs().max())
-        require(err <= 1e-4, f"|d dRMSD| {err:.3e} <= 1e-4 A at N={n}")
-        k_ms = cuda_ms(lambda: D.drmsd_stats_cuda(a, b, m))
-        p_ms = cuda_ms(lambda: D.drmsd_stats_torch(a, b, m))
-        table[n] = (err, k_ms, p_ms)
-        print(f"[kernel] B={bsz} N={n}: |d dRMSD| max {err:.3e} A, counts "
-              f"equal; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-              f"(median of {TIMED_RUNS}; {card})")
-    return table
+    return {case: kernel_case(dev, card, rng, *case)
+            for case in KERNEL_CASES}
 
 
 def phase_goldens(dev):
@@ -154,10 +215,22 @@ def phase_goldens(dev):
     print(f"[golden] model_parity_conv-enc.npz: max error {err:.3e}")
 
 
-def flagship(impl: str) -> TrainConfig:
+def flagship(impl: str, **kw) -> TrainConfig:
     return TrainConfig(model="conv-enc|21,11,3|1,1,1", d_model=512,
                        d_ff=2048, n_heads=8, n_layers=6, loss="combined",
-                       bucket_sizes=(256,), batch_size=8, drmsd_impl=impl)
+                       bucket_sizes=(256,), batch_size=8, drmsd_impl=impl,
+                       **kw)
+
+
+def random_weights(trainer, dev):
+    """Seeded fresh weights with a non-zero output head, so the trunk
+    reaches the outputs."""
+    gen = torch.Generator().manual_seed(0)
+    params = trainer.init_params(gen)
+    w = params["head.output_projection.weight"]
+    params["head.output_projection.weight"] = (
+        0.02 * torch.randn(w.shape, generator=gen)).to(dev)
+    return params
 
 
 def timed_epoch(trainer, params, split):
@@ -174,11 +247,7 @@ def phase_slice(dev, card):
                         seed=0, device=dev)
     kernel_tr = Trainer(flagship("cuda"), device=dev, data=data)
     plain_tr = Trainer(flagship("torch"), device=dev, data=data)
-    gen = torch.Generator().manual_seed(0)
-    params = kernel_tr.init_params(gen)
-    w = params["head.output_projection.weight"]
-    params["head.output_projection.weight"] = (
-        0.02 * torch.randn(w.shape, generator=gen)).to(dev)
+    params = random_weights(kernel_tr, dev)
     n_batches = sum(1 for _ in kernel_tr.dm.eval_index_batches(split))
     n_res = int(kernel_tr.dm.eval_splits[split].lens.sum())
     require(n_batches >= 2, "at least 2 eval batches")
@@ -220,6 +289,112 @@ def phase_slice(dev, card):
     return launches
 
 
+def train_epoch_timed(trainer, state):
+    """One training epoch; returns (state, seconds, steps, residues)."""
+    rng = np.random.default_rng(trainer.cfg.seed + state.step)
+    batches = list(trainer.dm.train_index_batches(rng))
+    n_res = int(sum(np.minimum(trainer.dm.train.lens[idx],
+                               trainer.dm.max_seq_len).sum()
+                    for idx in batches))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = trainer.train_epoch(state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    m = trainer.metrics["train"]
+    for key in ("combined-full", "drmsd-full", "lndrmsd-full", "mse-full"):
+        require(np.isfinite(m[f"epoch-{key}"]) and m[f"epoch-{key}"] > 0,
+                f"train epoch-{key} finite and positive")
+    return state, seconds, len(batches), n_res
+
+
+def one_step_ab(dev, data, params):
+    """Loss and gradients of one step at dropout 0 from identical weights:
+    the kernel path against the plain path."""
+    results = []
+    for impl in ("cuda", "torch"):
+        tr = Trainer(flagship(impl, dropout=0.0, max_seq_len=256),
+                     device=dev, data=data)
+        state = tr.state_from(params)
+        idx = next(tr.dm.train_index_batches(np.random.default_rng(0)))
+        batch = collate(tr.dm.train, idx, tr.cfg.bucket_sizes,
+                        tr.dm.max_seq_len).to(dev)
+        loss, _, grads = tr.loss_and_grads(state.params, batch)
+        results.append((float(loss.detach()),
+                        dict(zip(state.params, grads))))
+    (k_loss, k_grads), (p_loss, p_grads) = results
+    require(np.isfinite(k_loss) and abs(k_loss - p_loss)
+            <= 1e-4 * abs(p_loss),
+            f"one-step loss: kernel {k_loss} vs plain {p_loss} within 1e-4 "
+            "relative")
+    top = max(float(g.abs().max()) for g in p_grads.values())
+    worst = 0.0
+    for name, pg in p_grads.items():
+        kg = k_grads[name]
+        require(torch.isfinite(kg).all().item(), f"{name} gradient finite")
+        # the attention key bias has an exact gradient of zero: fp32 noise
+        scale = max(float(pg.abs().max()), 1e-3 * top)
+        err = float((kg - pg).abs().max())
+        require(err <= 1e-3 * scale,
+                f"{name} gradient: {err:.3e} <= 1e-3 * {scale:.3e}")
+        worst = max(worst, err / scale)
+    print(f"[train] one step at dropout 0, same weights: loss kernel "
+          f"{k_loss:.6f} vs plain {p_loss:.6f}; worst gradient error "
+          f"{worst:.3e} of the parameter's largest entry")
+
+
+def phase_train(dev, card):
+    data = make_dataset(n_train=16, n_eval=2, min_len=255, max_len=256,
+                        seed=0, device=dev)
+    kw = dict(optimizer="adam", lr_scheduling="noam", max_seq_len=256,
+              repeat_train=TRAIN_REPEAT)
+    trainers = {impl: Trainer(flagship(impl, **kw), device=dev, data=data)
+                for impl in ("cuda", "torch")}
+    params = random_weights(trainers["cuda"], dev)
+    states = {impl: tr.state_from(params) for impl, tr in trainers.items()}
+    for impl, tr in trainers.items():  # warm-up epoch, both paths
+        states[impl] = train_epoch_timed(tr, states[impl])[0]
+
+    D.drmsd_stats_cuda.launches = 0
+    D.drmsd_stats_grad_cuda.launches = 0
+    D.drmsd_grad_b_cuda.launches = 0
+    states["cuda"], k_s, steps, n_res = train_epoch_timed(trainers["cuda"],
+                                                          states["cuda"])
+    launches = {"drmsd_fwd": D.drmsd_stats_cuda.launches,
+                "drmsd_fwd_grad": D.drmsd_stats_grad_cuda.launches,
+                "drmsd_grad_b": D.drmsd_grad_b_cuda.launches}
+    require(steps >= 8, f"{steps} training steps, expected at least 8")
+    require(launches == {"drmsd_fwd": 0, "drmsd_fwd_grad": 2 * steps,
+                         "drmsd_grad_b": 0},
+            f"training launches {launches}: expected K1b 2 per step for "
+            f"{steps} steps, K1a and K1c none")
+    times = {"cuda": [k_s / steps], "torch": []}
+    rates = {"cuda": [n_res / k_s], "torch": []}
+    for impl in ("torch", "torch", "cuda", "cuda", "torch"):
+        states[impl], sec, n, res = train_epoch_timed(trainers[impl],
+                                                      states[impl])
+        times[impl].append(sec / n)
+        rates[impl].append(res / sec)
+    batch_shape = next(trainers["cuda"].dm.train_batches(
+        np.random.default_rng(0))).seq.shape
+    m = trainers["cuda"].metrics["train"]
+    print("[train] last epoch (kernel): " + json.dumps(
+        {k: m[f"epoch-{k}"] for k in ("combined-full", "drmsd-full",
+                                      "lndrmsd-full", "mse-full")}))
+    cfg = trainers["cuda"].cfg
+    print(f"[train] conv-enc|21,11,3|1,1,1, d_model {cfg.d_model} x "
+          f"{cfg.n_layers} layers, {steps} steps per epoch of "
+          f"B={batch_shape[0]} x L={batch_shape[1]}: kernel "
+          f"{1e3 * statistics.median(times['cuda']):.2f} ms/step "
+          f"({statistics.median(rates['cuda']):.0f} res/s), plain "
+          f"{1e3 * statistics.median(times['torch']):.2f} ms/step "
+          f"({statistics.median(rates['torch']):.0f} res/s), medians of 3 "
+          f"epochs each, interleaved; launches in the counted epoch "
+          f"{json.dumps(launches)} ({card})")
+    one_step_ab(dev, data, params)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this smoke run "
@@ -231,18 +406,23 @@ def main() -> int:
     phase_build()
     table = phase_kernel(dev, card)
     phase_goldens(dev)
-    launches = phase_slice(dev, card)
-    _, k_ms, p_ms = table[MAIN_PATH_N]
-    print(json.dumps({"kernels": [{
-        "name": "drmsd_fwd",
-        "route": "cuda",
-        "source": "protein_transformer_tpu_torch/csrc/drmsd_fwd.cu",
-        "replaces": "protein_transformer_tpu/ops/drmsd_pallas.py:56",
-        "launches": launches,
-        "max_abs_err": max(e for e, _, _ in table.values()),
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+    eval_launches = phase_slice(dev, card)
+    train_launches = phase_train(dev, card)
+    source = "protein_transformer_tpu_torch/csrc/"
+    replaces = "protein_transformer_tpu/ops/drmsd_pallas.py:"
+    rows = []
+    for name, src, line, case, launches in (
+            ("drmsd_fwd", "drmsd_fwd.cu", 56, EVAL_CASE, eval_launches),
+            ("drmsd_fwd_grad", "drmsd_train.cu", 151, TRAIN_CASE,
+             train_launches["drmsd_fwd_grad"]),
+            ("drmsd_grad_b", "drmsd_train.cu", 87, TRAIN_CASE,
+             train_launches["drmsd_grad_b"])):
+        _, k_ms, p_ms = table[case][name]
+        rows.append({"name": name, "route": "cuda", "source": source + src,
+                     "replaces": f"{replaces}{line}", "launches": launches,
+                     "max_abs_err": max(t[name][0] for t in table.values()),
+                     "ms": k_ms, "plain_ms": p_ms})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

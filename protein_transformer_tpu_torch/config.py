@@ -1,4 +1,4 @@
-"""Typed configuration for the port (the fields the eval slice reads).
+"""Typed configuration for the port (the fields its slices read so far).
 
 Same field names and defaults as protein_transformer_tpu/config.py;
 fields come with the slices that read them. ``finalize()`` applies the
@@ -18,16 +18,33 @@ LOSSES = ("mse", "drmsd", "lndrmsd", "combined")
 class TrainConfig:
     data: str = "data/casp12.pt"
 
+    # Training
+    learning_rate: float = 1e-4
     batch_size: int = 8
+    n_warmup_steps: int = 10_000
+    clip: float = 1.0
     loss: str = "combined"
+    lr_scheduling: str = "plateau"          # noam | plateau
+    patience: int = 10
+    early_stopping_threshold: float = 0.001
     without_angle_means: bool = False
+    optimizer: str = "sgd"                   # adam | sgd
     skip_missing_res_train: bool = False
+    repeat_train: int = 1
+    seed: int = 11_731
     combined_drmsd_weight: float = 0.5
+    # Training-gradient semantics for dRMSD-family losses: "mean"
+    # differentiates the reported batch-mean scalar; "reference" injects
+    # d(sum over proteins of per-protein ln-dRMSD), plus the MSE term for
+    # "combined", as the original torch code stitched its gradients.
+    grad_semantics: str = "mean"
+    batching_order: str = "binned-random"
     backbone_loss: bool = False
     # Under --backbone_loss every dRMSD/RMSD metric is computed on
     # backbone-reduced coordinates; full_metrics restores full-atom
     # reporting.
     full_metrics: bool = False
+    bins: int = -1                           # -1 -> 'auto'
 
     # Model
     model: str = "enc-only"
@@ -37,6 +54,7 @@ class TrainConfig:
     n_layers: int = 6
     dropout: float = 0.1
     postnorm: bool = False
+    weight_decay: bool = True
     conv1_size: Optional[int] = None
     conv2_size: Optional[int] = None
     conv3_size: Optional[int] = None

@@ -24,29 +24,19 @@
 //     order, into partials[protein][pair]. A second kernel sums each
 //     protein's partials in a fixed order. No float atomics: the TPU kernel
 //     accumulates with += across grid cells, which is race-free only
-//     because TPU grid cells run one after another, and the training
-//     kernel that comes later must reproduce these sums bit for bit.
+//     because TPU grid cells run one after another.
+//   * the pair arithmetic, the block reduction and the per-protein sum come
+//     from drmsd_common.cuh, shared with the training kernel
+//     (drmsd_train.cu), so both give S with the same bits.
 //   * the pair count is an integer. At L=500 a protein has 7,000 atoms and
 //     24.5 M pairs, more than the 2^24 that fp32 counts exactly. This is the
 //     one intended difference from the TPU kernel, which counts in fp32.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "drmsd_common.cuh"
+
+using namespace drmsd;
 
 namespace {
-
-constexpr int kTile = 128;
-constexpr int kThreads = 256;
-constexpr int kColGroups = kThreads / kTile;
-constexpr int kWarps = kThreads / 32;
-constexpr int kReduceThreads = 256;
-constexpr float kDistClamp = 1e-30f;
-
-__device__ __forceinline__ float clamped_dist(float dx, float dy, float dz) {
-  float d2 = dx * dx + dy * dy + dz * dz;
-  d2 = fmaxf(d2, kDistClamp);
-  return d2 * rsqrtf(d2);
-}
 
 __global__ void __launch_bounds__(kThreads)
 drmsd_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -55,14 +45,8 @@ drmsd_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
                   int* __restrict__ part_c) {
   const int pair = blockIdx.x;
   const int prot = blockIdx.y;
-  // Unrank the pair index over the upper triangle, row by row.
-  int ti = 0;
-  int rem = pair;
-  while (rem >= n_tiles - ti) {
-    rem -= n_tiles - ti;
-    ++ti;
-  }
-  const int tj = ti + rem;
+  int ti, tj;
+  unrank_pair(pair, n_tiles, &ti, &tj);
 
   __shared__ float sa[3][kTile];
   __shared__ float sb[3][kTile];
@@ -102,71 +86,20 @@ drmsd_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
   if (row_ok) {
     for (int col = tid / kTile; col < kTile; col += kColGroups) {
       if (sm[col] && i < tj * kTile + col) {
-        const float da = clamped_dist(ax - sa[0][col], ay - sa[1][col],
-                                      az - sa[2][col]);
-        const float db = clamped_dist(bx - sb[0][col], by - sb[1][col],
-                                      bz - sb[2][col]);
-        const float d = da - db;
-        s += d * d;
+        const Dist da = clamped_dist(__fsub_rn(ax, sa[0][col]),
+                                     __fsub_rn(ay, sa[1][col]),
+                                     __fsub_rn(az, sa[2][col]));
+        const Dist db = clamped_dist(__fsub_rn(bx, sb[0][col]),
+                                     __fsub_rn(by, sb[1][col]),
+                                     __fsub_rn(bz, sb[2][col]));
+        const float d = pair_delta(da, db);
+        s = __fmaf_rn(d, d, s);
         cnt += 1;
       }
     }
   }
-
-  for (int off = 16; off > 0; off >>= 1) {
-    s += __shfl_down_sync(0xffffffffu, s, off);
-    cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-  }
-  if ((tid & 31) == 0) {
-    red_s[tid >> 5] = s;
-    red_c[tid >> 5] = cnt;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float ts = 0.f;
-    int tc = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      ts += red_s[w];
-      tc += red_c[w];
-    }
-    const size_t o = static_cast<size_t>(prot) * n_pairs + pair;
-    part_s[o] = ts;
-    part_c[o] = tc;
-  }
-}
-
-// One block per protein: strided per-thread sums, then a fixed-shape tree.
-// Partials are summed in double: there are at most a few thousand of them,
-// and the order is fixed, so the result is deterministic.
-__global__ void __launch_bounds__(kReduceThreads)
-drmsd_reduce_kernel(const float* __restrict__ part_s,
-                    const int* __restrict__ part_c, int n_pairs,
-                    float* __restrict__ out_s, long long* __restrict__ out_c) {
-  __shared__ double ss[kReduceThreads];
-  __shared__ long long sc[kReduceThreads];
-  const int prot = blockIdx.x;
-  const int tid = threadIdx.x;
-  const size_t base = static_cast<size_t>(prot) * n_pairs;
-  double s = 0.0;
-  long long c = 0;
-  for (int p = tid; p < n_pairs; p += kReduceThreads) {
-    s += part_s[base + p];
-    c += part_c[base + p];
-  }
-  ss[tid] = s;
-  sc[tid] = c;
-  __syncthreads();
-  for (int stride = kReduceThreads / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-      ss[tid] += ss[tid + stride];
-      sc[tid] += sc[tid + stride];
-    }
-    __syncthreads();
-  }
-  if (tid == 0) {
-    out_s[prot] = static_cast<float>(ss[0]);
-    out_c[prot] = sc[0];
-  }
+  block_stat_partial(s, cnt, red_s, red_c, part_s, part_c,
+                     static_cast<size_t>(prot) * n_pairs + pair);
 }
 
 }  // namespace
@@ -196,7 +129,7 @@ int drmsd_fwd(const float* a, const float* b, const uint8_t* mask, int batch,
       a, b, mask, n, n_tiles, n_pairs, part_s, part_c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  drmsd_reduce_kernel<<<batch, kReduceThreads, 0, s>>>(part_s, part_c,
+  stat_reduce_kernel<<<batch, kReduceThreads, 0, s>>>(part_s, part_c,
                                                       n_pairs, out_s, out_c);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,17 +1,19 @@
 """Host-side data pipeline for the port: splits, bucketed collation, loading.
 
-Port of the eval-split parts of protein_transformer_tpu/data/dataset.py.
-Batches carry zero-filled arrays plus explicit boolean masks, padded to a
-bucketed (B, L) shape lattice. Collation is numpy on the host, element for
-element the JAX package's; ``Batch.to(device)`` moves a batch onto a torch
-device. The training sampler (binned batches) comes with the training port.
+Port of protein_transformer_tpu/data/dataset.py: splits, the binned
+training sampler with its residue budget, and collation. Batches carry
+zero-filled arrays plus explicit boolean masks, padded to a bucketed (B, L)
+shape lattice. Sampling and collation are numpy on the host, draw for draw
+and element for element the JAX package's, so one ``np.random.Generator``
+gives the same batches in both; ``Batch.to(device)`` moves a batch onto a
+torch device.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -79,6 +81,47 @@ class ProteinSplit:
 
     def __len__(self):
         return len(self.seqs)
+
+
+class BinnedDataset(ProteinSplit):
+    """A split with length-histogram bins, for the training sampler."""
+
+    def __init__(self, *args, bins="auto", **kwargs):
+        super().__init__(*args, **kwargs)
+        self.hist_counts, edges = np.histogram(self.lens, bins=bins)
+        self.hist_bins = edges[1:]  # right edge of each bin: '( , ]'
+        self.bin_probs = self.hist_counts / max(self.hist_counts.sum(), 1)
+        bin_of = np.minimum(
+            np.searchsorted(self.hist_bins, self.lens, side="left"),
+            len(self.hist_bins) - 1)
+        self.bin_map: dict[int, np.ndarray] = {
+            int(b): np.flatnonzero(bin_of == b) for b in np.unique(bin_of)}
+
+
+def binned_batch_sampler(ds: BinnedDataset, batch_size: int,
+                         dynamic_batch: Optional[int],
+                         rng: np.random.Generator,
+                         repeat_train: int = 1) -> Iterator[np.ndarray]:
+    """Arrays of dataset indices, one batch at a time: a length bin drawn
+    by its share of the split, then rows drawn from it with replacement.
+    dynamic_batch is the residue budget; a bin's batch holds
+    budget // (the bin's right edge) rows."""
+    if dynamic_batch:
+        n_batches = int(np.ceil(ds.lens.sum() * repeat_train
+                                / dynamic_batch))
+    else:
+        n_batches = int(np.ceil(len(ds) * repeat_train / batch_size))
+    bins_with_items = [b for b in range(len(ds.hist_bins))
+                       if len(ds.bin_map.get(b, ())) > 0]
+    probs = np.array([ds.bin_probs[b] for b in bins_with_items])
+    probs = probs / probs.sum()
+    for _ in range(n_batches):
+        b = rng.choice(bins_with_items, p=probs)
+        if dynamic_batch:
+            this_bs = max(1, int(dynamic_batch / ds.hist_bins[b]))
+        else:
+            this_bs = batch_size
+        yield rng.choice(ds.bin_map[b], size=this_bs)
 
 
 def bucket_length(length: int, buckets: Sequence[int], max_len: int) -> int:
@@ -161,7 +204,7 @@ def load_dataset(path: str) -> dict:
 
 
 class DataModule:
-    """Splits and collation for the evaluation loop."""
+    """Splits, the training sampler and collation."""
 
     def __init__(self, data: dict, cfg):
         self.cfg = cfg
@@ -172,6 +215,14 @@ class DataModule:
         self.max_seq_len = min(int(settings.get("max_len", cfg.max_seq_len))
                                if settings.get("max_len") else cfg.max_seq_len,
                                cfg.max_seq_len)
+        self.train = None
+        if "train" in data:
+            self.train = BinnedDataset(
+                data["train"]["seq"], data["train"]["ang"],
+                data["train"]["crd"], ids=data["train"].get("ids"),
+                skip_missing_residues=cfg.skip_missing_res_train,
+                max_seq_len=self.max_seq_len,
+                bins="auto" if cfg.bins == -1 else cfg.bins)
         self.eval_splits: dict[str, ProteinSplit] = {}
         for split in ALL_SPLITS[1:]:
             if split in data:
@@ -180,6 +231,32 @@ class DataModule:
                     data[split]["crd"], ids=data[split].get("ids"),
                     skip_missing_residues=cfg.skip_missing_res_train,
                     max_seq_len=self.max_seq_len)
+
+    def train_index_batches(self,
+                            rng: np.random.Generator) -> Iterator[np.ndarray]:
+        """Per-batch dataset index arrays for one training epoch."""
+        cfg = self.cfg
+        if cfg.batching_order in ("descending", "ascending"):
+            order = np.argsort(self.train.lens)
+            if cfg.batching_order == "descending":
+                order = order[::-1]
+            for _ in range(cfg.repeat_train):
+                for start in range(0, len(order), cfg.batch_size):
+                    yield order[start:start + cfg.batch_size]
+            return
+        # The residue budget uses the MAX_SEQ_LEN constant even when the
+        # dataset's own maximum length is smaller, as the JAX package and
+        # the original code do: per-bin batch sizes do not shrink on
+        # short-protein datasets.
+        yield from binned_batch_sampler(
+            self.train, cfg.batch_size,
+            dynamic_batch=cfg.batch_size * MAX_SEQ_LEN,
+            rng=rng, repeat_train=cfg.repeat_train)
+
+    def train_batches(self, rng: np.random.Generator) -> Iterator[Batch]:
+        for idx in self.train_index_batches(rng):
+            yield collate(self.train, idx, self.cfg.bucket_sizes,
+                          self.max_seq_len)
 
     def eval_index_batches(self, split: str) -> Iterator[np.ndarray]:
         ds = self.eval_splits[split]

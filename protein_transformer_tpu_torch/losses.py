@@ -1,4 +1,4 @@
-"""Evaluation losses in PyTorch: angle MSE, dRMSD family, superposition RMSD.
+"""Losses in PyTorch: angle MSE, dRMSD family, superposition RMSD.
 
 Port of protein_transformer_tpu/losses.py, batched over proteins instead of
 vmapped. Masks are explicit, as in the JAX package: the angle mask is True
@@ -6,8 +6,9 @@ where a target angle exists; the atom mask (B, L, 14) is True where a true
 coordinate exists. Masked reductions equal the reference's
 compact-then-reduce semantics.
 
-The dRMSD pair sweep goes through ``ops.drmsd``: the CUDA kernel for CUDA
-tensors (impl "cuda"), the plain PyTorch version otherwise ("torch").
+The dRMSD pair sweep goes through ``ops.drmsd``: the CUDA kernels for CUDA
+tensors (impl "cuda"), the plain PyTorch versions otherwise ("torch"). It is
+differentiable in the predicted coordinates (``ops.drmsd.DrmsdStats``).
 """
 from __future__ import annotations
 
@@ -49,8 +50,9 @@ def drmsd_masked(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     """Masked dRMSD = sqrt(mean over valid i<j pairs of (Da - Db)^2).
 
     a, b: (..., N, 3); mask: (..., N). Returns (...,). impl: "cuda" (the
-    kernel; CUDA tensors only), "torch" (plain) or "auto" (by device). The
-    value floor keeps sqrt's slope finite for empty or identical sets."""
+    kernels; CUDA tensors only), "torch" (plain) or "auto" (by device).
+    The clamp before sqrt keeps its slope finite for empty or identical
+    sets, so padded dummy rows give zero gradients, not NaN."""
     s, c = drmsd_stats(a, b, mask, impl)
     c = torch.clamp(c, min=1).to(s.dtype)
     return torch.sqrt(torch.clamp(s / c, min=DIST_CLAMP))
@@ -102,17 +104,21 @@ def compute_batch_drmsd(pred_sincos: torch.Tensor, true_crd: torch.Tensor,
                         protein_mask: Optional[torch.Tensor] = None,
                         impl: str = "auto",
                         pred_crd: Optional[torch.Tensor] = None,
-                        backbone_only: bool = False) -> DrmsdResults:
+                        with_per_protein: bool = False,
+                        backbone_only: bool = False):
     """Batch-mean dRMSD family from (B, L, 24) predictions.
 
     protein_mask: optional (B,) bool marking real rows; padded dummy rows
     are left out of the mean. pred_crd skips the NeRF build when the caller
-    already has the coordinates."""
+    already has the coordinates. with_per_protein also returns the (B,)
+    statistics, as (means, per-protein), for the reference gradient
+    semantics."""
     if pred_crd is None:
         pred_crd = build_coords_batch(inverse_trig_transform(pred_sincos), seq)
     per = per_protein_drmsd(pred_crd, true_crd, atom_mask, impl,
                             backbone_only)
-    return DrmsdResults(*(_masked_mean(v, protein_mask) for v in per))
+    res = DrmsdResults(*(_masked_mean(v, protein_mask) for v in per))
+    return (res, per) if with_per_protein else res
 
 
 def combine_drmsd_mse(d, mse, w: float = 0.5, lndrmsd_norm: float = 0.02,

@@ -17,7 +17,7 @@ from torch import nn
 from protein_transformer_tpu_torch.models.encoder_only import (
     AngleProjection, key_padding_mask)
 from protein_transformer_tpu_torch.models.transformer import (
-    Embeddings, EncoderLayer, PositionalEncoding)
+    Dropout, Embeddings, EncoderLayer, PositionalEncoding)
 
 
 def conv_out_size(d_model: int, d_in: int, use_embedding: bool,
@@ -66,7 +66,7 @@ class ConvEncoderOnlyTransformer(nn.Module):
         if use_embedding:
             self.embeddings = Embeddings(vocab_size, d_model)
             self.pe = PositionalEncoding(d_model, max_len, dropout)
-            self.dropout = nn.Dropout(dropout)
+            self.dropout = Dropout(dropout)
         else:
             self.pe = PositionalEncoding(d_attn, max_len, dropout)
         convs = []

@@ -11,7 +11,9 @@ Port of protein_transformer_tpu/models/transformer.py (encoder side):
   queries still attend to the real keys.
 
 Layer norms use eps 1e-6, flax's default (torch's is 1e-5). Dropout sits
-where the JAX modules have it and is inactive in ``eval()`` mode. The port
+where the JAX modules have it, is inactive in ``eval()`` mode, and draws its
+masks from an explicit ``torch.Generator`` that the trainer owns and seeds
+(``set_dropout_generator``), never from torch's global one. The port
 computes in fp32 throughout (the JAX package's bf16 option is not ported).
 """
 from __future__ import annotations
@@ -23,6 +25,35 @@ import torch
 from torch import nn
 
 LAYER_NORM_EPS = 1e-6
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose keep-mask is drawn from ``self.generator``, a
+    ``torch.Generator`` on the input's device. Identity in eval mode and at
+    p == 0; in train mode with p > 0 and no generator set it raises."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in train mode needs a generator: "
+                               "call set_dropout_generator(model, g)")
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
+                                              generator=self.generator)
+        return x * keep / (1.0 - self.p)
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: torch.Generator) -> None:
+    """Point every ``Dropout`` of ``model`` at ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 def sinusoidal_positions(max_len: int, dim: int) -> np.ndarray:
@@ -44,7 +75,7 @@ class PositionalEncoding(nn.Module):
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_positions(max_len, dim)),
             persistent=False)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.dropout(x + self.pe[None, : x.shape[1]])
@@ -77,7 +108,7 @@ class MultiHeadedAttention(nn.Module):
         self.wk = nn.Linear(dim, dim)
         self.wv = nn.Linear(dim, dim)
         self.wo = nn.Linear(dim, dim)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, q_in, k_in, v_in, mask=None):
         bsz, lq, dim = q_in.shape
@@ -102,7 +133,7 @@ class PositionwiseFeedForward(nn.Module):
         super().__init__()
         self.w_1 = nn.Linear(dim, hidden)
         self.w_2 = nn.Linear(hidden, dim)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x):
         return self.w_2(self.dropout(torch.relu(self.w_1(x))))
@@ -114,7 +145,7 @@ class SublayerConnection(nn.Module):
     def __init__(self, dim: int, dropout: float = 0.1, prenorm: bool = True):
         super().__init__()
         self.norm = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.prenorm = prenorm
 
     def forward(self, x, sublayer):
@@ -148,7 +179,7 @@ class Encoder(nn.Module):
         super().__init__()
         self.embeddings = Embeddings(vocab_size, dim)
         self.pe = PositionalEncoding(dim, max_len, dropout)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.layers = nn.ModuleList(
             [EncoderLayer(dim, dff, n_heads, dropout, prenorm)
              for _ in range(n_layers)])

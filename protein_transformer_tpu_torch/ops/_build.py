@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. It is
-compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library at
-first use, under ``build/torch_kernels/`` at the root of the checkout, and
-loaded with ``ctypes``. The library's file name carries a hash of the source
-and the flags, so an edited source is rebuilt and a stale library is never
-loaded. A failed build raises; nothing falls back to a plain version.
+Each kernel library is one ``csrc/<name>.cu`` file with a plain C
+interface; it may include the ``csrc/*.cuh`` headers. It is compiled with
+``nvcc`` for Hopper (``sm_90a``) into a shared library at first use, under
+``build/torch_kernels/`` at the root of the checkout, and loaded with
+``ctypes``. The library's file name carries a hash of the source, the
+headers and the flags, so an edited source or header is rebuilt and a stale
+library is never loaded. A failed build raises; nothing falls back to a
+plain version.
 
 Nothing here runs at import time: the CPU tests import this module on
 machines that have no CUDA toolkit.
@@ -48,7 +50,10 @@ def find_nvcc() -> str:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` into a shared library; return its path."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if out.is_file():
         return out

@@ -1,0 +1,169 @@
+"""Optimizers and learning-rate schedules in PyTorch.
+
+Port of protein_transformer_tpu/training/optim.py, whose optax chain it
+follows step for step:
+
+1. clip by global norm: scale by clip / norm when norm > clip (optax's
+   form; ``torch.nn.utils.clip_grad_norm_`` divides by norm + 1e-6);
+2. weight decay 1e-2 added to the gradient, coupled, before the moments;
+3. Adam(0.9, 0.98, eps 1e-9) with bias correction and eps outside the
+   sqrt, or plain SGD;
+4. times the learning rate (a float, or a schedule of the update count),
+   times the plateau scale that the trainer passes.
+
+Parameters are a dict of tensors, updated in place under ``no_grad`` (the
+JAX package donates their buffers to the same end). The multi-tensor
+``torch._foreach_*`` ops keep the launch count per step flat in the number
+of parameter tensors. The step count lives on the host, so the schedule
+never reads the device. ``PlateauState`` and ``EarlyStopping`` are the JAX
+package's host-side state machines, copied as plain Python.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Union
+
+import torch
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.98, 1e-9
+WEIGHT_DECAY = 1e-2
+
+Schedule = Callable[[int], float]
+
+
+def noam_schedule(d_model: int, warmup_steps: int) -> Schedule:
+    """lr = d_model^-0.5 * min(step^-0.5, warmup^-1.5 * step), with step
+    counting from count + 1 (count = updates done before this one)."""
+    init_lr = float(d_model) ** -0.5
+    wu = float(warmup_steps) ** -1.5
+
+    def schedule(count: int) -> float:
+        step = float(max(count + 1, 1))
+        return init_lr * min(step ** -0.5, wu * step)
+
+    return schedule
+
+
+@dataclasses.dataclass
+class OptState:
+    """count: updates applied so far; mu, nu: Adam's moments, one tensor per
+    parameter in the parameter dict's order (empty for SGD)."""
+    count: int
+    mu: list
+    nu: list
+
+
+class Optimizer:
+    """The chain of ``make_optimizer``; ``update`` applies one step."""
+
+    def __init__(self, optimizer: str, learning_rate: Union[float, Schedule],
+                 weight_decay: bool, clip: float | None):
+        if optimizer not in ("adam", "sgd"):
+            raise ValueError(f"Unknown optimizer {optimizer}")
+        self.optimizer = optimizer
+        self.learning_rate = learning_rate
+        self.weight_decay = WEIGHT_DECAY if weight_decay else 0.0
+        self.clip = clip
+
+    def lr(self, count: int) -> float:
+        """The learning rate of the update after ``count`` updates."""
+        if callable(self.learning_rate):
+            return float(self.learning_rate(count))
+        return float(self.learning_rate)
+
+    def init(self, params: dict) -> OptState:
+        if self.optimizer == "sgd":
+            return OptState(0, [], [])
+        zeros = [torch.zeros_like(p) for p in params.values()]
+        return OptState(0, zeros, [torch.zeros_like(p) for p in zeros])
+
+    @torch.no_grad()
+    def update(self, params: dict, grads, state: OptState,
+               lr_scale: float = 1.0) -> OptState:
+        """Apply one update to ``params`` in place; grads is a sequence in
+        the params' order and is consumed (scaled in place)."""
+        ps = list(params.values())
+        gs = list(grads)
+        if self.clip:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(gs)))
+            factor = torch.where(norm < self.clip, 1.0, self.clip / norm)
+            torch._foreach_mul_(gs, factor)
+        if self.weight_decay:
+            torch._foreach_add_(gs, ps, alpha=self.weight_decay)
+        count = state.count + 1
+        if self.optimizer == "adam":
+            mu, nu = state.mu, state.nu
+            torch._foreach_lerp_(mu, gs, 1.0 - ADAM_B1)
+            torch._foreach_mul_(nu, ADAM_B2)
+            torch._foreach_addcmul_(nu, gs, gs, value=1.0 - ADAM_B2)
+            mu_hat = torch._foreach_div(mu, 1.0 - ADAM_B1 ** count)
+            denom = torch._foreach_div(nu, 1.0 - ADAM_B2 ** count)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, ADAM_EPS)
+            gs = torch._foreach_div(mu_hat, denom)
+        torch._foreach_add_(ps, gs, alpha=-self.lr(state.count) * lr_scale)
+        return OptState(count, state.mu, state.nu)
+
+
+def make_optimizer(optimizer: str, learning_rate: Union[float, Schedule],
+                   weight_decay: bool, clip: float | None) -> Optimizer:
+    """learning_rate: a float, or a schedule of the update count."""
+    return Optimizer(optimizer, learning_rate, weight_decay, clip)
+
+
+@dataclasses.dataclass
+class PlateauState:
+    """torch.optim.lr_scheduler.ReduceLROnPlateau with mode='min',
+    factor=0.1, threshold_mode='rel', as a scale on the base lr."""
+    patience: int
+    threshold: float
+    factor: float = 0.1
+    best: float = float("inf")
+    num_bad_epochs: int = 0
+    scale: float = 1.0
+
+    def step(self, metric: float) -> float:
+        """Update with an epoch metric; returns the current lr scale."""
+        if metric < self.best * (1.0 - self.threshold):
+            self.best = metric
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.num_bad_epochs > self.patience:
+            self.scale *= self.factor
+            self.num_bad_epochs = 0
+        return self.scale
+
+    def state_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def load_state_dict(self, d: dict) -> None:
+        for k, v in d.items():
+            setattr(self, k, v)
+
+
+@dataclasses.dataclass
+class EarlyStopping:
+    """Stop when the monitored metric has not improved by more than
+    ``threshold`` for more than ``patience`` epochs."""
+    patience: int
+    threshold: float
+    best: float = float("inf")
+    epoch_last_improved: int = -1
+
+    def update(self, epoch: int, metric: float) -> bool:
+        """Returns True if training should stop."""
+        if self.best - metric > self.threshold:
+            self.best = metric
+            self.epoch_last_improved = epoch
+            return False
+        return (self.patience > 0
+                and epoch - self.epoch_last_improved > self.patience)
+
+    def state_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def load_state_dict(self, d: dict) -> None:
+        for k, v in d.items():
+            setattr(self, k, v)

@@ -1,10 +1,13 @@
-"""dRMSD statistics of the PyTorch port against the JAX package.
+"""dRMSD statistics and their gradients, PyTorch port against the JAX
+package.
 
-The port's plain version (``ops.drmsd.drmsd_stats_torch``) is held against
-the JAX package's tiled XLA statistics (``losses._drmsd_stats``) and its
-Pallas kernel (``ops.drmsd_pallas.drmsd_stats_pallas``) run in interpret
-mode, exactly as tests/test_pallas_kernel.py runs it. Tolerance: dRMSD
-<= 1e-4 A (both sides sum fp32 in different orders), pair counts exact.
+The port's plain versions (``ops.drmsd.drmsd_stats_torch``,
+``drmsd_stats_grad_torch``, ``drmsd_grad_b_torch``) are held against the
+JAX package's tiled XLA statistics (``losses._drmsd_stats``) and its Pallas
+kernels (``ops.drmsd_pallas``) run in interpret mode, exactly as
+tests/test_pallas_kernel.py runs them. Tolerances: dRMSD <= 1e-4 A and pair
+counts exact; gradients within 1e-4 * max(1, max|g|), the gate of
+tests/test_pallas_kernel.py (both sides sum fp32 in different orders).
 
 JAX is imported inside the tests, not at the top, so that the card-only
 test below also collects where JAX is not installed
@@ -117,8 +120,13 @@ def test_cuda_impl_on_cpu_tensors_raises():
     a = torch.zeros(4, 3)
     with pytest.raises(ValueError, match="CUDA device"):
         D.drmsd_stats(a, a, torch.ones(4, dtype=torch.bool), impl="cuda")
+    for kernel in (D.drmsd_stats_cuda, D.drmsd_stats_grad_cuda,
+                   D.drmsd_grad_b_cuda):
+        with pytest.raises(ValueError, match="CUDA device"):
+            kernel(a, a, torch.ones(4, dtype=torch.bool))
     with pytest.raises(ValueError, match="CUDA device"):
-        D.drmsd_stats_cuda(a, a, torch.ones(4, dtype=torch.bool))
+        D.drmsd_stats(a.requires_grad_(), a, torch.ones(4, dtype=torch.bool),
+                      impl="cuda")
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -129,6 +137,85 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build("drmsd_fwd")
     assert not (tmp_path / "build").exists()
+
+
+def grad_gate(got, want):
+    """The gradient gate of tests/test_pallas_kernel.py."""
+    got, want = np.asarray(got), np.asarray(want)
+    return np.abs(got - want).max() <= 1e-4 * max(1.0, np.abs(want).max())
+
+
+def test_plain_grads_match_pallas_vjp(jax_ref):
+    """d dRMSD / d(a, b) of the port (DrmsdStats on its plain versions)
+    against jax.grad of the Pallas kernels' custom VJP, for a padded batch:
+    two tiles of 512, a sparse protein and an all-masked one."""
+    _, dp = jax_ref
+    import jax
+    import jax.numpy as jnp
+    from protein_transformer_tpu_torch import losses as TL
+    rng = np.random.default_rng(3)
+    a, b, m = cloud(rng, 3, 560)
+    m[1] = rng.random(560) < 0.2
+    m[2] = False
+    ta = torch.from_numpy(a).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    TL.drmsd_masked(ta, tb, torch.from_numpy(m)).sum().backward()
+    assert torch.isfinite(ta.grad).all() and torch.isfinite(tb.grad).all()
+    assert (ta.grad[2] == 0).all() and (tb.grad[2] == 0).all()
+    grad = jax.jit(jax.grad(dp.drmsd_masked_pallas, argnums=(0, 1)))
+    for i in range(2):
+        ga, gb = grad(jnp.asarray(a[i]), jnp.asarray(b[i]),
+                      jnp.asarray(m[i]))
+        assert grad_gate(ta.grad[i], ga) and grad_gate(tb.grad[i], gb)
+
+
+def test_plain_grads_match_autograd():
+    """The explicit gradient formulas against torch.autograd through the
+    plain statistics, over several row blocks."""
+    rng = np.random.default_rng(4)
+    a, b, m = cloud(rng, 2, D.ROW_BLOCK + 90)
+    m[1, ::3] = False
+    ta, tb, tm = (torch.from_numpy(x) for x in (a, b, m))
+    w = torch.tensor([0.5, 2.0])
+    a1, b1 = ta.clone().requires_grad_(), tb.clone().requires_grad_()
+    s, c = D.drmsd_stats_torch(a1, b1, tm)
+    (s * w).sum().backward()
+    s2, c2, ga = D.drmsd_stats_grad_torch(ta, tb, tm)
+    gb = D.drmsd_grad_b_torch(ta, tb, tm)
+    assert torch.equal(c, c2)
+    torch.testing.assert_close(s2, s.detach(), rtol=1e-6, atol=0)
+    for got, want in ((ga * w[:, None, None], a1.grad),
+                      (gb * w[:, None, None], b1.grad)):
+        assert grad_gate(got, want)
+
+
+def test_grad_b_runs_only_when_b_needs_grad(monkeypatch):
+    """The b-side gradient (K1c's plain version here) is computed in the
+    backward only when b requires grad; the a-side one comes from the
+    forward sweep (K1b), and no-grad calls take the forward statistics."""
+    calls = {"fwd": 0, "fwd_grad": 0, "grad_b": 0}
+    for key, name in (("fwd", "drmsd_stats_torch"),
+                      ("fwd_grad", "drmsd_stats_grad_torch"),
+                      ("grad_b", "drmsd_grad_b_torch")):
+        def counted(*args, _fn=getattr(D, name), _key=key):
+            calls[_key] += 1
+            return _fn(*args)
+        monkeypatch.setattr(D, name, counted)
+    a, b, m = (torch.from_numpy(x)
+               for x in cloud(np.random.default_rng(5), 2, 40))
+    a = a.requires_grad_()
+    s, c = D.drmsd_stats(a, b, m)
+    assert not c.requires_grad and c.dtype == torch.int64
+    s.sum().backward()
+    assert a.grad is not None and b.grad is None
+    assert calls == {"fwd": 0, "fwd_grad": 1, "grad_b": 0}
+    b = b.clone().requires_grad_()
+    D.drmsd_stats(a.detach(), b, m)[0].sum().backward()
+    assert b.grad is not None and calls["grad_b"] == 1
+    assert calls["fwd"] == 1  # a needed no gradient: the forward sweep
+    with torch.no_grad():
+        D.drmsd_stats(a, b, m)
+    assert calls == {"fwd": 2, "fwd_grad": 1, "grad_b": 1}
 
 
 @pytest.mark.needs_cuda
@@ -151,3 +238,49 @@ def test_kernel_matches_plain_on_card(cuda, n):
     # same inputs, same bits: the reduction order is fixed
     ks2, _ = D.drmsd_stats_cuda(ta, tb, tm)
     assert torch.equal(ks, ks2)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("n", [1, 5, 129, 600, 768, 3584])
+def test_train_kernels_match_plain_on_card(cuda, n):
+    """K1b and K1c against their plain versions; K1b's S has K1a's bits."""
+    rng = np.random.default_rng(n + 1)
+    a, b, m = cloud(rng, 4, n)
+    m[3] = False
+    ta, tb, tm = (torch.from_numpy(x).to(cuda) for x in (a, b, m))
+    before = (D.drmsd_stats_grad_cuda.launches, D.drmsd_grad_b_cuda.launches)
+    ks, kc, kga = D.drmsd_stats_grad_cuda(ta, tb, tm)
+    kgb = D.drmsd_grad_b_cuda(ta, tb, tm)
+    assert (D.drmsd_stats_grad_cuda.launches,
+            D.drmsd_grad_b_cuda.launches) == (before[0] + 1, before[1] + 1)
+    ps, pc, pga = D.drmsd_stats_grad_torch(ta, tb, tm)
+    pgb = D.drmsd_grad_b_torch(ta, tb, tm)
+    fs, fc = D.drmsd_stats_cuda(ta, tb, tm)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, pc) and torch.equal(kc, fc)
+    assert torch.equal(ks, fs)
+    kd = torch.sqrt(torch.clamp(ks / kc.clamp(min=1), min=1e-30))
+    pd = torch.sqrt(torch.clamp(ps / pc.clamp(min=1), min=1e-30))
+    assert float((kd - pd).abs().max()) <= 1e-4
+    assert grad_gate(kga.cpu(), pga.cpu()) and grad_gate(kgb.cpu(), pgb.cpu())
+    assert (kga[3] == 0).all() and (kgb[3] == 0).all() and ks[3] == 0
+    ks2, _, kga2 = D.drmsd_stats_grad_cuda(ta, tb, tm)
+    assert torch.equal(ks, ks2) and torch.equal(kga, kga2)
+    assert torch.equal(kgb, D.drmsd_grad_b_cuda(ta, tb, tm))
+
+
+@pytest.mark.needs_cuda
+def test_drmsd_stats_autograd_on_card(cuda):
+    """DrmsdStats on CUDA tensors runs K1b forward and K1c only for b."""
+    a, b, m = (torch.from_numpy(x).to(cuda)
+               for x in cloud(np.random.default_rng(9), 3, 700))
+    a = a.requires_grad_()
+    counts = (D.drmsd_stats_cuda.launches, D.drmsd_stats_grad_cuda.launches,
+              D.drmsd_grad_b_cuda.launches)
+    s, _ = D.drmsd_stats(a, b, m)
+    s.sum().backward()
+    assert (D.drmsd_stats_cuda.launches, D.drmsd_stats_grad_cuda.launches,
+            D.drmsd_grad_b_cuda.launches) == (counts[0], counts[1] + 1,
+                                              counts[2])
+    _, _, ga = D.drmsd_stats_grad_torch(a.detach(), b, m)
+    assert grad_gate(a.grad.cpu(), ga.cpu())
