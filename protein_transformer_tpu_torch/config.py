@@ -9,7 +9,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
-from protein_transformer_tpu.protein.constants import MAX_SEQ_LEN
+from protein_transformer_tpu_torch.protein.constants import MAX_SEQ_LEN
 
 LOSSES = ("mse", "drmsd", "lndrmsd", "combined")
 
@@ -17,17 +17,23 @@ LOSSES = ("mse", "drmsd", "lndrmsd", "combined")
 @dataclasses.dataclass
 class TrainConfig:
     data: str = "data/casp12.pt"
+    name: Optional[str] = None
 
     # Training
     learning_rate: float = 1e-4
+    epochs: int = 10
     batch_size: int = 8
+    early_stopping: int = 20
     n_warmup_steps: int = 10_000
     clip: float = 1.0
     loss: str = "combined"
+    train_only: bool = False
     lr_scheduling: str = "plateau"          # noam | plateau
     patience: int = 10
     early_stopping_threshold: float = 0.001
+    early_stopping_metric: Optional[str] = None
     without_angle_means: bool = False
+    eval_train: bool = False
     optimizer: str = "sgd"                   # adam | sgd
     skip_missing_res_train: bool = False
     repeat_train: int = 1
@@ -45,6 +51,7 @@ class TrainConfig:
     # reporting.
     full_metrics: bool = False
     bins: int = -1                           # -1 -> 'auto'
+    train_eval_downsample: float = 0.10
 
     # Model
     model: str = "enc-only"
@@ -64,20 +71,43 @@ class TrainConfig:
     use_embedding: bool = True
     conv_out_matches_dm: bool = True
 
+    # Saving / logging
+    restart: bool = False
+    restart_opt: bool = False
+    checkpoint_time_interval: float = 0.0
+    load_chkpt: Optional[str] = None
+    out_dir: str = "runs"
+    # limited-I/O mode: no live per-batch status line, epoch prints only
+    cluster: bool = False
+
     max_seq_len: int = MAX_SEQ_LEN
     bucket_sizes: Sequence[int] = (64, 128, 192, 256, 320, 384, 448, 512)
     # dRMSD pair sweep: cuda (hand-written kernel) | torch (plain) | auto
     # (cuda for a CUDA device, torch otherwise).
     drmsd_impl: str = "auto"
+    # Sidechain build: cuda (hand-written kernels) | torch (plain) | auto,
+    # as drmsd_impl.
+    sidechain_impl: str = "auto"
 
+    # Derived (filled by finalize())
     vocab_size: int = 22
     pad_id: int = 20
+    es_mode: str = "train"
+    es_metric: str = "combined"
 
     def finalize(self) -> "TrainConfig":
-        """Apply the reference's derived-config rules: check the loss, and
-        unpack a 'conv-enc|k1,k2|r1,r2' name into the conv fields."""
+        """Apply the reference's derived-config rules: check the loss, default
+        the monitored metric to 'train-<loss>' and split it into its mode
+        and metric, and unpack a 'conv-enc|k1,k2|r1,r2' name into the conv
+        fields."""
         if self.loss not in LOSSES:
             raise ValueError(f"loss must be one of {LOSSES}")
+        if not self.early_stopping_metric:
+            self.early_stopping_metric = f"train-{self.loss}"
+        parts = self.early_stopping_metric.split("-")
+        # the mode may itself contain '-' (valid-70)
+        self.es_metric = parts[-1]
+        self.es_mode = "-".join(parts[:-1])
         if "conv-enc" in self.model and "|" in self.model:
             from protein_transformer_tpu_torch.models.factory import (
                 parse_conv_kernel_info_from_model_name)
@@ -90,3 +120,6 @@ class TrainConfig:
             suffix = "-linear-out" if "linear-out" in self.model else ""
             self.model = "conv-enc" + suffix
         return self
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)

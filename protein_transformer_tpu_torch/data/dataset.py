@@ -18,9 +18,9 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from protein_transformer_tpu.protein.constants import (
+from protein_transformer_tpu_torch.protein.constants import (
     MAX_SEQ_LEN, NUM_PREDICTED_ANGLES, NUM_PREDICTED_COORDS)
-from protein_transformer_tpu.protein.vocab import VOCAB
+from protein_transformer_tpu_torch.protein.vocab import VOCAB
 
 VALID_SPLITS = (10, 20, 30, 40, 50, 70, 90)
 ALL_SPLITS = ("train",) + tuple(f"valid-{s}" for s in VALID_SPLITS) + ("test",)
@@ -101,16 +101,19 @@ class BinnedDataset(ProteinSplit):
 def binned_batch_sampler(ds: BinnedDataset, batch_size: int,
                          dynamic_batch: Optional[int],
                          rng: np.random.Generator,
+                         downsample: Optional[float] = None,
                          repeat_train: int = 1) -> Iterator[np.ndarray]:
     """Arrays of dataset indices, one batch at a time: a length bin drawn
     by its share of the split, then rows drawn from it with replacement.
     dynamic_batch is the residue budget; a bin's batch holds
-    budget // (the bin's right edge) rows."""
+    budget // (the bin's right edge) rows. downsample scales the number of
+    batches (the --eval_train pass over a share of the train set)."""
     if dynamic_batch:
         n_batches = int(np.ceil(ds.lens.sum() * repeat_train
-                                / dynamic_batch))
+                                * (downsample or 1.0) / dynamic_batch))
     else:
-        n_batches = int(np.ceil(len(ds) * repeat_train / batch_size))
+        n_batches = int(np.ceil(len(ds) * repeat_train
+                                * (downsample or 1.0) / batch_size))
     bins_with_items = [b for b in range(len(ds.hist_bins))
                        if len(ds.bin_map.get(b, ())) > 0]
     probs = np.array([ds.bin_probs[b] for b in bins_with_items])
@@ -255,6 +258,21 @@ class DataModule:
 
     def train_batches(self, rng: np.random.Generator) -> Iterator[Batch]:
         for idx in self.train_index_batches(rng):
+            yield collate(self.train, idx, self.cfg.bucket_sizes,
+                          self.max_seq_len)
+
+    def train_eval_index_batches(
+            self, rng: np.random.Generator) -> Iterator[np.ndarray]:
+        """Index batches of fixed size over a downsampled train set."""
+        cfg = self.cfg
+        yield from binned_batch_sampler(
+            self.train, cfg.batch_size, dynamic_batch=None, rng=rng,
+            downsample=cfg.train_eval_downsample)
+
+    def train_eval_batches(self, rng: np.random.Generator) -> Iterator[Batch]:
+        """The --eval_train pass: fixed-size batches over a downsampled
+        train set."""
+        for idx in self.train_eval_index_batches(rng):
             yield collate(self.train, idx, self.cfg.bucket_sizes,
                           self.max_seq_len)
 

@@ -13,10 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from protein_transformer_tpu.protein import _ff14sb as ff
-from protein_transformer_tpu.protein.constants import (
+from protein_transformer_tpu_torch.protein import _ff14sb as ff
+from protein_transformer_tpu_torch.protein.constants import (
     NUM_PREDICTED_ANGLES, NUM_PREDICTED_COORDS)
-from protein_transformer_tpu.protein.vocab import STD_AAS, VOCAB
+from protein_transformer_tpu_torch.protein.vocab import STD_AAS, VOCAB
 from protein_transformer_tpu_torch.data.dataset import VALID_SPLITS
 from protein_transformer_tpu_torch.protein.geometry import build_coords_batch
 
@@ -32,6 +32,29 @@ def random_angles(rng: np.random.Generator, length: int) -> np.ndarray:
     ang[:, 5] = 2.13 + rng.normal(0, 0.02, length)
     ang[:, 6:] = rng.uniform(-np.pi, np.pi, (length, 6))
     return ang.astype(np.float32)
+
+
+def sidechain_case(rng: np.random.Generator, bsz: int, length: int,
+                   physical: bool) -> tuple[np.ndarray, np.ndarray]:
+    """(angles (B, L, 12) float32, ids (B, L) int32) for holding a sidechain
+    build against another: every amino acid appears (where B * L >= 20), and
+    every row but the first ends in padding (pad id, zero angles) where
+    L > 2. physical draws ``random_angles``; otherwise every angle is
+    uniform in (-pi, pi), as an untrained model emits them."""
+    if physical:
+        ang = np.stack([random_angles(rng, length) for _ in range(bsz)])
+    else:
+        ang = rng.uniform(-np.pi, np.pi,
+                          (bsz, length, NUM_PREDICTED_ANGLES)).astype(
+                              np.float32)
+    ids = rng.permutation(bsz * length) % len(STD_AAS)
+    ids = ids.reshape(bsz, length).astype(np.int32)
+    for row in range(1, bsz):
+        n_pad = int(rng.integers(1, max(2, length // 4)))
+        if length > 2:
+            ids[row, length - n_pad:] = VOCAB.pad_id
+            ang[row, length - n_pad:] = 0.0
+    return ang, ids
 
 
 def _make_split(rng: np.random.Generator, n: int, min_len: int, max_len: int,

@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from protein_transformer_tpu.protein.constants import (
+from protein_transformer_tpu_torch.protein.constants import (
     NUM_PREDICTED_ANGLES, NUM_PREDICTED_COORDS, SC_ANGLES_START_POS)
 from protein_transformer_tpu_torch.ops.drmsd import DIST_CLAMP, drmsd_stats
 from protein_transformer_tpu_torch.ops.nerf import matmul3

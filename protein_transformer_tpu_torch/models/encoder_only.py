@@ -11,7 +11,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from protein_transformer_tpu.protein.constants import NUM_PREDICTED_ANGLES
+from protein_transformer_tpu_torch.protein.constants import NUM_PREDICTED_ANGLES
 from protein_transformer_tpu_torch.models.transformer import Encoder
 
 

@@ -7,8 +7,9 @@ Port of protein_transformer_tpu/protein/geometry.py, written batched over
    composed with a doubling prefix scan (``ops.nerf.chain_positions_grouped``).
 2. Carbonyl oxygens: one independent NeRF placement per residue.
 3. Sidechains: up to 10 chained NeRF placements per residue, driven by the
-   dense AMBER ff14SB tables (``protein_transformer_tpu.protein._ff14sb``),
-   sequential only over the slots.
+   dense AMBER ff14SB tables (``protein._ff14sb``), sequential only over
+   the slots: one hand-written CUDA kernel on a CUDA device, plain tensor
+   ops elsewhere (``ops.sidechain``, chosen by ``sidechain_impl``).
 
 Conventions are the JAX package's: angles (B, L, 12) radians in the order
 [phi, psi, omega, theta1, theta2, theta3, chi0..chi5]; output (B, L, 14, 3)
@@ -22,11 +23,13 @@ import math
 import numpy as np
 import torch
 
-from protein_transformer_tpu.protein import _ff14sb as ff
-from protein_transformer_tpu.protein.constants import (
+from protein_transformer_tpu_torch.protein import _ff14sb as ff
+from protein_transformer_tpu_torch.protein.constants import (
     NUM_PREDICTED_ANGLES, NUM_PREDICTED_COORDS, SC_ANGLES_START_POS)
 from protein_transformer_tpu_torch.ops.nerf import (
     chain_positions_grouped, frame_from_points, nerf)
+from protein_transformer_tpu_torch.ops.sidechain import (
+    build_sidechain_points, build_sidechain_points_torch)
 
 _L_CN = ff.BB_CONST["c-n"]
 _L_NCA = ff.BB_CONST["n-ca"]
@@ -73,12 +76,11 @@ def _table(arr: np.ndarray, aa: torch.Tensor, dtype=None) -> torch.Tensor:
     return torch.as_tensor(arr, dtype=dtype, device=aa.device)[aa]
 
 
-def build_sidechains(bb: torch.Tensor, angles: torch.Tensor,
-                     seq: torch.Tensor) -> torch.Tensor:
-    """Sidechain atoms given the backbone.
-
-    bb: (B, L, 4, 3); angles: (B, L, 12); seq: (B, L) amino-acid ids.
-    Returns (B, L, 14, 3), unused slots zero."""
+def sidechain_inputs(bb: torch.Tensor, angles: torch.Tensor,
+                     seq: torch.Tensor) -> tuple:
+    """What the slot chain takes besides the backbone, from the force-field
+    tables: (anchor (B, L, 3), torsions, bond lengths, bond angles (B, L, 10),
+    n_sc (B, L), frame indices (B, L, 10, 3))."""
     length = bb.shape[1]
     dtype = bb.dtype
     aa = torch.clamp(seq.long(), 0, ff.SC_NUM_ATOMS.shape[0] - 1)
@@ -109,39 +111,38 @@ def build_sidechains(bb: torch.Tensor, angles: torch.Tensor,
                           NUM_PREDICTED_ANGLES - 1)
     chi_vals = torch.gather(angles, -1, chi_idx)
     torsions = torch.where(ttype == ff.TORSION_PRED, chi_vals, tconst) - toff
-    return build_sidechain_slots(bb, anchor, torsions, blen, bang, n_sc,
-                                 frame)
+    return anchor, torsions, blen, bang, n_sc, frame
 
 
-def build_sidechain_slots(bb, anchor, torsions, blen, bang, n_sc, frame):
-    """The slot chain (port of ``_build_sidechains_xla``, the JAX default).
+def build_sidechains(bb: torch.Tensor, angles: torch.Tensor,
+                     seq: torch.Tensor,
+                     sidechain_impl: str = "auto") -> torch.Tensor:
+    """Sidechain atoms given the backbone.
 
-    Point buffer per residue: 0..3 backbone, 4..13 sidechain in build order,
-    14 anchor. Each slot gathers its three frame atoms from the buffer and
-    places one atom; slots beyond the residue's ``n_sc`` stay zero. The
-    buffer is updated out of place, so autograd can run through it."""
-    bsz, length = bb.shape[:2]
-    buf = torch.cat([bb, torch.zeros_like(bb[:, :, :1]).expand(
-        bsz, length, ff.MAX_SC_ATOMS, 3), anchor[:, :, None]], dim=2)
-    for slot in range(ff.MAX_SC_ATOMS):
-        idx = frame[:, :, slot, :, None].expand(bsz, length, 3, 3)
-        abc = torch.gather(buf, 2, idx)                     # (B, L, 3, 3)
-        pt = nerf(abc[:, :, 0], abc[:, :, 1], abc[:, :, 2],
-                  blen[..., slot], bang[..., slot], torsions[..., slot])
-        pt = torch.where((slot < n_sc)[..., None], pt, 0.0)
-        buf = torch.cat([buf[:, :, :4 + slot], pt[:, :, None],
-                         buf[:, :, 5 + slot:]], dim=2)
-    return buf[:, :, :NUM_PREDICTED_COORDS]
+    bb: (B, L, 4, 3); angles: (B, L, 12); seq: (B, L) amino-acid ids.
+    sidechain_impl: "cuda" (the kernels), "torch" (plain) or "auto" (by
+    device), see ``ops.sidechain.build_sidechain_points``; the JAX package
+    selects the same through PTT_SIDECHAIN_IMPL. Returns (B, L, 14, 3),
+    unused slots zero."""
+    return build_sidechain_points(bb, *sidechain_inputs(bb, angles, seq),
+                                  impl=sidechain_impl)
 
 
-def build_coords_batch(angles: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
+# The slot chain in plain tensor ops, under the name it has had here.
+build_sidechain_slots = build_sidechain_points_torch
+
+
+def build_coords_batch(angles: torch.Tensor, seq: torch.Tensor,
+                       sidechain_impl: str = "auto") -> torch.Tensor:
     """All-atom coordinates: (B, L, 12) + (B, L) -> (B, L, 14, 3)."""
-    return build_sidechains(build_backbone(angles), angles, seq)
+    return build_sidechains(build_backbone(angles), angles, seq,
+                            sidechain_impl)
 
 
-def build_coords(angles: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
+def build_coords(angles: torch.Tensor, seq: torch.Tensor,
+                 sidechain_impl: str = "auto") -> torch.Tensor:
     """One protein: (L, 12) + (L,) -> (L, 14, 3)."""
-    return build_coords_batch(angles[None], seq[None])[0]
+    return build_coords_batch(angles[None], seq[None], sidechain_impl)[0]
 
 
 def inverse_trig_transform(sincos: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,130 @@
+"""Checkpoints with the reference's best/interval policy, via ``torch.save``.
+
+Port of protein_transformer_tpu/training/checkpoint.py. Policy: save under
+'best' when the monitored loss improves on its history; save under 'latest'
+when ``checkpoint_time_interval`` hours have passed since the last
+checkpoint; resume from 'best' by default, ``restart`` skips loading,
+``restart_opt`` loads the weights but keeps a fresh optimizer.
+
+Tensor state (parameters, optimizer state, step) goes into one file per
+modifier, ``<directory>/<modifier>``, which holds tensors and plain Python
+values only, so that it loads with ``torch.load(..., weights_only=True)``.
+Host-side scalar state (epoch, elapsed time, the plateau and early-stopping
+machines, the loss history) goes to a JSON sidecar,
+``<directory>/<modifier>.meta.json``. Each file is written under a temporary
+name and moved into place, the tensor file first: a crash leaves the old
+checkpoint or the new one, at worst with the older sidecar or none, and a
+missing sidecar restores as an empty dict.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Optional
+
+import torch
+
+
+def _check_against(template, restored, where: str) -> None:
+    """Raise if ``restored`` does not have ``template``'s structure: the same
+    dict keys and tensor shapes."""
+    if isinstance(template, dict):
+        if not isinstance(restored, dict) or set(template) != set(restored):
+            raise ValueError(
+                f"checkpoint {where}: keys differ from the live state "
+                f"(missing {sorted(set(template) - set(restored or ()))}, "
+                f"unexpected {sorted(set(restored or ()) - set(template))})")
+        for key in template:
+            _check_against(template[key], restored[key], f"{where}.{key}")
+    elif isinstance(template, torch.Tensor):
+        if not isinstance(restored, torch.Tensor) \
+                or restored.shape != template.shape:
+            raise ValueError(
+                f"checkpoint {where}: expected a tensor of shape "
+                f"{tuple(template.shape)}, got "
+                f"{tuple(getattr(restored, 'shape', ()))}")
+
+
+def _detached(tree):
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()
+    return tree
+
+
+class CheckpointManager:
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, modifier: str) -> str:
+        return os.path.join(self.directory, modifier)
+
+    def save(self, modifier: str, arrays: dict, meta: dict) -> None:
+        """arrays: nested dicts of tensors and plain Python values (the
+        optimizer state as a dict, its moments by parameter name); meta:
+        JSON-serialisable."""
+        path = self._path(modifier)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(_detached(arrays), tmp)
+        os.replace(tmp, path)
+        with open(tmp, "w") as f:
+            json.dump(meta, f, default=float)
+        os.replace(tmp, path + ".meta.json")
+
+    def _meta(self, path: str) -> dict:
+        meta_path = path + ".meta.json"
+        if not os.path.exists(meta_path):
+            return {}
+        with open(meta_path) as f:
+            return json.load(f)
+
+    def restore_raw(self, modifier: str, map_location="cpu"
+                    ) -> Optional[tuple[dict, dict]]:
+        """(arrays, meta) as saved, tensors on ``map_location``, or None if
+        there is no such checkpoint. Nothing is checked against a live
+        state: ``restart_opt`` and tooling that only needs the parameters
+        use it."""
+        path = self._path(modifier)
+        if not os.path.exists(path):
+            return None
+        arrays = torch.load(path, weights_only=True,
+                            map_location=map_location)
+        return arrays, self._meta(path)
+
+    def restore(self, modifier: str, template: dict, map_location="cpu"
+                ) -> Optional[tuple[dict, dict]]:
+        """As ``restore_raw``, and raises ValueError unless the restored
+        arrays have ``template``'s structure (keys and shapes)."""
+        result = self.restore_raw(modifier, map_location)
+        if result is not None:
+            _check_against(template, result[0], repr(modifier))
+        return result
+
+    def exists(self, modifier: str) -> bool:
+        return os.path.exists(self._path(modifier))
+
+
+def checkpoint_policy(cur_loss: float, loss_history: list,
+                      last_chkpt_time: float,
+                      time_interval_hours: float,
+                      process_count: int = 1) -> Optional[str]:
+    """Returns 'best', 'latest', or None.
+
+    'best' for the first recorded loss and for one below every earlier one;
+    otherwise 'latest' once the time interval (hours, 0 = never) has passed
+    on the local clock. Agreeing on that clock across processes comes with
+    the multi-GPU slice; until then more than one process is refused."""
+    if process_count > 1:
+        raise NotImplementedError(
+            "checkpoint_policy: multi-process runs are not in the port yet")
+    do_time = (time_interval_hours > 0 and
+               (time.time() - last_chkpt_time) / 3600 > time_interval_hours)
+    if len(loss_history) == 1 or (loss_history[:-1]
+                                  and cur_loss < min(loss_history[:-1])):
+        return "best"
+    if do_time:
+        return "latest"
+    return None

@@ -1,30 +1,36 @@
-"""Training and evaluation of the port: model -> angles -> NeRF -> losses,
-backward, and the optimizer update.
+"""Training control loop of the port: the training and evaluation steps
+(model -> angles -> NeRF -> losses, backward, the optimizer update) and the
+host loop around them.
 
-Port of the training step and the host-batch epoch loops of
-protein_transformer_tpu/training/trainer.py. The model runs on an explicit
-device; parameters are a plain dict of tensors (``Trainer.init_params``, or
-the flax bridge) applied with ``torch.func.functional_call``, the
-counterpart of flax's ``apply``. A step computes the losses in train mode
-(dropout drawn from the trainer's own generator), takes the gradients with
-``torch.autograd.grad`` and applies the optimizer of ``training/optim.py``
-in place. Metrics are packed into one (K,) device vector per step and
-fetched in windows of FLUSH_EVERY steps, then accumulated by the JAX
-package's numpy-only ``training/metrics.py``.
+Port of protein_transformer_tpu/training/trainer.py on its host-batch path.
+The model runs on an explicit device; parameters are a plain dict of tensors
+(``Trainer.init_params``, or the flax bridge) applied with
+``torch.func.functional_call``, the counterpart of flax's ``apply``. A step
+computes the losses in train mode (dropout drawn from the trainer's own
+generator), takes the gradients with ``torch.autograd.grad`` and applies the
+optimizer of ``training/optim.py`` in place. Metrics are packed into one (K,)
+device vector per step, copied to the host without blocking, and recorded in
+windows of FLUSH_EVERY steps by ``training/metrics.py``; the NaN watchdog
+polls the copies that have arrived after every step.
 
-The epoch driver with eval splits, plateau and early-stopping decisions,
-checkpoints, logging and the CLI come with later slices of the port.
+``Trainer.train`` is the host loop with the reference's semantics: epochs,
+the validation splits after each, plateau scheduling and early stopping on
+the monitored metric, 'best' / 'latest' checkpoints, resume, the CSV log,
+and the test split at the end. Structure logging, wandb, the
+device-resident data path and meshes are not in the port yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
-from protein_transformer_tpu.training import metrics as M
+from protein_transformer_tpu_torch.training import metrics as M
 from protein_transformer_tpu_torch import losses as L
 from protein_transformer_tpu_torch.config import TrainConfig
 from protein_transformer_tpu_torch.data.dataset import (
@@ -32,10 +38,13 @@ from protein_transformer_tpu_torch.data.dataset import (
 from protein_transformer_tpu_torch.models.factory import make_model
 from protein_transformer_tpu_torch.models.transformer import (
     set_dropout_generator)
+from protein_transformer_tpu_torch.ops import sidechain
 from protein_transformer_tpu_torch.ops.drmsd import resolve_impl
 from protein_transformer_tpu_torch.protein.geometry import build_coords_batch
+from protein_transformer_tpu_torch.training.checkpoint import (
+    CheckpointManager, checkpoint_policy)
 from protein_transformer_tpu_torch.training.optim import (
-    OptState, PlateauState, make_optimizer, noam_schedule)
+    EarlyStopping, OptState, PlateauState, make_optimizer, noam_schedule)
 
 DRMSD_LOSSES = ("drmsd", "lndrmsd", "combined")
 
@@ -57,12 +66,14 @@ def unpack_metrics(row) -> dict:
 
 
 def compute_losses(model, params, batch: Batch, cfg: TrainConfig,
-                   impl: str = "auto", with_drmsd=None, with_rmsd=False):
+                   impl: str = "auto", with_drmsd=None, with_rmsd=False,
+                   sidechain_impl: str = "auto"):
     """All batch losses for a batch already on the model's device.
 
     Returns (loss, dict of scalar metrics). MSE is always computed; the
     dRMSD family when the loss needs it or with_drmsd. impl selects the
-    dRMSD pair sweep (see ops.drmsd.resolve_impl). The model runs in
+    dRMSD pair sweep (see ops.drmsd.resolve_impl) and sidechain_impl the
+    sidechain build (see ops.sidechain.resolve_impl). The model runs in
     whatever train/eval mode it is in: the train step puts it in train, the
     eval step in eval.
 
@@ -85,7 +96,7 @@ def compute_losses(model, params, batch: Batch, cfg: TrainConfig,
     pred_crd = None
     if with_drmsd or with_rmsd:
         pred_crd = build_coords_batch(L.inverse_trig_transform(pred),
-                                      batch.seq)
+                                      batch.seq, sidechain_impl)
 
     # --backbone_loss: coordinates reduce to the backbone before any
     # dRMSD/RMSD, so the 'full' slots report backbone values;
@@ -142,10 +153,11 @@ class TrainState:
 
 
 class Trainer:
-    """The training step and the train/eval epoch loops on one explicit
-    device."""
+    """The training and evaluation steps, the epoch loops and the host loop
+    (``train``) on one explicit device."""
 
-    # steps whose metric vectors are fetched to the host in one copy
+    # steps kept in flight before their metric rows are recorded; the NaN
+    # watchdog and the CSV rows trail the device by at most this many steps
     FLUSH_EVERY = 32
 
     def __init__(self, cfg: TrainConfig, device: torch.device,
@@ -153,8 +165,24 @@ class Trainer:
         self.cfg = cfg = cfg.finalize()
         self.device = torch.device(device)
         self.drmsd_impl = resolve_impl(cfg.drmsd_impl, self.device)
+        self.sidechain_impl = sidechain.resolve_impl(cfg.sidechain_impl,
+                                                     self.device)
         data = data if data is not None else load_dataset(cfg.data)
         self.dm = DataModule(data, cfg)
+        # the monitored metric's mode must be one this run evaluates:
+        # otherwise the first epoch end raises KeyError after a full epoch
+        if cfg.es_mode != "train":
+            if cfg.train_only:
+                raise ValueError(
+                    f"--early_stopping_metric {cfg.early_stopping_metric!r} "
+                    "monitors a validation split but --train_only never "
+                    "evaluates one")
+            if cfg.es_mode == "test" or cfg.es_mode not in self.dm.eval_splits:
+                raise ValueError(
+                    f"--early_stopping_metric {cfg.early_stopping_metric!r}: "
+                    f"split {cfg.es_mode!r} is not evaluated during training "
+                    f"(available: train, "
+                    f"{', '.join(s for s in self.dm.eval_splits if s != 'test')})")
         angle_means = (np.zeros(24, np.float32) if cfg.without_angle_means
                        else self.dm.angle_means)
         self.model = make_model(cfg, angle_means).to(self.device).eval()
@@ -172,9 +200,31 @@ class Trainer:
         self.tx = make_optimizer(cfg.optimizer,
                                  self.lr_schedule or cfg.learning_rate,
                                  cfg.weight_decay, cfg.clip)
+        self.early_stop = EarlyStopping(patience=cfg.early_stopping,
+                                        threshold=cfg.early_stopping_threshold)
+        self.start_epoch = 0
+        self.start_time = time.time()
+        self._best_history: list = []
         modes = ["train", "test"] + [f"valid-{s}"
                                      for s in (10, 20, 30, 40, 50, 70, 90)]
         self.metrics = M.init_metrics(modes)
+
+        self.out_dir = os.path.join(cfg.out_dir, cfg.name or "run")
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.ckpt = CheckpointManager(os.path.join(self.out_dir,
+                                                   "checkpoints"))
+        # live per-batch status line; --cluster disables it, otherwise it is
+        # on for an interactive stderr
+        self.batch_status = M.BatchStatus(
+            cfg.loss, cfg.lr_scheduling,
+            enabled=False if cfg.cluster else None)
+        # config and angle means, for predict and analysis tooling
+        with open(os.path.join(self.out_dir, "config.json"), "w") as f:
+            json.dump({"config": cfg.to_dict(),
+                       "angle_means": [float(a) for a in angle_means]},
+                      f, indent=1, default=str)
+
+    # ---------------- state init / restore ----------------
 
     def init_params(self, generator: torch.Generator) -> dict:
         """Fresh parameters, drawn on the CPU from ``generator`` and moved to
@@ -206,6 +256,55 @@ class Trainer:
         """Step 0 from fresh parameters drawn from ``generator``."""
         return self.state_from(self.init_params(generator))
 
+    def maybe_restore(self, state: TrainState) -> TrainState:
+        """Resume from the 'best' checkpoint (or ``load_chkpt``) unless
+        ``restart``; with ``restart_opt`` the weights and the step are
+        restored and the optimizer state stays fresh. Also restores the
+        epoch, the elapsed time, the plateau and early-stopping machines and
+        the loss history from the JSON sidecar; a missing sidecar degrades
+        to epoch-0 bookkeeping with the weights restored.
+
+        The checkpoint holds no random state, as in the JAX package, whose
+        dropout keys are a function of the seed and the step. The port's
+        dropout generator is reseeded here with ``seed + step``, so a
+        resumed run draws masks that depend on where it resumes and does not
+        replay those of the run's first steps; it does not continue the
+        interrupted run's stream."""
+        cfg = self.cfg
+        modifier = cfg.load_chkpt or "best"
+        if cfg.restart or not self.ckpt.exists(modifier):
+            return state
+        if cfg.restart_opt:
+            # the saved optimizer state may belong to another optimizer or
+            # schedule, and must not be required to match
+            arrays, meta = self.ckpt.restore_raw(modifier, self.device)
+            opt_state = state.opt_state
+        else:
+            template = self._arrays(state)
+            arrays, meta = self.ckpt.restore(modifier, template, self.device)
+            saved = arrays["opt_state"]
+            # the moments are stored by parameter name: the optimizer holds
+            # them as lists in the live parameters' order
+            opt_state = OptState(
+                saved["count"],
+                [saved["mu"][k] for k in state.params if k in saved["mu"]],
+                [saved["nu"][k] for k in state.params if k in saved["nu"]])
+        params = {k: arrays["params"][k].to(self.device).requires_grad_()
+                  for k in state.params}
+        step = int(arrays["step"])
+        self.start_epoch = int(meta.get("epoch", -1)) + 1
+        self.start_time -= float(meta.get("elapsed", 0.0))
+        if self.plateau and meta.get("plateau"):
+            self.plateau.load_state_dict(dict(meta["plateau"]))
+        if meta.get("early_stop"):
+            self.early_stop.load_state_dict(dict(meta["early_stop"]))
+        self._best_history = list(meta.get("best_history", []))
+        self.dropout_generator.manual_seed(cfg.seed + step)
+        print(f"[Info] Resumed from '{modifier}' at epoch {self.start_epoch}.")
+        return TrainState(params, opt_state, step)
+
+    # ---------------- steps ----------------
+
     def current_lr(self, step: int) -> float:
         """The learning rate of the update after ``step`` updates."""
         if self.lr_schedule is not None:
@@ -218,7 +317,8 @@ class Trainer:
         already on the device, with the model in train mode."""
         self.model.train()
         loss, out = compute_losses(self.model, params, batch, self.cfg,
-                                   impl=self.drmsd_impl)
+                                   impl=self.drmsd_impl,
+                                   sidechain_impl=self.sidechain_impl)
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True, materialize_grads=True)
         return loss, out, grads
@@ -236,71 +336,238 @@ class Trainer:
         return (TrainState(state.params, opt_state, state.step + 1),
                 pack_metrics(out).detach())
 
-    def _record(self, mode: str, pending: list, t_last_flush: float) -> float:
-        """Fetch a window of (metrics vector, n_res, step) in one copy and
-        record its rows in order, each timed at an even share of the window;
-        returns the flush time. A training row whose loss is not finite
-        raises FloatingPointError after the rows before it are recorded."""
-        rows = torch.stack([p[0] for p in pending]).cpu().numpy()
-        t_now = time.time()
-        dt = (t_now - t_last_flush) / len(pending)
-        for i, (row, (_, n_res, step)) in enumerate(zip(rows, pending)):
-            if mode == "train":
-                if not np.isfinite(row[0]):  # METRIC_KEYS[0] == "loss"
-                    raise FloatingPointError(
-                        "A nan loss has occurred. Exiting training.")
-                self.metrics["history-lr"].append(self.current_lr(step))
-            self.metrics = M.update_batch(self.metrics, mode,
-                                          unpack_metrics(row), n_res,
-                                          now=t_last_flush + (i + 1) * dt)
-        return t_now
-
-    def train_epoch(self, state: TrainState) -> TrainState:
-        """One epoch over the binned sampler's batches (drawn from
-        ``seed + step``), with the plateau scale on the learning rate;
-        returns the new state and keeps the "train" metrics."""
-        mode = "train"
-        self.metrics = M.reset_for_epoch(self.metrics, mode)
-        step = state.step
-        rng = np.random.default_rng(self.cfg.seed + step)
-        lr_scale = self.plateau.scale if self.plateau else 1.0
-        pending: list = []
-        t_last_flush = time.time()
-        for batch in self.dm.train_batches(rng):
-            state, out = self.train_step(state, batch, lr_scale)
-            pending.append((out, batch.n_res, step))
-            step += 1
-            if len(pending) >= self.FLUSH_EVERY:
-                t_last_flush = self._record(mode, pending, t_last_flush)
-                pending = []
-        if pending:
-            self._record(mode, pending, t_last_flush)
-        self.metrics = M.end_of_epoch(self.metrics, mode)
-        return state
-
     @torch.inference_mode()
     def eval_step(self, params: dict, batch: Batch) -> torch.Tensor:
         """Packed (K,) metrics of one batch (moved to the device here)."""
         self.model.eval()
         _, out = compute_losses(self.model, params, batch.to(self.device),
                                 self.cfg, impl=self.drmsd_impl,
-                                with_drmsd=True, with_rmsd=True)
+                                with_drmsd=True, with_rmsd=True,
+                                sidechain_impl=self.sidechain_impl)
         return pack_metrics(out)
 
-    def eval_epoch(self, params: dict, split: str) -> dict:
-        """Evaluate one split's collated batches; returns (and keeps) its
-        metrics dict. Metric vectors stay on the device and are fetched
-        every FLUSH_EVERY steps."""
-        mode = split
+    # ---------------- epoch loops ----------------
+
+    def _process_train_outputs(self, out_host: dict, n_res: int, step: int,
+                               t_dispatch: float, logger) -> None:
+        """Host-side bookkeeping of one fetched training row: the NaN
+        watchdog, the metrics, the status line and the CSV row."""
+        if not np.isfinite(out_host["loss"]):
+            raise FloatingPointError(
+                "A nan loss has occurred. Exiting training.")
+        self.metrics["history-lr"].append(self.current_lr(step))
+        self.metrics = M.update_batch(self.metrics, "train", out_host, n_res,
+                                      now=t_dispatch)
+        self.batch_status.update_train(self.metrics)
+        if logger:
+            logger.log(self.metrics, "train", self.start_time)
+
+    def _start_fetch(self, out: torch.Tensor, host_rows, slot: int):
+        """Begin moving one step's metrics vector to the host without
+        waiting for the device: (host tensor, event to poll or None when
+        the value is there already)."""
+        if out.device.type != "cuda":
+            return out, None
+        host_rows[slot].copy_(out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host_rows[slot], event
+
+    def train_epoch(self, state: TrainState, logger=None) -> TrainState:
+        """One epoch over the binned sampler's batches (drawn from
+        ``seed + step``), with the plateau scale on the learning rate;
+        returns the new state and keeps the "train" metrics.
+
+        Up to FLUSH_EVERY steps stay in flight: each step's metrics vector
+        starts a non-blocking copy to pinned host memory, and the rows are
+        recorded once per window, each timed at an even share of the
+        window. The NaN watchdog does not wait for the window: after every
+        step it reads the rows whose copies have arrived, oldest first, and
+        a loss that is not finite raises FloatingPointError at once, after
+        the rows before it are recorded."""
+        mode = "train"
         self.metrics = M.reset_for_epoch(self.metrics, mode)
+        step = state.step
+        rng = np.random.default_rng(self.cfg.seed + step)
+        lr_scale = self.plateau.scale if self.plateau else 1.0
+        host_rows = (torch.empty((self.FLUSH_EVERY, len(METRIC_KEYS)),
+                                 pin_memory=True)
+                     if self.device.type == "cuda" else None)
+        # pending entries: [host tensor, event | None, n_res, step, row | None]
         pending: list = []
         t_last_flush = time.time()
-        for batch in self.dm.eval_batches(split):
-            pending.append((self.eval_step(params, batch), batch.n_res, None))
+
+        def drain(rows) -> None:
+            """Record fetched rows, each at an even share of the time since
+            the last flush."""
+            dt = (time.time() - t_last_flush) / max(len(rows), 1)
+            for i, (_, _, n_res, step_i, row) in enumerate(rows):
+                self._process_train_outputs(
+                    unpack_metrics(row), n_res, step_i,
+                    t_last_flush + (i + 1) * dt, logger)
+
+        def check_ready() -> None:
+            for j, p in enumerate(pending):
+                if p[4] is not None:
+                    continue
+                if p[1] is not None and not p[1].query():
+                    break  # steps finish in order: later ones wait too
+                p[4] = p[0].numpy().copy()
+                if not np.isfinite(p[4][0]):  # METRIC_KEYS[0] == "loss"
+                    drain(pending[:j + 1])  # raises at row j
+
+        def flush() -> None:
+            nonlocal pending, t_last_flush
+            for p in pending:
+                if p[4] is None:
+                    if p[1] is not None:
+                        p[1].synchronize()
+                    p[4] = p[0].numpy().copy()
+            drain(pending)
+            t_last_flush = time.time()
+            pending = []
+
+        for batch in self.dm.train_batches(rng):
+            state, out = self.train_step(state, batch, lr_scale)
+            host, event = self._start_fetch(out, host_rows, len(pending))
+            pending.append([host, event, batch.n_res, step, None])
+            check_ready()
+            step += 1
             if len(pending) >= self.FLUSH_EVERY:
-                t_last_flush = self._record(mode, pending, t_last_flush)
-                pending = []
+                flush()
         if pending:
-            self._record(mode, pending, t_last_flush)
+            flush()
+        self.batch_status.clear()
         self.metrics = M.end_of_epoch(self.metrics, mode)
+        return state
+
+    def eval_epoch(self, params: dict, mode: str, batches=None,
+                   logger=None) -> dict:
+        """Evaluate ``batches`` (default: the collated batches of the split
+        ``mode``) and keep the result under ``mode``; returns that metrics
+        dict. Metric vectors stay on the device and are fetched every
+        FLUSH_EVERY steps in one copy."""
+        self.metrics = M.reset_for_epoch(self.metrics, mode)
+        if batches is None:
+            batches = self.dm.eval_batches(mode)
+        pending: list = []
+        t_last_flush = time.time()
+
+        def flush() -> None:
+            nonlocal pending, t_last_flush
+            rows = torch.stack([p[0] for p in pending]).cpu().numpy()
+            t_now = time.time()
+            dt = (t_now - t_last_flush) / len(pending)
+            for i, (row, (_, n_res)) in enumerate(zip(rows, pending)):
+                self.metrics = M.update_batch(self.metrics, mode,
+                                              unpack_metrics(row), n_res,
+                                              now=t_last_flush + (i + 1) * dt)
+            self.batch_status.update_eval(mode, self.metrics)
+            t_last_flush = t_now
+            pending = []
+
+        for batch in batches:
+            pending.append((self.eval_step(params, batch), batch.n_res))
+            if len(pending) >= self.FLUSH_EVERY:
+                flush()
+        if pending:
+            flush()
+        self.batch_status.clear()
+        self.metrics = M.end_of_epoch(self.metrics, mode)
+        if logger:
+            logger.log(self.metrics, mode, self.start_time,
+                       end_of_epoch=True)
         return self.metrics[mode]
+
+    # ---------------- checkpointing ----------------
+
+    @staticmethod
+    def _arrays(state: TrainState) -> dict:
+        """What a checkpoint holds of a state: tensors and plain Python
+        values only, the optimizer's moments keyed by parameter name (empty
+        for SGD)."""
+        opt = state.opt_state
+        return {"params": state.params,
+                "opt_state": {"count": opt.count,
+                              "mu": dict(zip(state.params, opt.mu)),
+                              "nu": dict(zip(state.params, opt.nu))},
+                "step": state.step}
+
+    def _monitored_metric(self) -> float:
+        cfg = self.cfg
+        return self.metrics[cfg.es_mode][f"epoch-{cfg.es_metric}-full"]
+
+    def _save_checkpoint(self, state: TrainState, epoch: int,
+                         cur_loss: float, history: list) -> None:
+        modifier = checkpoint_policy(cur_loss, history,
+                                     self.metrics["last_chkpt_time"],
+                                     self.cfg.checkpoint_time_interval)
+        if modifier is None:
+            return
+        meta = {"epoch": epoch,
+                "elapsed": time.time() - self.start_time,
+                "plateau": (self.plateau.state_dict()
+                            if self.plateau else {}),
+                "early_stop": self.early_stop.state_dict(),
+                "best_history": list(history)}
+        self.ckpt.save(modifier, self._arrays(state), meta)
+        self.metrics["last_chkpt_time"] = time.time()
+        print(f"    - [Info] checkpoint '{modifier}' updated.")
+
+    # ---------------- main loop ----------------
+
+    def train(self, state: TrainState | None = None) -> TrainState:
+        """The host loop: from ``state``, or from fresh parameters (drawn
+        from the config's seed) and the checkpoint ``maybe_restore`` finds,
+        train epochs ``start_epoch .. epochs - 1``; after each, the
+        ``--eval_train`` pass and the validation splits, the plateau step
+        and the early-stopping update on the monitored metric, and the
+        checkpoint the policy asks for; the test split at the end."""
+        cfg = self.cfg
+        if state is None:
+            state = self.init_state(torch.Generator().manual_seed(cfg.seed))
+            state = self.maybe_restore(state)
+        logger = M.CsvLogger(
+            os.path.join(self.out_dir, (cfg.name or "run") + ".train"),
+            cfg.loss, resume=self.start_epoch > 0)
+        history = self._best_history
+
+        for epoch in range(self.start_epoch, cfg.epochs):
+            print(f"[ Epoch {epoch} ]")
+            start = time.time()
+            state = self.train_epoch(state, logger)
+            if cfg.eval_train:
+                te_rng = np.random.default_rng(epoch)
+                self.eval_epoch(state.params, "train",
+                                self.dm.train_eval_batches(te_rng), logger)
+            M.print_epoch_status("train", self.metrics, start)
+            logger.log(self.metrics, "train", self.start_time,
+                       end_of_epoch=True)
+
+            if not cfg.train_only:
+                for split in self.dm.eval_splits:
+                    if split == "test":
+                        continue
+                    start = time.time()
+                    self.eval_epoch(state.params, split, logger=logger)
+                    M.print_epoch_status(split, self.metrics, start)
+
+            # LR plateau scheduling on the monitored metric
+            monitored = self._monitored_metric()
+            if self.plateau is not None:
+                self.plateau.step(monitored)
+
+            history.append(monitored)
+            stop = self.early_stop.update(epoch, monitored)
+            self._save_checkpoint(state, epoch, monitored, history)
+            if stop:
+                print(f"No improvement for {cfg.early_stopping} epochs. "
+                      "Stopping model training early.")
+                break
+
+        if not cfg.train_only and "test" in self.dm.eval_splits:
+            start = time.time()
+            self.eval_epoch(state.params, "test", logger=logger)
+            M.print_epoch_status("test", self.metrics, start)
+        logger.close()
+        return state
