@@ -88,6 +88,11 @@ class TrainConfig:
     # Sidechain build: cuda (hand-written kernels) | torch (plain) | auto,
     # as drmsd_impl.
     sidechain_impl: str = "auto"
+    # Encoder self-attention (ops/attention.py): flash sends attention
+    # without dropout on the probabilities (eval, predict, dropout-0
+    # training) through the flash kernels; training with dropout > 0 keeps
+    # the materialised branch. auto = xla (the materialised branch).
+    attention_impl: str = "auto"             # auto | xla | flash
 
     # Derived (filled by finalize())
     vocab_size: int = 22
@@ -123,3 +128,10 @@ class TrainConfig:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TrainConfig":
+        """A config from a saved dict; keys that are no field of the port
+        (a run of the JAX package has more) are dropped."""
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in fields})

@@ -56,7 +56,8 @@ class ConvEncoderOnlyTransformer(nn.Module):
                  conv_dim_reductions: Sequence[float],
                  use_tanh_out: bool = True, use_embedding: bool = True,
                  conv_out_matches_dm: bool = True, dropout: float = 0.1,
-                 pad_id: int = 20, prenorm: bool = True):
+                 pad_id: int = 20, prenorm: bool = True,
+                 attn_impl: str = "xla"):
         super().__init__()
         self.pad_id = pad_id
         self.vocab_size = vocab_size
@@ -79,7 +80,7 @@ class ConvEncoderOnlyTransformer(nn.Module):
             convs.append(nn.Conv1d(din, dout, k, padding=k // 2))
         self.convs = nn.ModuleList(convs)
         self.layers = nn.ModuleList(
-            [EncoderLayer(d_attn, d_ff, n_heads, dropout, prenorm)
+            [EncoderLayer(d_attn, d_ff, n_heads, dropout, prenorm, attn_impl)
              for _ in range(n_layers)])
         self.head = AngleProjection(d_attn, angle_means, use_tanh_out)
 

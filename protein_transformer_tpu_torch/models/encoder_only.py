@@ -52,11 +52,12 @@ class EncoderOnlyTransformer(nn.Module):
     def __init__(self, n_layers: int, n_heads: int, d_model: int, d_ff: int,
                  max_len: int, vocab_size: int, angle_means,
                  use_tanh_out: bool = True, dropout: float = 0.1,
-                 pad_id: int = 20, prenorm: bool = True):
+                 pad_id: int = 20, prenorm: bool = True,
+                 attn_impl: str = "xla"):
         super().__init__()
         self.pad_id = pad_id
         self.encoder = Encoder(vocab_size, d_model, d_ff, n_heads, n_layers,
-                               max_len, dropout, prenorm)
+                               max_len, dropout, prenorm, attn_impl)
         self.head = AngleProjection(d_model, angle_means, use_tanh_out)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:

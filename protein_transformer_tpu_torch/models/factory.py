@@ -24,6 +24,15 @@ def parse_conv_kernel_info_from_model_name(mname: str):
             [float(r) for r in dim_reducs.split(",")])
 
 
+def resolve_attention_impl(impl: str) -> str:
+    """'auto' -> 'xla', the materialised branch, as in the JAX package;
+    'flash' is asked for by name. The times of both branches on the H100
+    are in PERF.md."""
+    if impl == "auto":
+        return "xla"
+    return impl
+
+
 def make_model(cfg, angle_means) -> nn.Module:
     """Build the model cfg names (on the CPU; the caller moves it)."""
     name = cfg.model
@@ -32,7 +41,8 @@ def make_model(cfg, angle_means) -> nn.Module:
         d_ff=cfg.d_ff, max_len=cfg.max_seq_len, vocab_size=cfg.vocab_size,
         angle_means=[float(a) for a in angle_means],
         use_tanh_out="linear-out" not in name, dropout=cfg.dropout,
-        pad_id=cfg.pad_id, prenorm=not cfg.postnorm)
+        pad_id=cfg.pad_id, prenorm=not cfg.postnorm,
+        attn_impl=resolve_attention_impl(cfg.attention_impl))
     if name.startswith("enc-only"):
         return EncoderOnlyTransformer(**common)
     if "conv-enc" in name:

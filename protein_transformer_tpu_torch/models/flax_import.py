@@ -101,14 +101,19 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
 
 
 def params_from_flat_keys(flat: Mapping[str, np.ndarray]) -> dict:
-    """Nested params from flat golden-file keys such as
-    "p['params']['Conv_0']['kernel']"; keys not starting with "p[" are
-    skipped (inputs and expected outputs share the file)."""
+    """Nested params from flat keys: golden-file keys such as
+    "p['params']['Conv_0']['kernel']", or the slash keys of an exported
+    checkpoint such as "params/params/Conv_0/kernel" (the first segment is
+    the checkpoint's entry, the rest the flax path). Other keys are skipped
+    (inputs, expected outputs or the step share the file)."""
     tree: dict = {}
     for key in flat:
-        if not key.startswith("p["):
+        if key.startswith("p["):
+            path = _GOLDEN_KEY.findall(key)
+        elif key.startswith("params/"):
+            path = key.split("/")[1:]
+        else:
             continue
-        path = _GOLDEN_KEY.findall(key)
         node = tree
         for seg in path[:-1]:
             node = node.setdefault(seg, {})

@@ -8,7 +8,10 @@ Port of protein_transformer_tpu/models/transformer.py (encoder side):
 * pre-LN (or post-LN) residual sublayers, no final layer norm;
 * multi-head attention over a key-padding mask: masked scores get the
   smallest fp32 value (not -inf), the softmax runs in fp32, and padded
-  queries still attend to the real keys.
+  queries still attend to the real keys. With ``impl="flash"`` the
+  self-attention of every call without dropout on the probabilities goes
+  through ``ops/attention.py`` (the flash kernels on a CUDA device), which
+  computes the same function without materialising the probabilities.
 
 Layer norms use eps 1e-6, flax's default (torch's is 1e-5). Dropout sits
 where the JAX modules have it, is inactive in ``eval()`` mode, and draws its
@@ -24,7 +27,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from protein_transformer_tpu_torch.ops import attention
+
 LAYER_NORM_EPS = 1e-6
+ATTENTION_IMPLS = ("xla", "flash")
 
 
 class Dropout(nn.Module):
@@ -95,14 +101,27 @@ class Embeddings(nn.Module):
 
 class MultiHeadedAttention(nn.Module):
     """Multi-head attention; mask broadcastable to (B, 1, Lq, Lk), True where
-    a key may be attended to. The scores materialise (B, H, Lq, Lk), the
-    JAX package's 'xla' branch."""
+    a key may be attended to.
 
-    def __init__(self, dim: int, n_heads: int, dropout: float = 0.1):
+    impl: 'xla' (the JAX package's name for it) materialises the
+    (B, H, Lq, Lk) probabilities, which dropout on them needs. 'flash' sends
+    key-padding-masked self-attention without dropout on the probabilities
+    (eval mode, or dropout == 0) through ``ops.attention
+    .flash_self_attention``, and takes the materialised branch anywhere
+    else, so one setting serves a whole model. That is the meaning of the
+    setting, as in the JAX package, not a fallback: on a CUDA tensor the
+    flash path launches its kernels or raises."""
+
+    def __init__(self, dim: int, n_heads: int, dropout: float = 0.1,
+                 impl: str = "xla"):
         super().__init__()
         if dim % n_heads:
             raise ValueError(f"d_model {dim} is not divisible by {n_heads} "
                              "heads")
+        if impl not in ATTENTION_IMPLS:
+            raise ValueError(f"unknown attention impl {impl!r}; expected one "
+                             f"of {ATTENTION_IMPLS}")
+        self.impl = impl
         self.n_heads = n_heads
         self.wq = nn.Linear(dim, dim)
         self.wk = nn.Linear(dim, dim)
@@ -118,6 +137,14 @@ class MultiHeadedAttention(nn.Module):
             return x.reshape(bsz, x.shape[1], self.n_heads, dk).transpose(1, 2)
 
         q, k, v = split(self.wq(q_in)), split(self.wk(k_in)), split(self.wv(v_in))
+        if (self.impl == "flash"
+                and (not self.training or self.dropout.p == 0.0)
+                and mask is not None and mask.dim() == 4
+                and mask.shape[1] == 1 and mask.shape[2] == 1
+                and q_in is k_in):
+            out = attention.flash_self_attention(
+                q, k, v, mask[:, 0, 0, :], sm_scale=1.0 / math.sqrt(dk))
+            return self.wo(out.transpose(1, 2).reshape(bsz, lq, dim))
         scores = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(dk)
         if mask is not None:
             scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
@@ -158,9 +185,9 @@ class EncoderLayer(nn.Module):
     """Self-attention + feed-forward encoder layer."""
 
     def __init__(self, dim: int, dff: int, n_heads: int, dropout: float = 0.1,
-                 prenorm: bool = True):
+                 prenorm: bool = True, attn_impl: str = "xla"):
         super().__init__()
-        self.attn = MultiHeadedAttention(dim, n_heads, dropout)
+        self.attn = MultiHeadedAttention(dim, n_heads, dropout, attn_impl)
         self.ff = PositionwiseFeedForward(dim, dff, dropout)
         self.sublayer = nn.ModuleList(
             [SublayerConnection(dim, dropout, prenorm) for _ in range(2)])
@@ -175,13 +202,13 @@ class Encoder(nn.Module):
 
     def __init__(self, vocab_size: int, dim: int, dff: int, n_heads: int,
                  n_layers: int, max_len: int, dropout: float = 0.1,
-                 prenorm: bool = True):
+                 prenorm: bool = True, attn_impl: str = "xla"):
         super().__init__()
         self.embeddings = Embeddings(vocab_size, dim)
         self.pe = PositionalEncoding(dim, max_len, dropout)
         self.dropout = Dropout(dropout)
         self.layers = nn.ModuleList(
-            [EncoderLayer(dim, dff, n_heads, dropout, prenorm)
+            [EncoderLayer(dim, dff, n_heads, dropout, prenorm, attn_impl)
              for _ in range(n_layers)])
 
     def forward(self, ids, mask):

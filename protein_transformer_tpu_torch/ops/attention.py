@@ -1,0 +1,328 @@
+"""Flash self-attention over a key-padding mask: the hand-written CUDA
+kernels and their plain version.
+
+Counterpart of protein_transformer_tpu/ops/attention.py, whose
+``flash_self_attention`` reaches the TPU flash kernels of
+``jax.experimental.pallas.ops.tpu.flash_attention``. For q, k, v of shape
+(B, H, L, D) and a (B, L) bool ``valid`` (True at real positions), with
+s_ij = sm_scale * q_i . k_j,
+
+    O = softmax_j(s_ij where key j is valid, else finfo(float32).min) V
+
+without the (B, H, L, L) probabilities ever reaching device memory.
+
+**Masking contract, shared by the kernels and the plain version.** It is the
+materialised branch's (``models/transformer.py``) on every row: a masked key
+gets the smallest finite fp32 score, not -inf, so it weighs exactly 0
+wherever the row has a valid key; a pad query row attends to the valid keys
+like any other row (the JAX flash path lets pad rows attend to each other
+instead; pad rows never reach a real output, and the tests against JAX
+compare valid rows only); and a batch row with **no valid key at all**, as
+``collate``'s batch padding makes them, gets uniform weights 1/L over its L
+keys: finite outputs, and finite gradients (zero for q and k, since a
+constant score passes none; the mean of dO for v).
+
+* K3a ``flash_attn_fwd_cuda`` (``csrc/attention.cu``) -> O and, when asked,
+  the running maximum m and sum l of every query row, (B, H, L) each;
+* K3b ``flash_attn_bwd_dkv_cuda`` -> (dK, dV) and K3c
+  ``flash_attn_bwd_dq_cuda`` -> dQ, from q, k, v, the mask, dO, m, l and
+  delta = sum_d dO o O (``attention_delta_cuda``, a row pre-pass in the same
+  library); the probabilities are recomputed tile by tile;
+* the plain version of all three is ``flash_self_attention_torch`` (the
+  materialised masked softmax in fp32) with autograd for its gradient.
+
+The kernels address their tensors by strides, so the (B, H, L, D) views that
+the model's head split makes of (B, L, H * D) memory are read in place, and
+O and the gradients are written in that same memory layout: the merge of the
+heads after the attention is a view, not a copy. A wrapper copies only a
+tensor whose last dimension is not adjacent in memory or whose rows are not
+16-byte aligned. Head dimensions 16, 32, 64 and 128; float32.
+
+A kernel wrapper takes CUDA tensors only and raises on anything else; a
+kernel that fails to build or to launch raises. ``flash_self_attention`` is
+the differentiable entry point: ``impl`` is "cuda", "torch" or "auto" (by
+the tensors' device).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from protein_transformer_tpu_torch.ops import _build
+
+HEAD_DIMS = (16, 32, 64, 128)
+IMPLS = ("auto", "cuda", "torch")
+
+
+def resolve_impl(impl: str, device: torch.device) -> str:
+    """'auto' -> 'cuda' for tensors on a CUDA device, else 'torch'."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; expected one of "
+                         f"{IMPLS}")
+    if impl == "auto":
+        return "cuda" if torch.device(device).type == "cuda" else "torch"
+    return impl
+
+
+def flash_self_attention_torch(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, valid: torch.Tensor, *,
+                               sm_scale: float) -> torch.Tensor:
+    """Plain PyTorch version of K3a and, through autograd, of K3b and K3c:
+    the materialised masked softmax in fp32, under the module's masking
+    contract. q, k, v (B, H, L, D); valid (B, L) bool; returns (B, H, L, D).
+    """
+    scores = torch.matmul(q, k.transpose(-2, -1)) * sm_scale
+    scores = scores.masked_fill(~valid.bool()[:, None, None, :],
+                                torch.finfo(torch.float32).min)
+    return torch.matmul(torch.softmax(scores, dim=-1), v)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared: pointers as
+    c_void_p, so ctypes never truncates them to 32 bits."""
+    lib = _build.load("attention")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    lib.flash_attn_fwd.argtypes = [p] * 7 + [i] * 4 + [f, strides, p]
+    lib.attention_delta.argtypes = [p] * 3 + [i] * 4 + [strides, p]
+    lib.flash_attn_bwd_dkv.argtypes = [p] * 10 + [i] * 4 + [f, strides, p]
+    lib.flash_attn_bwd_dq.argtypes = [p] * 9 + [i] * 4 + [f, strides, p]
+    for fn in (lib.flash_attn_fwd, lib.attention_delta,
+               lib.flash_attn_bwd_dkv, lib.flash_attn_bwd_dq):
+        fn.restype = ctypes.c_int
+    lib.attention_error_string.argtypes = [ctypes.c_int]
+    lib.attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _rows_in_place(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernels can address it (adjacent elements along
+    D, every row 16-byte aligned), else a contiguous copy."""
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
+            and all(s % 4 == 0 for s in t.stride()[:-1]):
+        return t
+    return t.contiguous()
+
+
+def _head_layout(shape, like: torch.Tensor) -> torch.Tensor:
+    """An uninitialised (B, H, L, D) tensor in (B, L, H, D) memory, the
+    layout of the model's head split: merging the heads is then a view."""
+    bsz, n_heads, length, dim = shape
+    return torch.empty((bsz, length, n_heads, dim), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def _check_cuda(fn: str, valid: torch.Tensor | None, stats: dict,
+                **tensors: torch.Tensor) -> tuple[int, int, int, int]:
+    """What every kernel wrapper takes: float32 (B, H, L, D) tensors of one
+    shape on one CUDA device, D in HEAD_DIMS, a bool (B, L) mask (where the
+    kernel reads one) and contiguous float32 (B, H, L) row statistics.
+    Returns (B, H, L, D)."""
+    first = next(iter(tensors.values()))
+    device, shape = first.device, tuple(first.shape)
+    if device.type != "cuda":
+        raise ValueError(f"{fn} needs its tensors on a CUDA device; got "
+                         f"{device}")
+    if len(shape) != 4 or shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{fn} takes (B, H, L, D) tensors with D in "
+                         f"{HEAD_DIMS}; got {shape}")
+    bsz, n_heads, length, _ = shape
+    if bsz * n_heads > 65535:
+        raise ValueError(f"{fn}: B * H = {bsz * n_heads} exceeds the grid's "
+                         "65535")
+    for name, t in tensors.items():
+        if t.device != device or tuple(t.shape) != shape:
+            raise ValueError(f"{fn}: {name} is {tuple(t.shape)} on "
+                             f"{t.device}, expected {shape} on {device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn} takes float32 {name}; got {t.dtype}")
+    if valid is not None and (
+            valid.device != device or valid.dtype != torch.bool
+            or tuple(valid.shape) != (bsz, length)
+            or not valid.is_contiguous()):
+        raise ValueError(f"{fn} takes a contiguous bool mask "
+                         f"{(bsz, length)} on {device}; got {valid.dtype} "
+                         f"{tuple(valid.shape)} on {valid.device}")
+    for name, t in stats.items():
+        if t.device != device or t.dtype != torch.float32 \
+                or tuple(t.shape) != shape[:3] or not t.is_contiguous():
+            raise ValueError(f"{fn} takes contiguous float32 {name} "
+                             f"{shape[:3]} on {device}")
+    return shape
+
+
+def _launch(fn: str, device, pointers, ints, scale, strided) -> None:
+    """Call ``fn`` of the library on the current stream of ``device`` with
+    the element strides (batch, head, row) of the ``strided`` tensors; raise
+    on a non-zero CUDA error code."""
+    lib = _lib()
+    flat = [s for t in strided for s in t.stride()[:3]]
+    strides = (ctypes.c_longlong * len(flat))(*flat)
+    scale = () if scale is None else (float(scale),)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib, fn)(*pointers, *ints, *scale, strides, stream)
+    if err:
+        raise RuntimeError(f"{fn} kernel launch failed: "
+                           + lib.attention_error_string(err).decode())
+
+
+def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        valid: torch.Tensor, sm_scale: float,
+                        with_stats: bool = False):
+    """K3a: (O, m, l) from the CUDA kernel, one launch for the whole batch.
+
+    q, k, v: (B, H, L, D) float32 on one CUDA device, D in HEAD_DIMS; valid:
+    (B, L) bool, contiguous. O comes back (B, H, L, D) in (B, L, H, D)
+    memory. m and l, each query row's running maximum and sum, (B, H, L),
+    are written only ``with_stats``, else both are None. Raises for any
+    other input, and if the kernel fails to build or launch. Adds one to
+    ``flash_attn_fwd_cuda.launches`` per launch."""
+    shape = _check_cuda("flash_attn_fwd_cuda", valid, {}, q=q, k=k, v=v)
+    q, k, v = _rows_in_place(q), _rows_in_place(k), _rows_in_place(v)
+    out = _head_layout(shape, q)
+    m = l = None
+    if with_stats:
+        m = torch.empty(shape[:3], dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    if q.numel() == 0:
+        return out, m, l
+    _launch("flash_attn_fwd", q.device,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+             out.data_ptr(), m.data_ptr() if with_stats else None,
+             l.data_ptr() if with_stats else None),
+            shape, sm_scale, (q, k, v, out))
+    flash_attn_fwd_cuda.launches += 1
+    return out, m, l
+
+
+flash_attn_fwd_cuda.launches = 0
+
+
+def attention_delta_cuda(out: torch.Tensor, d_out: torch.Tensor
+                         ) -> torch.Tensor:
+    """delta = sum over D of dO o O, (B, H, L), from the row pre-pass kernel
+    of the backward; its plain version is ``(d_out * out).sum(-1)``. Adds
+    one to ``attention_delta_cuda.launches`` per launch."""
+    shape = _check_cuda("attention_delta_cuda", None, {}, out=out,
+                        d_out=d_out)
+    out, d_out = _rows_in_place(out), _rows_in_place(d_out)
+    delta = torch.empty(shape[:3], dtype=torch.float32, device=out.device)
+    if out.numel() == 0:
+        return delta
+    _launch("attention_delta", out.device,
+            (out.data_ptr(), d_out.data_ptr(), delta.data_ptr()), shape, None,
+            (out, d_out))
+    attention_delta_cuda.launches += 1
+    return delta
+
+
+attention_delta_cuda.launches = 0
+
+
+def flash_attn_bwd_dkv_cuda(q, k, v, valid, d_out, m, l, delta,
+                            sm_scale: float
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3b: (dK, dV) from the CUDA kernel, each (B, H, L, D) in (B, L, H, D)
+    memory. q, k, v, valid as ``flash_attn_fwd_cuda`` takes them; d_out the
+    cotangent of O; m, l the forward's row statistics and delta
+    ``attention_delta_cuda``'s, (B, H, L) float32, contiguous. Adds one to
+    ``flash_attn_bwd_dkv_cuda.launches`` per launch."""
+    shape = _check_cuda("flash_attn_bwd_dkv_cuda", valid,
+                        {"m": m, "l": l, "delta": delta}, q=q, k=k, v=v,
+                        d_out=d_out)
+    q, k, v, d_out = (_rows_in_place(t) for t in (q, k, v, d_out))
+    d_k, d_v = _head_layout(shape, q), _head_layout(shape, q)
+    if q.numel() == 0:
+        return d_k, d_v
+    _launch("flash_attn_bwd_dkv", q.device,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+             d_out.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
+             d_k.data_ptr(), d_v.data_ptr()),
+            shape, sm_scale, (q, k, v, d_out, d_k, d_v))
+    flash_attn_bwd_dkv_cuda.launches += 1
+    return d_k, d_v
+
+
+flash_attn_bwd_dkv_cuda.launches = 0
+
+
+def flash_attn_bwd_dq_cuda(q, k, v, valid, d_out, m, l, delta,
+                           sm_scale: float) -> torch.Tensor:
+    """K3c: dQ from the CUDA kernel, (B, H, L, D) in (B, L, H, D) memory;
+    takes what ``flash_attn_bwd_dkv_cuda`` takes. Adds one to
+    ``flash_attn_bwd_dq_cuda.launches`` per launch."""
+    shape = _check_cuda("flash_attn_bwd_dq_cuda", valid,
+                        {"m": m, "l": l, "delta": delta}, q=q, k=k, v=v,
+                        d_out=d_out)
+    q, k, v, d_out = (_rows_in_place(t) for t in (q, k, v, d_out))
+    d_q = _head_layout(shape, q)
+    if q.numel() == 0:
+        return d_q
+    _launch("flash_attn_bwd_dq", q.device,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+             d_out.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
+             d_q.data_ptr()),
+            shape, sm_scale, (q, k, v, d_out, d_q))
+    flash_attn_bwd_dq_cuda.launches += 1
+    return d_q
+
+
+flash_attn_bwd_dq_cuda.launches = 0
+
+
+class FlashSelfAttention(torch.autograd.Function):
+    """Differentiable kernel attention: the port's counterpart of the custom
+    VJP around the TPU flash kernel.
+
+    Forward: K3a with the row statistics; saves q, k, v, the mask, O, m and
+    l (never the probabilities). Backward: the delta pre-pass, then K3b when
+    k or v needs a gradient and K3c when q does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid, sm_scale):
+        out, m, l = flash_attn_fwd_cuda(q, k, v, valid, sm_scale,
+                                        with_stats=True)
+        ctx.save_for_backward(q, k, v, valid, out, m, l)
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, valid, out, m, l = ctx.saved_tensors
+        delta = attention_delta_cuda(out, d_out)
+        d_q = d_k = d_v = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            d_k, d_v = flash_attn_bwd_dkv_cuda(q, k, v, valid, d_out, m, l,
+                                               delta, ctx.sm_scale)
+        if ctx.needs_input_grad[0]:
+            d_q = flash_attn_bwd_dq_cuda(q, k, v, valid, d_out, m, l, delta,
+                                         ctx.sm_scale)
+        return d_q, d_k, d_v, None, None
+
+
+def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         valid: torch.Tensor, *, sm_scale: float,
+                         impl: str = "auto") -> torch.Tensor:
+    """Masked-softmax self-attention without the probabilities in device
+    memory, differentiable in q, k and v.
+
+    q, k, v: (B, H, L, D) float32. valid: (B, L) bool, True at real
+    positions. Returns (B, H, L, D). impl "cuda" runs the kernels (float32
+    CUDA tensors with D in HEAD_DIMS only: anything else raises), "torch"
+    the plain version, "auto" picks by q's device.
+
+    The kernel path goes through ``FlashSelfAttention`` only when autograd
+    will want a gradient: inside a Function's forward grad mode is always
+    off, so it cannot tell a no-grad or inference-mode call, which must save
+    nothing and write no row statistics, from a training one."""
+    if resolve_impl(impl, q.device) == "torch":
+        return flash_self_attention_torch(q, k, v, valid, sm_scale=sm_scale)
+    valid = valid.bool().contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashSelfAttention.apply(q, k, v, valid, float(sm_scale))
+    return flash_attn_fwd_cuda(q, k, v, valid, sm_scale)[0]

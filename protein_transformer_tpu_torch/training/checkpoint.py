@@ -15,14 +15,25 @@ machines, the loss history) goes to a JSON sidecar,
 name and moved into place, the tensor file first: a crash leaves the old
 checkpoint or the new one, at worst with the older sidecar or none, and a
 missing sidecar restores as an empty dict.
+
+A run of the JAX package comes in through numpy: ``ptt_scripts/
+export_checkpoint_npz.py`` (outside this package; it reads the orbax
+checkpoint with the JAX package) writes the parameters as a flat ``.npz``
+with the run's ``config.json``, and ``import_run`` here turns that directory
+into a run directory of the port:
+
+    python -m protein_transformer_tpu_torch.training.checkpoint \
+        <exported_dir> <run_dir> [--checkpoint best]
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import time
-from typing import Optional
+from typing import Mapping, Optional
 
+import numpy as np
 import torch
 
 
@@ -128,3 +139,75 @@ def checkpoint_policy(cur_loss: float, loss_history: list,
     if do_time:
         return "latest"
     return None
+
+
+def import_flat_arrays(flat: Mapping[str, np.ndarray],
+                       model: torch.nn.Module) -> dict:
+    """The arrays of a port checkpoint from a flat mapping of numpy arrays
+    keyed "params/<flax path>" (and "step"), as an exported checkpoint of
+    the JAX package holds them: the parameters mapped onto ``model``'s names
+    and layouts through the flax bridge, the step, and an empty optimizer
+    state (the JAX optimizer's moments are not carried over: resume
+    training from such a checkpoint with ``--restart_opt``)."""
+    from protein_transformer_tpu_torch.models.flax_import import (
+        flax_to_state_dict, params_from_flat_keys)
+    params = flax_to_state_dict(params_from_flat_keys(flat), model)
+    step = int(np.asarray(flat["step"])) if "step" in flat else 0
+    return {"params": params,
+            "opt_state": {"count": 0, "mu": {}, "nu": {}}, "step": step}
+
+
+def import_run(exported_dir: str, run_dir: str,
+               modifier: str = "best") -> str:
+    """Make ``run_dir`` a run directory of the port from an exported run of
+    the JAX package: ``<exported_dir>/config.json`` and
+    ``<exported_dir>/<modifier>.npz`` (with ``<modifier>.meta.json`` when
+    the run had one). Writes ``config.json`` with the port's fields (kernel
+    choices reset to "auto": their JAX values name TPU implementations) and
+    ``checkpoints/<modifier>`` with its sidecar; returns ``run_dir``.
+
+    Settings of the JAX run that the port has no field for are dropped when
+    they only say how that run was executed (logging, profiling, the mesh,
+    the data store). The two that decide what the restored model computes
+    are refused as the training CLI refuses them: a compute dtype other than
+    float32 and the encoder-decoder model raise NotImplementedError."""
+    from protein_transformer_tpu_torch.config import TrainConfig
+    from protein_transformer_tpu_torch.models.factory import make_model
+    from protein_transformer_tpu_torch.training.cli import check_ported
+    with open(os.path.join(exported_dir, "config.json")) as f:
+        saved = json.load(f)
+    check_ported(saved["config"], only=("compute_dtype", "model"))
+    cfg = TrainConfig.from_dict(saved["config"])
+    cfg.drmsd_impl = cfg.sidechain_impl = "auto"
+    cfg = cfg.finalize()
+    model = make_model(cfg, np.asarray(saved["angle_means"], np.float32))
+    with np.load(os.path.join(exported_dir, modifier + ".npz")) as flat:
+        arrays = import_flat_arrays(flat, model)
+    meta_path = os.path.join(exported_dir, modifier + ".meta.json")
+    meta = {}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    os.makedirs(run_dir, exist_ok=True)
+    with open(os.path.join(run_dir, "config.json"), "w") as f:
+        json.dump({"config": cfg.to_dict(),
+                   "angle_means": saved["angle_means"]}, f, indent=1,
+                  default=str)
+    CheckpointManager(os.path.join(run_dir, "checkpoints")).save(
+        modifier, arrays, meta)
+    return run_dir
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        description="Import an exported run of the JAX package (config.json "
+                    "and <checkpoint>.npz) as a run directory of the port.")
+    p.add_argument("exported_dir")
+    p.add_argument("run_dir")
+    p.add_argument("--checkpoint", default="best")
+    args = p.parse_args(argv)
+    print(import_run(args.exported_dir, args.run_dir, args.checkpoint))
+
+
+if __name__ == "__main__":
+    main()

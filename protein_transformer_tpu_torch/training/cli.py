@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+from typing import Mapping, Optional, Sequence
 
 from protein_transformer_tpu_torch.config import TrainConfig
 
@@ -125,7 +126,13 @@ def create_parser() -> argparse.ArgumentParser:
     gpu.add_argument("--mesh_shape", type=int, nargs="+", default=[-1])
     gpu.add_argument("--mesh_axes", type=str, nargs="+", default=["data"])
     gpu.add_argument("--attention_impl", choices=["auto", "xla", "flash"],
-                     default="auto")
+                     default="auto",
+                     help="encoder self-attention: xla materialises the "
+                          "probabilities; flash sends eval steps and "
+                          "dropout-0 training through the hand-written "
+                          "flash kernels (CUDA; the plain version on the "
+                          "CPU) and keeps the materialised branch for "
+                          "training with dropout > 0; auto = xla")
     gpu.add_argument("--profile_dir", type=str, default=None)
     gpu.add_argument("--device_data", choices=["auto", "true", "false"],
                      default="auto",
@@ -135,40 +142,48 @@ def create_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(args: argparse.Namespace) -> None:
-    """Raise NotImplementedError for a flag value that asks for a part of
-    the system that the port does not have yet."""
-    asked = [
-        (args.use_wandb, "--use_wandb True", "wandb logging "
-         "(training/wandb_logging.py)"),
-        (args.automatically_determine_batch_size, "-adbs True",
-         "the batch-size probe (training/batch_probe.py)"),
-        (args.attention_impl == "flash", "--attention_impl flash",
-         "the flash-attention kernel (ops/attention.py)"),
-        (args.device_data == "true", "--device_data true",
-         "the device-resident data store (data/device_store.py)"),
-        (args.compute_dtype != "float32", "--compute_dtype bfloat16",
-         "bfloat16 compute"),
-        (args.profile_dir is not None, "--profile_dir",
-         "profiler traces (utils.maybe_profile)"),
-        (list(args.mesh_shape) != [-1] or list(args.mesh_axes) != ["data"],
-         "--mesh_shape / --mesh_axes",
-         "device meshes and multi-GPU runs (parallel/)"),
-        (args.save_pngs and (args.log_structure_step > 0
-                             or args.log_val_struct_step > 0),
-         "--save_pngs True with a structure-logging step",
-         "structure logging (training/structure_logging.py)"),
-        (args.model == "enc-dec", "-m enc-dec",
-         "the encoder-decoder model (models/enc_dec.py)"),
-    ]
-    for wanted, flag, part in asked:
+def check_ported(settings: Mapping, only: Optional[Sequence[str]] = None
+                 ) -> None:
+    """Raise NotImplementedError for a setting that asks for a part of the
+    system that the port does not have yet. ``settings`` maps setting names
+    to values: the parsed flags, or the saved config of a run (a setting
+    that is absent counts as not asked for). ``only`` limits the check to
+    the named rows of the table."""
+    get = settings.get
+    asked = {
+        "use_wandb": (get("use_wandb"), "--use_wandb True",
+                      "wandb logging (training/wandb_logging.py)"),
+        "automatically_determine_batch_size": (
+            get("automatically_determine_batch_size"), "-adbs True",
+            "the batch-size probe (training/batch_probe.py)"),
+        "device_data": (get("device_data") == "true", "--device_data true",
+                        "the device-resident data store "
+                        "(data/device_store.py)"),
+        "compute_dtype": (get("compute_dtype", "float32") != "float32",
+                          "--compute_dtype bfloat16", "bfloat16 compute"),
+        "profile_dir": (get("profile_dir") is not None, "--profile_dir",
+                        "profiler traces (utils.maybe_profile)"),
+        "mesh": (list(get("mesh_shape", [-1])) != [-1]
+                 or list(get("mesh_axes", ["data"])) != ["data"],
+                 "--mesh_shape / --mesh_axes",
+                 "device meshes and multi-GPU runs (parallel/)"),
+        "save_pngs": (get("save_pngs")
+                      and (get("log_structure_step", 0) > 0
+                           or get("log_val_struct_step", 0) > 0),
+                      "--save_pngs True with a structure-logging step",
+                      "structure logging (training/structure_logging.py)"),
+        "model": (get("model") == "enc-dec", "-m enc-dec",
+                  "the encoder-decoder model (models/enc_dec.py)"),
+    }
+    for name in (asked if only is None else only):
+        wanted, flag, part = asked[name]
         if wanted:
             raise NotImplementedError(
                 f"{flag}: {part} is not in the PyTorch port yet")
 
 
 def _config(args: argparse.Namespace) -> TrainConfig:
-    check_ported(args)
+    check_ported(vars(args))
     fields = {f.name for f in dataclasses.fields(TrainConfig)}
     kwargs = {k: v for k, v in vars(args).items() if k in fields}
     return TrainConfig(**kwargs).finalize()

@@ -281,7 +281,6 @@ def test_config_from_args_matches_jax_on_shared_fields():
 NOT_PORTED = {
     "wandb": (["--use_wandb", "True"], "wandb logging"),
     "adbs": (["-adbs", "True"], "batch-size probe"),
-    "flash": (["--attention_impl", "flash"], "flash-attention kernel"),
     "device-data": (["--device_data", "true"], "device-resident data store"),
     "bfloat16": (["--compute_dtype", "bfloat16"], "bfloat16 compute"),
     "profile": (["--profile_dir", "p"], "profiler traces"),
@@ -307,6 +306,11 @@ def test_accepted_values_of_those_flags_pass():
          "True", "--log_structure_step", "0", "-lvs", "0",
          "--sequential_drmsd_loss", "--no_cuda"])
     assert cfg.loss == "combined"
+    assert cfg.attention_impl == "xla"
+    # the flash kernels are in the port: the value is accepted and kept
+    flash = tcli.config_from_args(["--attention_impl", "flash"])
+    assert flash.attention_impl == "flash"
+    assert tcli.config_from_args([]).attention_impl == "auto"
 
 
 def test_cli_without_a_gpu_raises_and_never_uses_the_cpu(data, tmp_path):
