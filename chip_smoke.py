@@ -6,9 +6,10 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
 
 1. device: card name, torch and CUDA versions, nvidia-smi name and power
    limit;
-2. build: compiles the four kernel libraries from this checkout at once,
+2. build: compiles the five kernel libraries from this checkout at once,
    one nvcc each: csrc/drmsd_fwd.cu (K1a), csrc/drmsd_train.cu (K1b, K1c),
-   csrc/sidechain.cu (K2a, K2b) and csrc/attention.cu (K3a, K3b, K3c);
+   csrc/drmsd_variants.cu (K4a, K4b, K4c), csrc/sidechain.cu (K2a, K2b)
+   and csrc/attention.cu (K3a, K3b, K3c);
 3. kernels against their plain PyTorch versions on the card.
    dRMSD (K1a, K1b, K1c), ~70% of atoms valid and one protein all masked,
    at B=8 x N = 600, 768, 3584, 7000 and at the training step's B=16 x
@@ -31,7 +32,23 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    Median times of kernel and plain over 25 runs (CUDA events), and each
    kernel's bound: the larger of its bytes (inputs read once, outputs
    written once) over 3.35 TB/s and its operations on this run's data over
-   67 TFLOP/s (fp32 outside the tensor cores);
+   67 TFLOP/s (fp32 outside the tensor cores). At the shape of its row in
+   the kernel table each kernel also gets a device-only time: the device
+   time of what one wrapper call launches, from a torch.profiler trace,
+   beside the event time, which holds the wrapper's host work too.
+   Then the kernel variants of the bench tool (K4a one square root a pair,
+   K4b and K4c the norm + cross-term form on the tensor cores, TF32 split
+   in two) at the same (B, N) cases against their plain versions and
+   against K1a / K1b: pair counts equal, exact zeros for the all-masked
+   protein, the same bits on a second call, |d dRMSD| <= 1e-4 A, K4c's
+   dS/da within 1e-4 * max(1, max|g|); on the tool's own inputs
+   (a ~ N(0, 30), b = a + N(0, 1)) S of K1a, K4a and K4b against a float64
+   run of the plain version, within 1e-5 relative at n = 700 and 1e-4 at
+   B=8 x N = 3584 and 7000; times, bounds (the matrix products' operations
+   over 495 TFLOP/s TF32 are the third term) and device-only times at both
+   bench shapes; then the tool itself through its ``main`` (parity, then
+   the bench: cur / sqrt1 / mxu forward, cur / mxu gradient), with the
+   launches of that run asserted;
 4. goldens on the card: NeRF coordinates (tests/golden/coords.npz,
    realistic_coords.npz) <= 1e-3 A, and the conv-enc model forward
    (tests/golden/model_parity_conv-enc.npz) <= 2e-5 with TF32 off;
@@ -96,7 +113,27 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    ill-conditioned in the predicted sin/cos under random weights, the limit
    comes from a float64 run of the same step: the flash arm's gradient no
    farther from it than twice the xla arm's plus 1e-3 (L2), and the arms
-   within 2e-2 (entries) and 1e-2 (L2) of each other.
+   within 2e-2 (entries) and 1e-2 (L2) of each other;
+11. the encoder-decoder family at full width (d_model 512, d_ff 2048, 8
+   heads, 6 + 6 layers, combined loss, Adam, Noam, dropout 0.1, teacher
+   forcing) through the CLI, twice: two epochs of 9 steps with one
+   validation split and test, without and with structure logging. Per
+   train step K1b launched twice, K2a and K2b once, per eval step K1a
+   twice and K2a once, K2a once more per logged structure, K3 never; the
+   checkpoint restored bit for bit; ``predict.main`` on the run for 16
+   proteins (teacher-forced on the true angles, as the JAX package
+   predicts). Prints ms per train step beside the conv-enc CLI step of
+   phase 7, and a profiler count of one step. Scheduled sampling (both
+   fractions 0.5) and ``predict()`` run at L = 32: four train steps with
+   backward, whose decoder passes must be those the sampling generator's
+   seed gives (three teacher-forced steps, one sampled with 19 predictions
+   fed back);
+12. structure logging, inside phase 11's second CLI run
+   (--log_structure_step 2 --log_val_struct_step 4): for every logged step
+   <step>_pred.pdb, <step>_pred.glb and <step>_scene.glb, and true.pdb and
+   true.glb, under structures/train and structures/V10, each parsed (PDB
+   atoms finite, the .glb container valid); ms per train step with logging
+   on beside logging off.
 
 It prints the kernel table as one JSON line, and as its last line
 {"ok": true, "device": {...}}. It needs one CUDA device and no network.
@@ -110,7 +147,6 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -133,11 +169,13 @@ from protein_transformer_tpu_torch.models.flax_import import (
 from protein_transformer_tpu_torch.ops import _build
 from protein_transformer_tpu_torch.ops import attention as A
 from protein_transformer_tpu_torch.ops import drmsd as D
+from protein_transformer_tpu_torch.ops import drmsd_variants as V
 from protein_transformer_tpu_torch.ops import sidechain as S
 from protein_transformer_tpu_torch.protein import geometry as G
 from protein_transformer_tpu_torch.protein.geometry import (
     build_coords_batch, inverse_trig_transform)
 from protein_transformer_tpu_torch.protein.pdb import parse_pdb_atoms
+from protein_transformer_tpu_torch.tools import bench_drmsd_kernel
 from protein_transformer_tpu_torch.training import cli
 from protein_transformer_tpu_torch.training.checkpoint import (
     CheckpointManager)
@@ -145,7 +183,8 @@ from protein_transformer_tpu_torch.training.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
-LIBRARIES = ("drmsd_fwd", "drmsd_train", "sidechain", "attention")
+LIBRARIES = ("drmsd_fwd", "drmsd_train", "drmsd_variants", "sidechain",
+             "attention")
 # (B, N): the sizes of the TPU kernel's tests, then the training step's
 # full-atom (14 x 256) and backbone (3 x 256) sweeps at B=16
 KERNEL_CASES = ((8, 600), (8, 768), (8, 3584), (8, 7000), (16, 768),
@@ -162,24 +201,42 @@ ATTENTION_CASES = ((8, 8, 256, 64), (16, 8, 256, 64), (8, 8, 500, 64),
                    (3, 2, 37, 16), (1, 1, 1, 16))
 ATTENTION_PREDICT_CASE = (8, 8, 256, 64)
 ATTENTION_TRAIN_CASE = (16, 8, 256, 64)
+# (B, N) of the variant bench's first shape, L=256: the K4 rows' case
+VARIANT_CASE = (8, 3584)
 FLASH_TRAIN_REPEAT = 4   # 16 proteins x 4 / (8 x 500 residues) -> 5 steps
-TIMED_RUNS = 25
+TIMED_RUNS = bench_drmsd_kernel.TIMED_RUNS
 TRAIN_REPEAT = 8         # 16 proteins x 8 / (8 x 500 residues) -> 9 steps
 MODEL = "conv-enc|21,11,3|1,1,1"
 # arm -> (drmsd_impl, sidechain_impl)
 ARMS = {"all": ("cuda", "cuda"), "drmsd": ("cuda", "torch"),
         "plain": ("torch", "torch")}
 
-# The card's peaks for the bounds: HBM bytes/s and fp32 FLOP/s outside the
-# tensor cores (NVIDIA's H100 SXM data sheet).
+# The card's peaks for the bounds: HBM bytes/s, fp32 FLOP/s outside the
+# tensor cores and dense TF32 FLOP/s inside them (NVIDIA's H100 SXM data
+# sheet).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 # fp32 operations per valid pair i < j. K1a: per distance 3 subtractions, 5
 # for the squared norm, max, rsqrt, a product (11), twice; the difference and
 # its squared accumulation (3). K1b adds coef = 2 delta / Da (2), coef * diff
 # (3) and the two accumulations per component (6). K1c needs both distances
 # and their difference (23), then the same 11 on b's differences.
 FLOPS_PER_PAIR = {"drmsd_fwd": 25, "drmsd_fwd_grad": 36, "drmsd_grad_b": 34}
+# The variants, per valid pair: (fp32 operations outside the tensor cores,
+# operations of the matrix products as mathematics has them, 2 x 3 per
+# 3-deep or 3-wide product entry, not the padded or split ones). K4a: two
+# squared distances in difference form (3 subtractions, 5 for the norm, max:
+# 9 each), their sum and product, the root, its doubling and the
+# subtraction (5), the accumulation (1). K4b: per squared distance the two
+# norms' sum, the doubled cross term's subtraction and the max (4), then the
+# same 6; the two cross terms are products (12). K4c: the two squared
+# distances (8), sqrt, rsqrt, their product, 1 - x and the doubling (5), the
+# row and the column sum (2); the two cross terms and coef x for the row and
+# for the column atom (12 + 12).
+VARIANT_FLOPS_PER_PAIR = {"drmsd_fwd_sqrt1": (24, 0),
+                          "drmsd_fwd_mxu": (14, 12),
+                          "drmsd_grad_a_mxu": (15, 24)}
 # fp32 operations per live sidechain slot. K2a: two differences (6), three
 # normalisations (11 each), two cross products (18), two sincos and four
 # products (8), the placement (18). K2b recomputes the frame and the offsets
@@ -205,59 +262,50 @@ def require(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
-    """Median device time of fn() in ms, one CUDA event pair per run."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+# median ms of fn() over TIMED_RUNS runs, one CUDA event pair a run
+cuda_ms = bench_drmsd_kernel.event_ms
 
 
-def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound(n_bytes: float, flops: float,
+          tensor_flops: float = 0.0) -> tuple[float, str]:
     """(ms, "bytes" | "operations"): the least time the card could take to
-    move n_bytes and do flops fp32 operations, and which of the two it is."""
+    move n_bytes, do flops fp32 operations outside the tensor cores and
+    tensor_flops TF32 operations inside them, and which it is."""
     t_bytes = 1e3 * n_bytes / PEAK_BYTES_PER_S
-    t_ops = 1e3 * flops / PEAK_FP32_FLOPS
+    t_ops = max(1e3 * flops / PEAK_FP32_FLOPS,
+                1e3 * tensor_flops / PEAK_TF32_FLOPS)
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# device ms of everything one fn() call puts on the device, and the
+# profiler's device-side records of some calls
+device_ms = bench_drmsd_kernel.device_ms
+device_records = bench_drmsd_kernel.device_records
 
 
 def profile_steps(fn, steps: int = 3) -> tuple[float, float]:
     """(device operations per call, device ms per call) of fn() from a
     torch.profiler trace of ``steps`` calls: every kernel, copy and memset
     the device ran."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    on_device = [e for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    require(bool(on_device), "the profiler saw device operations")
+    on_device = device_records(fn, steps)
     return (sum(e.count for e in on_device) / steps,
             sum(e.self_device_time_total for e in on_device) / 1e3 / steps)
 
 
+def device_only(times: dict) -> str:
+    """'; device-only ms: name x, ...' for the kernels that have one."""
+    if not any(t is not None for t in times.values()):
+        return ""
+    return "; device-only ms: " + ", ".join(
+        f"{name} {t:.4f}" for name, t in times.items() if t is not None)
+
+
 def phase_device():
     dev = cuda_device()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    card = smi.splitlines()[0]
+    card = bench_drmsd_kernel.card_label()
     print(f"[device] {torch.cuda.get_device_name(dev)}; torch "
           f"{torch.__version__}; CUDA {torch.version.cuda}")
-    print(smi)
+    print(card)
     return dev, card
 
 
@@ -287,7 +335,7 @@ def grad_err(got, want, what):
 def kernel_case(dev, card, rng, bsz, n):
     """All three dRMSD kernels against their plain versions on one (B, N)
     case; returns {kernel: (max abs error, kernel ms, plain ms, bound ms,
-    what bounds it)}."""
+    what bounds it, device ms or None)}."""
     a, b = (torch.from_numpy(rng.normal(0, 10, (bsz, n, 3)).astype(
         np.float32)).to(dev) for _ in range(2))
     m = torch.from_numpy(rng.random((bsz, n)) < 0.7).to(dev)
@@ -326,17 +374,17 @@ def kernel_case(dev, card, rng, bsz, n):
                                       * pairs),
               "drmsd_grad_b": bound(read + bsz * n * 12,
                                     FLOPS_PER_PAIR["drmsd_grad_b"] * pairs)}
-    out = {
-        "drmsd_fwd": (err, cuda_ms(lambda: D.drmsd_stats_cuda(a, b, m)),
-                      cuda_ms(lambda: D.drmsd_stats_torch(a, b, m))),
-        "drmsd_fwd_grad": (
-            ga_err, cuda_ms(lambda: D.drmsd_stats_grad_cuda(a, b, m)),
-            cuda_ms(lambda: D.drmsd_stats_grad_torch(a, b, m))),
-        "drmsd_grad_b": (
-            gb_err, cuda_ms(lambda: D.drmsd_grad_b_cuda(a, b, m)),
-            cuda_ms(lambda: D.drmsd_grad_b_torch(a, b, m))),
-    }
-    out = {k: (*v, *bounds[k]) for k, v in out.items()}
+    calls = {"drmsd_fwd": (err, D.drmsd_stats_cuda, D.drmsd_stats_torch),
+             "drmsd_fwd_grad": (ga_err, D.drmsd_stats_grad_cuda,
+                                D.drmsd_stats_grad_torch),
+             "drmsd_grad_b": (gb_err, D.drmsd_grad_b_cuda,
+                              D.drmsd_grad_b_torch)}
+    # device-only time at the shapes of the kernels' table rows
+    in_table = (bsz, n) in (EVAL_CASE, TRAIN_CASE)
+    out = {k: (e, cuda_ms(lambda: kernel(a, b, m)),
+               cuda_ms(lambda: plain(a, b, m)), *bounds[k],
+               device_ms(lambda: kernel(a, b, m)) if in_table else None)
+           for k, (e, kernel, plain) in calls.items()}
     scale = float(pga.abs().max())
     print(f"[kernel] {where}: counts equal, K1b S == K1a S (bits), "
           f"|d dRMSD| {err:.3e} A, |d dS/da| {ga_err:.3e} (max|g| "
@@ -345,6 +393,7 @@ def kernel_case(dev, card, rng, bsz, n):
                       for k, v in out.items())
           + f"; {pairs} valid pairs, bounds in ms: "
           + ", ".join(f"{k} {v[3]:.5f} by {v[4]}" for k, v in out.items())
+          + device_only({k: v[5] for k, v in out.items()})
           + f" (median of {TIMED_RUNS}; {card})")
     return out
 
@@ -353,6 +402,165 @@ def phase_kernel(dev, card):
     rng = np.random.default_rng(0)
     return {case: kernel_case(dev, card, rng, *case)
             for case in KERNEL_CASES}
+
+
+VARIANT_STATS = {
+    "drmsd_fwd_sqrt1": (V.drmsd_stats_sqrt1_cuda, V.drmsd_stats_sqrt1_torch),
+    "drmsd_fwd_mxu": (V.drmsd_stats_mxu_cuda, V.drmsd_stats_mxu_torch)}
+
+
+def variant_case(dev, rng, bsz, n):
+    """K4a, K4b and K4c on one (B, N) case of KERNEL_CASES, against their
+    plain versions and against K1a / K1b; returns {kernel: max abs error}
+    (dRMSD in A for the statistics, the gradient's entries for K4c)."""
+    a, b = (torch.from_numpy(rng.normal(0, 10, (bsz, n, 3)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    m = torch.from_numpy(rng.random((bsz, n)) < 0.7).to(dev)
+    m[-1] = False  # an all-masked protein
+    where = f"B={bsz} N={n}"
+    cur_s, cur_c = D.drmsd_stats_cuda(a, b, m)
+    cur_g = D.drmsd_stats_grad_cuda(a, b, m)[2]
+    errs = {}
+    for name, (kernel, plain) in VARIANT_STATS.items():
+        s, c = kernel(a, b, m)
+        ps, pc = plain(a, b, m)
+        torch.cuda.synchronize()
+        require(torch.equal(c, pc) and torch.equal(c, cur_c),
+                f"{name}: pair counts equal to plain's and K1a's, {where}")
+        require(int(c[-1]) == 0 and float(s[-1]) == 0.0,
+                f"{name}: all-masked protein gives exact zeros, {where}")
+        require(torch.equal(kernel(a, b, m)[0], s),
+                f"{name}: a second call gives the same bits, {where}")
+        errs[name] = max(
+            float((drmsd_from(s, c) - drmsd_from(ref, c)).abs().max())
+            for ref in (ps, cur_s))
+        require(errs[name] <= 1e-4, f"{name}: |d dRMSD| {errs[name]:.3e} <= "
+                                    f"1e-4 A of plain and of K1a, {where}")
+    g = V.drmsd_grad_a_mxu_cuda(a, b, m)
+    pg = V.drmsd_grad_a_mxu_torch(a, b, m)
+    torch.cuda.synchronize()
+    require(not g[-1].any().item(),
+            f"K4c: all-masked protein gives a zero gradient, {where}")
+    require(torch.equal(V.drmsd_grad_a_mxu_cuda(a, b, m), g),
+            f"K4c: a second call gives the same bits, {where}")
+    errs["drmsd_grad_a_mxu"] = max(
+        grad_err(g, pg, f"K4c dS/da against plain, {where}"),
+        grad_err(g, cur_g, f"K4c dS/da against K1b, {where}"))
+    print(f"[variants] {where}: counts equal, zeros for the all-masked "
+          f"protein, same bits twice; |d dRMSD| K4a "
+          f"{errs['drmsd_fwd_sqrt1']:.3e} A, K4b {errs['drmsd_fwd_mxu']:.3e} "
+          f"A; |d dS/da| K4c {errs['drmsd_grad_a_mxu']:.3e} (max|g| "
+          f"{float(pg.abs().max()):.3e}), each against plain and K1")
+    return errs
+
+
+def variant_accuracy(dev):
+    """S of K1a, K4a and K4b against a float64 run of the plain version, on
+    the bench tool's own inputs: its parity protein (gate 1e-5 relative) and
+    its two bench shapes (gate 1e-4)."""
+    for shape, masked, gate in (((700,), 0.2, 1e-5), ((8, 3584), 0.1, 1e-4),
+                                ((8, 7000), 0.1, 1e-4)):
+        a, b, m = bench_drmsd_kernel.case(dev, shape, masked)
+        exact = D.drmsd_stats_torch(a.double(), b.double(), m)[0]
+        rel = {}
+        for name, fn in (("K1a", D.drmsd_stats_cuda),
+                         ("K4a", V.drmsd_stats_sqrt1_cuda),
+                         ("K4b", V.drmsd_stats_mxu_cuda),
+                         ("K1a plain", D.drmsd_stats_torch),
+                         ("K4a plain", V.drmsd_stats_sqrt1_torch),
+                         ("K4b plain", V.drmsd_stats_mxu_torch)):
+            s = fn(a, b, m)[0].double()
+            rel[name] = float(((s - exact).abs() / exact.abs()).max())
+        print(f"[variants] S against float64, a ~ N(0, 30), b = a + N(0, 1), "
+              f"shape {shape}: relative error "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+              + f" (gate {gate} for the kernels)")
+        for name in ("K1a", "K4a", "K4b"):
+            require(rel[name] <= gate, f"{name}: S within {gate} relative of "
+                                       f"float64 at shape {shape} "
+                                       f"({rel[name]:.2e})")
+
+
+def variant_times(dev, card, shape):
+    """{kernel: (kernel ms, plain ms, bound ms, what bounds it, device ms)}
+    of the three variants, and K1a's and K1b's kernel and device ms beside
+    them, on the bench's inputs at ``shape`` = (B, N)."""
+    a, b, m = bench_drmsd_kernel.case(dev, shape, masked=0.1)
+    bsz, n = shape
+    pairs = int(D.drmsd_stats_cuda(a, b, m)[1].sum())
+    read = bsz * n * 25
+    written = {"drmsd_fwd_sqrt1": bsz * 12, "drmsd_fwd_mxu": bsz * 12,
+               "drmsd_grad_a_mxu": bsz * n * 12}
+    calls = {**VARIANT_STATS,
+             "drmsd_grad_a_mxu": (V.drmsd_grad_a_mxu_cuda,
+                                  V.drmsd_grad_a_mxu_torch)}
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        flops, tensor_flops = VARIANT_FLOPS_PER_PAIR[name]
+        out[name] = (cuda_ms(lambda: kernel(a, b, m)),
+                     cuda_ms(lambda: plain(a, b, m)),
+                     *bound(read + written[name], flops * pairs,
+                            tensor_flops * pairs),
+                     device_ms(lambda: kernel(a, b, m)))
+    cur = {name: (cuda_ms(lambda: fn(a, b, m)),
+                  device_ms(lambda: fn(a, b, m)))
+           for name, fn in (("drmsd_fwd", D.drmsd_stats_cuda),
+                            ("drmsd_fwd_grad", D.drmsd_stats_grad_cuda))}
+    print(f"[variants] B={bsz} N={n}, {pairs} valid pairs: kernel ms (device "
+          f"only) vs plain ms, bound: "
+          + ", ".join(f"{name} {v[0]:.4f} ({v[4]:.4f}) vs {v[1]:.4f}, "
+                      f"{v[2]:.5f} by {v[3]}" for name, v in out.items())
+          + "; beside them "
+          + ", ".join(f"{name} {v[0]:.4f} ({v[1]:.4f})"
+                      for name, v in cur.items())
+          + f" (median of {TIMED_RUNS}; {card})")
+    return out
+
+
+def phase_variants(dev, card):
+    """The kernel variants K4a, K4b, K4c, then the bench tool through its
+    ``main``. Returns ({kernel: (kernel ms, plain ms, bound ms, bound by,
+    device ms)} at VARIANT_CASE, {kernel: max abs error}, the launches of the
+    tool's run)."""
+    rng = np.random.default_rng(3)
+    errs = {}
+    for case in KERNEL_CASES:
+        for name, err in variant_case(dev, rng, *case).items():
+            errs[name] = max(errs.get(name, 0.0), err)
+    variant_accuracy(dev)
+    table = variant_times(dev, card, VARIANT_CASE)
+    variant_times(dev, card, (8, 7000))
+
+    reset_launches()
+    out = bench_drmsd_kernel.main(["--parity"])
+    launches = read_launches()
+    # per shape 3 warm-up and TIMED_RUNS timed calls, then 1 + 5 traced ones
+    per_kernel = 1 + len(bench_drmsd_kernel.SHAPES) * (
+        3 + bench_drmsd_kernel.TIMED_RUNS + 6)
+    expected = launched(**dict.fromkeys(
+        ("drmsd_fwd", "drmsd_fwd_grad", "drmsd_fwd_sqrt1", "drmsd_fwd_mxu",
+         "drmsd_grad_a_mxu"), per_kernel))
+    require(launches == expected,
+            f"bench tool launches {launches}: expected {expected} (parity "
+            f"once, then 3 warm-up, {bench_drmsd_kernel.TIMED_RUNS} timed "
+            f"and 6 traced calls at each of "
+            f"{len(bench_drmsd_kernel.SHAPES)} shapes)")
+    require(set(out) == {"parity", "bench"}
+            and set(out["bench"]) == set(bench_drmsd_kernel.SHAPES),
+            "the bench tool ran its parity check and both shapes")
+    for (length, bsz), t in out["bench"].items():
+        ratios = {name: " / ".join(f"{x / ref:.2f}x"
+                                   for x, ref in zip(t[name], t[cur]))
+                  for name, cur in (("fwd sqrt1", "fwd cur"),
+                                    ("fwd mxu", "fwd cur"),
+                                    ("bwd mxu", "bwd cur"))}
+        print(f"[variants] the bench's answer at L={length} B={bsz}, times "
+              f"against cur's by events / on the device: fwd sqrt1 "
+              f"{ratios['fwd sqrt1']}, fwd mxu {ratios['fwd mxu']} (K1a: "
+              f"{t['fwd cur'][0]:.4f} / {t['fwd cur'][1]:.4f} ms); bwd mxu "
+              f"{ratios['bwd mxu']} (K1b, which also gives S and C: "
+              f"{t['bwd cur'][0]:.4f} / {t['bwd cur'][1]:.4f} ms) ({card})")
+    return table, errs, launches
 
 
 def sidechain_grads(inputs, impl):
@@ -420,8 +628,9 @@ def sidechain_case_check(dev, rng, bsz, length, physical):
 
 
 def sidechain_times(inputs, card):
-    """{kernel: (kernel ms, plain ms, bound ms, what bounds it)} on one
-    case's inputs, and the forward + backward pair through autograd."""
+    """{kernel: (kernel ms, plain ms, bound ms, what bounds it, device ms or
+    None)} on one case's inputs, and the forward + backward pair through
+    autograd."""
     ints = [t.to(torch.int32).contiguous() for t in inputs[5:]]
     leaves = [t.detach().clone().requires_grad_() for t in inputs[:3]]
 
@@ -447,11 +656,16 @@ def sidechain_times(inputs, card):
                                                  g_out)),
             cuda_ms(lambda: torch.autograd.grad(plain_graph, leaves, g_out,
                                                 retain_graph=True)))}
+    shape = tuple(inputs[5].shape)
+    dev_ms = dict.fromkeys(times)
+    if shape == SIDECHAIN_TRAIN_CASE:
+        dev_ms = {"sidechain_fwd": device_ms(lambda: fwd("cuda")),
+                  "sidechain_bwd": device_ms(lambda: S.sidechain_bwd_cuda(
+                      built, *inputs[1:5], *ints, g_out))}
     out = {k: (*v, *bound(SIDECHAIN_BYTES[k] * n_res,
-                          FLOPS_PER_SLOT[k] * live))
+                          FLOPS_PER_SLOT[k] * live), dev_ms[k])
            for k, v in times.items()}
     pair = (cuda_ms(lambda: fwd_bwd("cuda")), cuda_ms(lambda: fwd_bwd("torch")))
-    shape = tuple(inputs[5].shape)
     print(f"[kernel] sidechain B={shape[0]} L={shape[1]}: kernel vs plain "
           f"ms: K2a {out['sidechain_fwd'][0]:.4f} vs "
           f"{out['sidechain_fwd'][1]:.4f}, K2b {out['sidechain_bwd'][0]:.4f} "
@@ -459,14 +673,15 @@ def sidechain_times(inputs, card):
           f"autograd {pair[0]:.4f} vs {pair[1]:.4f}; {live} live slots in "
           f"{n_res} residues, bounds in ms: "
           + ", ".join(f"{k} {v[2]:.5f} by {v[3]}" for k, v in out.items())
+          + device_only({k: v[4] for k, v in out.items()})
           + f" (median of {TIMED_RUNS}; {card})")
     return out
 
 
 def phase_sidechain_kernel(dev, card):
-    """Returns ({case: {kernel: (kernel ms, plain ms, bound ms, bound by)}},
-    {kernel: max abs error against plain}); the forward error is that on
-    physical angles."""
+    """Returns ({case: {kernel: (kernel ms, plain ms, bound ms, bound by,
+    device ms or None)}}, {kernel: max abs error against plain}); the
+    forward error is that on physical angles."""
     rng = np.random.default_rng(1)
     table, errs = {}, {"sidechain_fwd": 0.0, "sidechain_bwd": 0.0}
     for case in SIDECHAIN_CASES:
@@ -509,13 +724,16 @@ def phase_goldens(dev):
 
 
 def flagship(arm: str, out_dir: str, **kw) -> TrainConfig:
+    """The flagship width's config for one arm; ``kw`` overrides the
+    defaults below (structure logging off: these phases time the step
+    itself)."""
     drmsd_impl, sidechain_impl = ARMS[arm]
-    return TrainConfig(model=MODEL, d_model=512, d_ff=2048, n_heads=8,
-                       n_layers=6, loss=kw.pop("loss", "combined"),
-                       bucket_sizes=(256,),
-                       batch_size=8, drmsd_impl=drmsd_impl,
-                       sidechain_impl=sidechain_impl, out_dir=out_dir,
-                       name=kw.pop("name", arm), **kw)
+    settings = {"model": MODEL, "loss": "combined", "bucket_sizes": (256,),
+                "batch_size": 8, "name": arm, "log_structure_step": 0,
+                "log_val_struct_step": 0, **kw}
+    return TrainConfig(d_model=512, d_ff=2048, n_heads=8, n_layers=6,
+                       drmsd_impl=drmsd_impl, sidechain_impl=sidechain_impl,
+                       out_dir=out_dir, **settings)
 
 
 def random_weights(trainer, dev):
@@ -537,7 +755,10 @@ COUNTERS = {"drmsd_fwd": D.drmsd_stats_cuda,
             "flash_attn_fwd": A.flash_attn_fwd_cuda,
             "flash_attn_bwd_dkv": A.flash_attn_bwd_dkv_cuda,
             "flash_attn_bwd_dq": A.flash_attn_bwd_dq_cuda,
-            "attention_delta": A.attention_delta_cuda}
+            "attention_delta": A.attention_delta_cuda,
+            "drmsd_fwd_sqrt1": V.drmsd_stats_sqrt1_cuda,
+            "drmsd_fwd_mxu": V.drmsd_stats_mxu_cuda,
+            "drmsd_grad_a_mxu": V.drmsd_grad_a_mxu_cuda}
 
 
 def reset_launches() -> None:
@@ -651,6 +872,25 @@ def train_epoch_timed(trainer, state, logger=None):
         require(np.isfinite(m[f"epoch-{key}"]) and m[f"epoch-{key}"] > 0,
                 f"train epoch-{key} finite and positive")
     return state, seconds, len(batches), n_res
+
+
+@contextlib.contextmanager
+def timed_train_epochs():
+    """Time every ``Trainer.train_epoch`` that runs inside the block (the
+    CLI's trainers among them) from the outside; yields the list that gets
+    one (seconds, steps, residues) per epoch."""
+    epochs = []
+
+    def timed(self, state, logger=None):
+        state, seconds, n, n_res = train_epoch_timed(self, state, logger)
+        epochs.append((seconds, n, n_res))
+        return state
+
+    Trainer.train_epoch = timed
+    try:
+        yield epochs
+    finally:
+        Trainer.train_epoch = TRAIN_EPOCH
 
 
 def one_step(dev, data, params, out_dir, arm="all", double=False, **kw):
@@ -822,8 +1062,35 @@ def run_cli(argv):
     return buf.getvalue()
 
 
+def check_restore(argv, best, dev, steps_per_epoch) -> int:
+    """What a run resuming with ``argv`` restores from the checkpoint file
+    ``best`` equals it bit for bit; returns the checkpoint's epoch.
+    steps_per_epoch: the train steps of each epoch of the run so far."""
+    with open(best + ".meta.json") as f:
+        saved_epoch = json.load(f)["epoch"]
+    saved = torch.load(best, weights_only=True, map_location=dev)
+    tr = Trainer(cli.config_from_args(argv), device=dev)
+    restored = tr.maybe_restore(
+        tr.init_state(torch.Generator().manual_seed(1)))
+    require(restored.step == saved["step"]
+            == sum(steps_per_epoch[:saved_epoch + 1])
+            and tr.start_epoch == saved_epoch + 1,
+            "the restored step and epoch are the checkpoint's")
+    require(all(torch.equal(restored.params[k], saved["params"][k])
+                for k in restored.params)
+            and all(torch.equal(mu, saved["opt_state"]["mu"][k])
+                    and torch.equal(nu, saved["opt_state"]["nu"][k])
+                    for k, mu, nu in zip(restored.params,
+                                         restored.opt_state.mu,
+                                         restored.opt_state.nu)),
+            "restored parameters and optimizer moments equal the "
+            "checkpoint's bit for bit")
+    return saved_epoch
+
+
 def phase_cli(dev, card, out_dir):
-    """The training CLI for two epochs and a resumed third."""
+    """The training CLI for two epochs and a resumed third. Returns (the
+    launches of the first run, ms per train step of its second epoch)."""
     data = make_dataset(n_train=16, n_eval=8, min_len=255, max_len=256,
                         seed=0, device=dev)
     valid = ("valid-10", "valid-90")
@@ -836,7 +1103,8 @@ def phase_cli(dev, card, out_dir):
             "-m", MODEL, "-dm", "512", "-dih", "2048", "-nh", "8", "-nl", "6",
             "-do", "0.1", "-l", "combined", "-opt", "adam",
             "--lr_scheduling", "noam", "-b", "8", "--repeat_train",
-            str(TRAIN_REPEAT), "--cluster", "True"]
+            str(TRAIN_REPEAT), "--cluster", "True", "--log_structure_step",
+            "0", "-lvs", "0"]
     cfg = cli.config_from_args(argv)
     dm = DataModule(data, cfg)
     steps = len(list(dm.train_index_batches(np.random.default_rng(0))))
@@ -845,21 +1113,10 @@ def phase_cli(dev, card, out_dir):
     require(set(eval_steps) == {*valid, "test"}, "two validation splits "
                                                  "and test")
 
-    # time each train epoch of the CLI's trainer from the outside
-    epochs = []
-
-    def timed(self, state, logger=None):
-        state, seconds, n, n_res = train_epoch_timed(self, state, logger)
-        epochs.append((seconds, n, n_res))
-        return state
-
-    Trainer.train_epoch = timed
-    try:
+    with timed_train_epochs() as epochs:
         reset_launches()
         out = run_cli(argv + ["-e", "2"])
         launches = read_launches()
-    finally:
-        Trainer.train_epoch = TRAIN_EPOCH
     n_eval = 2 * sum(eval_steps[s] for s in valid) + eval_steps["test"]
     expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * 2 * steps,
                         sidechain_fwd=2 * steps + n_eval,
@@ -889,26 +1146,8 @@ def phase_cli(dev, card, out_dir):
     require(n_batch_rows == 2 * steps and len(rows) == 2 * steps + 7,
             f"{len(rows)} CSV rows, {n_batch_rows} of them train batches")
 
-    # what a resuming run restores equals the checkpoint bit for bit
-    with open(best + ".meta.json") as f:
-        saved_epoch = json.load(f)["epoch"]
-    saved = torch.load(best, weights_only=True, map_location=dev)
-    tr = Trainer(cli.config_from_args(argv + ["-e", "3"]), device=dev)
-    restored = tr.maybe_restore(
-        tr.init_state(torch.Generator().manual_seed(1)))
-    require(restored.step == saved["step"] == (saved_epoch + 1) * steps
-            and tr.start_epoch == saved_epoch + 1,
-            "the restored step and epoch are the checkpoint's")
-    require(all(torch.equal(restored.params[k], saved["params"][k])
-                for k in restored.params)
-            and all(torch.equal(mu, saved["opt_state"]["mu"][k])
-                    and torch.equal(nu, saved["opt_state"]["nu"][k])
-                    for k, mu, nu in zip(restored.params,
-                                         restored.opt_state.mu,
-                                         restored.opt_state.nu)),
-            "restored parameters and optimizer moments equal the "
-            "checkpoint's bit for bit")
-    del tr, restored, saved
+    saved_epoch = check_restore(argv + ["-e", "3"], best, dev,
+                                [n for _, n, _ in epochs])
 
     out = run_cli(argv + ["-e", "3"])
     first = saved_epoch + 1
@@ -923,7 +1162,7 @@ def phase_cli(dev, card, out_dir):
           f"{saved_epoch}) for a third; second epoch {1e3 * seconds / n:.2f} "
           f"ms/train step, {n_res / seconds:.0f} res/s; launches of the "
           f"first run {json.dumps(launches)} ({card})")
-    return launches
+    return launches, 1e3 * seconds / n
 
 
 def head_split(rng, dev, shape, gains=(1.0, 1.0, 1.0)):
@@ -947,7 +1186,7 @@ def attention_grads(q, k, v, valid, d_out, scale, impl):
 def attention_case(dev, card, rng, shape):
     """K3a, K3b and K3c against the plain version on one (B, H, L, D) case;
     returns {kernel: (max abs error, kernel ms, plain ms, bound ms, what
-    bounds it, library ms)}."""
+    bounds it, library ms, device ms or None)}."""
     bsz, heads, length, dim = shape
     where = f"B={bsz} H={heads} L={length} D={dim}"
     # q three times wider than k: scores of standard deviation 3, a softmax
@@ -1032,9 +1271,19 @@ def attention_case(dev, card, rng, shape):
                "flash_attn_bwd_dq": 5 * tensor + 3 * stats + bsz * length}
     errs = {"flash_attn_fwd": err, "flash_attn_bwd_dkv": max(g_errs[1:]),
             "flash_attn_bwd_dq": g_errs[0]}
+    dev_ms = dict.fromkeys(times)
+    if shape in (ATTENTION_PREDICT_CASE, ATTENTION_TRAIN_CASE):
+        dev_ms = {
+            "flash_attn_fwd": device_ms(lambda: A.flash_attn_fwd_cuda(
+                q, k, v, valid, scale)),
+            "flash_attn_bwd_dkv": device_ms(lambda: A.flash_attn_bwd_dkv_cuda(
+                q, k, v, valid, d_out, m, l, delta, scale)),
+            "flash_attn_bwd_dq": device_ms(lambda: A.flash_attn_bwd_dq_cuda(
+                q, k, v, valid, d_out, m, l, delta, scale))}
     out = {name: (errs[name], t[0], t[1],
                   *bound(n_bytes[name],
-                         ATTENTION_FLOPS_PER_PAIR[name] * dim * pairs), t[2])
+                         ATTENTION_FLOPS_PER_PAIR[name] * dim * pairs), t[2],
+                  dev_ms[name])
            for name, t in times.items()}
     print(f"[kernel] attention {where}: |d O| {err:.3e}, |d dQ| "
           f"{g_errs[0]:.3e}, |d dK| {g_errs[1]:.3e}, |d dV| {g_errs[2]:.3e} "
@@ -1047,6 +1296,7 @@ def attention_case(dev, card, rng, shape):
           f"pairs, bounds in ms: "
           + ", ".join(f"{name} {v[3]:.5f} by {v[4]}"
                       for name, v in out.items())
+          + device_only({name: v[6] for name, v in out.items()})
           + f" (median of {TIMED_RUNS}; {card})")
     return out
 
@@ -1104,7 +1354,8 @@ def phase_predict(dev, card, out_dir):
             "-m", MODEL, "-dm", "512", "-dih", "2048", "-nh", "8", "-nl", "6",
             "-do", "0.1", "-l", "combined", "-opt", "adam",
             "--lr_scheduling", "noam", "-b", "8", "--cluster", "True",
-            "--attention_impl", "flash", "-e", "1"]
+            "--log_structure_step", "0", "-lvs", "0", "--attention_impl",
+            "flash", "-e", "1"]
     cfg = cli.config_from_args(argv)
     dm = DataModule(data, cfg)
     steps = len(list(dm.train_index_batches(np.random.default_rng(0))))
@@ -1299,6 +1550,246 @@ def phase_flash_train(dev, card, out_dir):
     return launches
 
 
+ENC_DEC_ARGS = ["-m", "enc-dec", "-dm", "512", "-dih", "2048", "-nh", "8",
+                "-nl", "6", "-do", "0.1", "-l", "combined", "-opt", "adam",
+                "--lr_scheduling", "noam", "-b", "8", "--repeat_train",
+                str(TRAIN_REPEAT), "--cluster", "True", "--save_pngs",
+                "False", "-e", "2"]
+# cadences of the structure-logging arm: train structures, validation ones
+LOG_EVERY, LOG_VAL_EVERY = 2, 4
+
+
+def check_glb(path: str) -> None:
+    """The .glb container of ``path``: header, length, a JSON chunk that
+    parses and a binary chunk of the length it declares."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    magic, version, total, json_len, json_type = np.frombuffer(
+        blob[:20], "<u4")
+    gltf = json.loads(blob[20:20 + json_len])
+    bin_len, bin_type = np.frombuffer(blob[20 + json_len:28 + json_len],
+                                      "<u4")
+    require((magic, version, total, json_type, bin_type)
+            == (0x46546C67, 2, len(blob), 0x4E4F534A, 0x004E4942)
+            and bin_len == gltf["buffers"][0]["byteLength"]
+            == len(blob) - 28 - json_len
+            and gltf["accessors"][0]["count"] > 0,
+            f"{os.path.basename(path)} is a valid .glb with atoms in it")
+
+
+def check_structure_files(run_dir, total_steps, lengths) -> int:
+    """The files structure logging must have written for ``total_steps``
+    train steps at the cadences above, each parsed; returns their number."""
+    n_files = 0
+    for name, every in (("train", LOG_EVERY), ("V10", LOG_VAL_EVERY)):
+        sub = os.path.join(run_dir, "structures", name)
+        logged = range(0, total_steps, every)
+        want = {"true.pdb", "true.glb"} | {
+            f"{s:05d}_{kind}" for s in logged
+            for kind in ("pred.pdb", "pred.glb", "scene.glb")}
+        got = set(os.listdir(sub))
+        require(got == want, f"structures/{name} holds {sorted(got)}; "
+                             f"expected {sorted(want)}")
+        for f in sorted(want):
+            path = os.path.join(sub, f)
+            if f.endswith(".glb"):
+                check_glb(path)
+                continue
+            names, _, res_nums, xyz = parse_pdb_atoms(path)
+            require(len(names) > 4 * min(lengths) - 1
+                    and res_nums[-1] in lengths and np.isfinite(xyz).all(),
+                    f"structures/{name}/{f} is a well-formed PDB file of "
+                    f"{lengths} residues")
+        n_files += len(want)
+    return n_files
+
+
+def enc_dec_sampling(dev, card, out_dir):
+    """Scheduled sampling (both fractions 0.5) and ``predict()`` at full
+    width and L = 32: four train steps with backward, of which the default
+    seed draws the fourth as the sampled path. At L = 256 that path keeps up
+    to 255 full decoder passes alive for the backward, which one card does
+    not hold at this width, so it is driven at L = 32 only."""
+    data = make_dataset(n_train=16, n_eval=2, min_len=31, max_len=32, seed=4,
+                        device=dev)
+    tr = Trainer(flagship("all", out_dir, model="enc-dec",
+                          name="encdec-sampled", optimizer="adam",
+                          lr_scheduling="noam", max_seq_len=32,
+                          bucket_sizes=(32,), batch_size=1,
+                          fraction_complete_tf=0.5,
+                          fraction_subseq_tf=0.5), device=dev, data=data)
+    params = tr.init_params(torch.Generator().manual_seed(0))
+    w = params["output_projection.weight"]
+    params["output_projection.weight"] = (0.02 * torch.randn(
+        w.shape, generator=torch.Generator().manual_seed(1))).to(dev)
+    state = tr.state_from(params)
+    batch = next(tr.dm.train_batches(np.random.default_rng(0)))
+    length = batch.seq.shape[1]
+    # what the trainer's sampling generator will draw, step by step
+    replay = torch.Generator().manual_seed(
+        tr.sampling_generator.initial_seed())
+    want_passes = []
+    for _ in range(4):
+        if float(torch.rand(1, generator=replay)) < 0.5:
+            want_passes.append(1)
+        else:
+            draws = torch.rand(length, generator=replay)
+            want_passes.append(1 + int((draws[1:] > 0.5).sum()))
+    passes = []
+    hook = tr.model.decoder.register_forward_hook(
+        lambda *_: passes.__setitem__(-1, passes[-1] + 1))
+    times, losses = [], []
+    for _ in range(4):
+        passes.append(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = tr.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(out[0]))
+    hook.remove()
+    require(passes == want_passes and max(passes) > 1 and min(passes) == 1,
+            f"decoder passes per step {passes}: expected {want_passes}, "
+            "teacher-forced and sampled steps both")
+    require(all(np.isfinite(x) and x > 0 for x in losses),
+            f"finite losses through the sampled path: {losses}")
+
+    tr.model.load_state_dict({k: v.detach() for k, v in state.params.items()})
+    seq = batch.to(dev).seq
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tr.model.predict(seq)
+    torch.cuda.synchronize()
+    predict_ms = 1e3 * (time.perf_counter() - t0)
+    with torch.no_grad():
+        forced = tr.model.eval().forward_tf(seq, batch.to(dev).ang)
+    require(out.shape == (*seq.shape, 24) and torch.isfinite(out).all().item()
+            and float(out.abs().max()) <= 1.0,
+            "predict() gives finite sin/cos of the expected shape")
+    first = float((out[:, 0] - forced[:, 0]).abs().max())
+    require(first <= 1e-5, f"predict()'s first position, which sees only the "
+                           f"start row, is teacher forcing's ({first:.2e})")
+    print(f"[enc-dec] scheduled sampling at d_model 512 x 6 + 6 layers, "
+          f"B={seq.shape[0]} x L={length}, fractions 0.5 / 0.5: decoder "
+          f"passes per train step {passes}, ms per step "
+          + ", ".join(f"{t:.1f}" for t in times)
+          + f" (the first with its warm-up), losses "
+          + ", ".join(f"{x:.3f}" for x in losses)
+          + f"; predict() ({length} decoder passes) {predict_ms:.1f} ms "
+          f"({card})")
+
+
+def phase_enc_dec(dev, card, out_dir, conv_enc_ms):
+    """The encoder-decoder family through the CLI and predict at full width,
+    without and with structure logging, and its sampled paths at L = 32.
+    Returns the launches of the CLI run that logs structures."""
+    data = make_dataset(n_train=16, n_eval=16, min_len=255, max_len=256,
+                        seed=2, device=dev)
+    for split in [k for k in data if k.startswith("valid-")]:
+        if split != "valid-10":
+            del data[split]
+    data_path = os.path.join(out_dir, "encdec_data.pt")
+    torch.save(data, data_path)
+    base = ["--data", data_path, "--out_dir", out_dir, *ENC_DEC_ARGS]
+    arms = {"off": ["--name", "encdec-off", "--log_structure_step", "0",
+                    "-lvs", "0"],
+            "on": ["--name", "encdec-on", "--log_structure_step",
+                   str(LOG_EVERY), "--log_val_struct_step",
+                   str(LOG_VAL_EVERY)]}
+    dm = DataModule(data, cli.config_from_args(base))
+    eval_steps = {s: len(list(dm.eval_index_batches(s)))
+                  for s in dm.eval_splits}
+    require(set(eval_steps) == {"valid-10", "test"},
+            "one validation split and test")
+    n_eval = 2 * eval_steps["valid-10"] + eval_steps["test"]
+    step_ms, launches = {}, {}
+    for arm, flags in arms.items():
+        with timed_train_epochs() as epochs:
+            reset_launches()
+            out = run_cli(base + flags)
+            launches[arm] = read_launches()
+        steps = [n for _, n, _ in epochs]
+        total = sum(steps)
+        n_logged = 0 if arm == "off" else (
+            len(range(0, total, LOG_EVERY))
+            + len(range(0, total, LOG_VAL_EVERY)))
+        expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * total,
+                            sidechain_fwd=total + n_eval + n_logged,
+                            sidechain_bwd=total)
+        require(len(steps) == 2 and min(steps) >= 4
+                and launches[arm] == expected,
+                f"enc-dec CLI launches, logging {arm}: {launches[arm]}; "
+                f"expected {expected} for epochs of {steps} train steps "
+                f"(K1b twice, K2a and K2b once a step), {n_eval} eval steps "
+                f"(K1a twice, K2a once) and {n_logged} logged structures "
+                "(K2a once each), no K3")
+        require("[ Epoch 1 ]" in out and "(Valid-10)" in out
+                and "(Test)" in out, "two epochs, validation and test ran")
+        step_ms[arm] = 1e3 * epochs[1][0] / epochs[1][1]
+
+    run_dir = os.path.join(out_dir, "encdec-on")
+    n_files = check_structure_files(run_dir, total, (255, 256))
+    best = os.path.join(run_dir, "checkpoints", "best")
+    check_restore(base + arms["on"], best, dev, steps)
+
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        paths = predict.main([run_dir, "--data", data_path, "--split", "test",
+                              "--n", "16", "--batch", "8", "--out",
+                              os.path.join(out_dir, "preds_encdec")])
+    predict_launches = read_launches()
+    require(predict_launches == launched(sidechain_fwd=2),
+            f"enc-dec predict launches {predict_launches}: expected K2a "
+            "twice and no other kernel")
+    require(len(paths) == 32, "16 pred/true pairs")
+    for path in paths:
+        names, _, res_nums, xyz = parse_pdb_atoms(path)
+        require(len(names) > 4 * 255 - 1 and np.isfinite(xyz).all(),
+                f"{os.path.basename(path)} is well formed")
+
+    # device operations of one train step, for the idle share
+    tr = Trainer(cli.config_from_args(base + ["--name", "encdec-profile"]
+                                      + arms["off"][2:]), device=dev,
+                 data=data)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    batch = next(tr.dm.train_batches(np.random.default_rng(0)))
+
+    def step():
+        nonlocal state
+        state = tr.train_step(state, batch)[0]
+
+    n_ops, dev_ms = profile_steps(step)
+    direct = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        direct.append(1e3 * (time.perf_counter() - t0))
+    print(f"[enc-dec] d_model 512 x 6 + 6 layers, combined loss, dropout "
+          f"0.1, teacher forcing, epochs of {steps} train steps of "
+          f"B={batch.seq.shape[0]} x L={batch.seq.shape[1]} and {n_eval} "
+          f"eval steps through the CLI: {step_ms['off']:.2f} ms/train step "
+          f"(second epoch) beside {conv_enc_ms:.2f} ms for the conv-enc CLI "
+          f"step of this call; {n_ops:.0f} device operations and "
+          f"{dev_ms:.2f} ms of device time per step, idle share "
+          f"{1 - dev_ms / step_ms['off']:.2f}; {statistics.median(direct):.2f} "
+          f"ms for Trainer.train_step called alone (median of 5, "
+          f"synchronised); restored bit for bit; predict "
+          f"wrote {len(paths)} PDB files; launches "
+          f"{json.dumps(launches['off'])} ({card})")
+    print(f"[structure-log] --log_structure_step {LOG_EVERY} "
+          f"--log_val_struct_step {LOG_VAL_EVERY}, one validation split: "
+          f"{n_files} files (pred.pdb, pred.glb, scene.glb per logged step; "
+          f"true.pdb, true.glb) exist and parse; train loop "
+          f"{step_ms['on']:.2f} ms/step with logging on beside "
+          f"{step_ms['off']:.2f} with it off (second epochs; launches with "
+          f"logging {json.dumps(launches['on'])}) ({card})")
+    enc_dec_sampling(dev, card, out_dir)
+    return launches["on"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this smoke run "
@@ -1309,15 +1800,17 @@ def main() -> int:
     dev, card = phase_device()
     phase_build()
     table = phase_kernel(dev, card)
+    variant_table, variant_errs, bench_launches = phase_variants(dev, card)
     sc_table, sc_errs = phase_sidechain_kernel(dev, card)
     attn_table = phase_attention_kernel(dev, card)
     phase_goldens(dev)
     with tempfile.TemporaryDirectory() as out_dir:
         eval_launches = phase_slice(dev, card, out_dir)
         train_launches = phase_train(dev, card, out_dir)
-        cli_launches = phase_cli(dev, card, out_dir)
+        cli_launches, cli_step_ms = phase_cli(dev, card, out_dir)
         predict_launches = phase_predict(dev, card, out_dir)
         flash_launches = phase_flash_train(dev, card, out_dir)
+        enc_dec_launches = phase_enc_dec(dev, card, out_dir, cli_step_ms)
     source = "protein_transformer_tpu_torch/csrc/"
     replaces = "protein_transformer_tpu/ops/"
     rows = []
@@ -1328,22 +1821,24 @@ def main() -> int:
              train_launches["drmsd_fwd_grad"]),
             ("drmsd_grad_b", "drmsd_train.cu", 87, TRAIN_CASE,
              train_launches["drmsd_grad_b"])):
-        _, k_ms, p_ms, b_ms, b_by = table[case][name]
+        _, k_ms, p_ms, b_ms, b_by, d_ms = table[case][name]
         rows.append({"name": name, "route": "cuda", "source": source + src,
                      "replaces": f"{replaces}drmsd_pallas.py:{line}",
                      "launches": launches,
                      "max_abs_err": max(t[name][0] for t in table.values()),
-                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None})
+                     "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     for name, line in (("sidechain_fwd", 104), ("sidechain_bwd", 136)):
-        k_ms, p_ms, b_ms, b_by = sc_table[SIDECHAIN_TRAIN_CASE][name]
+        k_ms, p_ms, b_ms, b_by, d_ms = sc_table[SIDECHAIN_TRAIN_CASE][name]
         rows.append({"name": name, "route": "cuda",
                      "source": source + "sidechain.cu",
                      "replaces": f"{replaces}sidechain_pallas.py:{line}",
-                     "launches": cli_launches[name],
+                     # the enc-dec steps run K2a and K2b too: their count here
+                     "launches": enc_dec_launches[name],
+                     "launches_conv_enc_cli": cli_launches[name],
                      "max_abs_err": sc_errs[name], "ms": k_ms,
-                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
+                     "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None})
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     for name, line, case, launches in (
             ("flash_attn_fwd", 331, ATTENTION_PREDICT_CASE,
@@ -1352,7 +1847,7 @@ def main() -> int:
              flash_launches["flash_attn_bwd_dkv"]),
             ("flash_attn_bwd_dq", 1146, ATTENTION_TRAIN_CASE,
              flash_launches["flash_attn_bwd_dq"])):
-        _, k_ms, p_ms, b_ms, b_by, lib_ms = attn_table[case][name]
+        _, k_ms, p_ms, b_ms, b_by, lib_ms, d_ms = attn_table[case][name]
         rows.append({"name": name, "route": "cuda",
                      "source": source + "attention.cu",
                      "replaces": f"{flash}:{line}",
@@ -1360,8 +1855,20 @@ def main() -> int:
                      "launches": launches,
                      "max_abs_err": max(t[name][0]
                                         for t in attn_table.values()),
-                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib_ms})
+                     "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms})
+    # no one PyTorch call computes a masked pair statistic: no library time
+    for name, line in (("drmsd_fwd_sqrt1", 42), ("drmsd_fwd_mxu", 84),
+                       ("drmsd_grad_a_mxu", 105)):
+        k_ms, p_ms, b_ms, b_by, d_ms = variant_table[name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": source + "drmsd_variants.cu",
+                     "replaces": f"tools/bench_drmsd_kernel.py:{line}",
+                     "launches": bench_launches[name],
+                     "max_abs_err": variant_errs[name], "ms": k_ms,
+                     "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None})
     require(all(row["launches"] > 0 or row["name"] == "drmsd_grad_b"
                 for row in rows),
             "every kernel of a main path was launched on it (K1c runs only "

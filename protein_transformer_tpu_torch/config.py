@@ -35,6 +35,8 @@ class TrainConfig:
     without_angle_means: bool = False
     eval_train: bool = False
     optimizer: str = "sgd"                   # adam | sgd
+    fraction_complete_tf: float = 1.0
+    fraction_subseq_tf: float = 1.0
     skip_missing_res_train: bool = False
     repeat_train: int = 1
     seed: int = 11_731
@@ -72,6 +74,9 @@ class TrainConfig:
     conv_out_matches_dm: bool = True
 
     # Saving / logging
+    log_structure_step: int = 10
+    log_val_struct_step: int = 50
+    save_pngs: bool = False
     restart: bool = False
     restart_opt: bool = False
     checkpoint_time_interval: float = 0.0
@@ -99,6 +104,7 @@ class TrainConfig:
     pad_id: int = 20
     es_mode: str = "train"
     es_metric: str = "combined"
+    add_sos_eos: bool = False
 
     def finalize(self) -> "TrainConfig":
         """Apply the reference's derived-config rules: check the loss, default
@@ -113,6 +119,9 @@ class TrainConfig:
         # the mode may itself contain '-' (valid-70)
         self.es_metric = parts[-1]
         self.es_mode = "-".join(parts[:-1])
+        # as in the JAX package, no batch changes with it: collate adds no
+        # start or end token
+        self.add_sos_eos = self.model == "enc-dec"
         if "conv-enc" in self.model and "|" in self.model:
             from protein_transformer_tpu_torch.models.factory import (
                 parse_conv_kernel_info_from_model_name)

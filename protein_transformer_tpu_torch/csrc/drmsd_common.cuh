@@ -1,4 +1,5 @@
-// Pieces shared by the dRMSD kernels (drmsd_fwd.cu, drmsd_train.cu).
+// Pieces shared by the dRMSD kernels (drmsd_fwd.cu, drmsd_train.cu,
+// drmsd_variants.cu).
 //
 // The statistic S of a protein must come out with the same bits from the
 // forward kernel (K1a) and from the training kernel (K1b), as the two TPU
@@ -121,6 +122,36 @@ stat_reduce_kernel(const float* __restrict__ part_s,
   if (tid == 0) {
     out_s[prot] = static_cast<float>(ss[0]);
     out_c[prot] = sc[0];
+  }
+}
+
+// The gradient of every atom from the tile pairs' (3, kTile) row and column
+// partials, which hold what each tile pair adds to its row atoms and to its
+// column atoms. Grid (atom tiles, proteins), one thread per atom: the atom's
+// row partials (pairs (t, tj), tj = t .. T-1), then its column partials
+// (pairs (ti, t), ti = 0 .. t), each in ascending order.
+__global__ void __launch_bounds__(kTile)
+grad_gather_kernel(const float* __restrict__ part_row,
+                   const float* __restrict__ part_col, int n, int n_tiles,
+                   int n_pairs, float* __restrict__ out_g) {
+  const int t = blockIdx.x;
+  const int prot = blockIdx.y;
+  const int k = threadIdx.x;
+  const int atom = t * kTile + k;
+  const size_t base = static_cast<size_t>(prot) * n_pairs;
+  for (int c = 0; c < 3; ++c) {
+    float acc = 0.f;
+    for (int tj = t; tj < n_tiles; ++tj) {
+      const size_t slot = base + pair_index(t, tj, n_tiles);
+      acc += part_row[(slot * 3 + c) * kTile + k];
+    }
+    for (int ti = 0; ti <= t; ++ti) {
+      const size_t slot = base + pair_index(ti, t, n_tiles);
+      acc += part_col[(slot * 3 + c) * kTile + k];
+    }
+    if (atom < n) {
+      out_g[(static_cast<size_t>(prot) * n + atom) * 3 + c] = acc;
+    }
   }
 }
 

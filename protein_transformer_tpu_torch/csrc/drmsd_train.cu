@@ -33,9 +33,10 @@
 //     the block, and in exchange no per-column reduction across threads is
 //     needed.
 //   * each block writes one (3, 128) row partial and one negated (3, 128)
-//     column partial into scratch. A second kernel sums, for each (protein,
-//     atom tile t), the row partials of pairs (t, tj >= t) and then the
-//     column partials of pairs (ti <= t, t), each in ascending order.
+//     column partial into scratch. A second kernel (grad_gather_kernel of
+//     drmsd_common.cuh) sums, for each (protein, atom tile t), the row
+//     partials of pairs (t, tj >= t) and then the column partials of pairs
+//     (ti <= t, t), each in ascending order.
 //   * S and C: per-block partials and the per-protein sum of
 //     drmsd_common.cuh, so S has the same bits as drmsd_fwd's.
 
@@ -177,34 +178,6 @@ grad_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
   if (tid < kTile) {
     for (int c = 0; c < 3; ++c) {
       part_col[(slot * 3 + c) * kTile + k] = -(half[0][c][k] + half[1][c][k]);
-    }
-  }
-}
-
-// Grid (atom tiles, proteins), one thread per atom: the atom's row partials
-// (pairs (t, tj), tj = t .. T-1), then its column partials (pairs (ti, t),
-// ti = 0 .. t), each in ascending order.
-__global__ void __launch_bounds__(kTile)
-grad_gather_kernel(const float* __restrict__ part_row,
-                   const float* __restrict__ part_col, int n, int n_tiles,
-                   int n_pairs, float* __restrict__ out_g) {
-  const int t = blockIdx.x;
-  const int prot = blockIdx.y;
-  const int k = threadIdx.x;
-  const int atom = t * kTile + k;
-  const size_t base = static_cast<size_t>(prot) * n_pairs;
-  for (int c = 0; c < 3; ++c) {
-    float acc = 0.f;
-    for (int tj = t; tj < n_tiles; ++tj) {
-      const size_t slot = base + pair_index(t, tj, n_tiles);
-      acc += part_row[(slot * 3 + c) * kTile + k];
-    }
-    for (int ti = 0; ti <= t; ++ti) {
-      const size_t slot = base + pair_index(ti, t, n_tiles);
-      acc += part_col[(slot * 3 + c) * kTile + k];
-    }
-    if (atom < n) {
-      out_g[(static_cast<size_t>(prot) * n + atom) * 3 + c] = acc;
     }
   }
 }

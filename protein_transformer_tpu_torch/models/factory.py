@@ -10,6 +10,7 @@ from torch import nn
 
 from protein_transformer_tpu_torch.models.conv_encoder import (
     ConvEncoderOnlyTransformer)
+from protein_transformer_tpu_torch.models.enc_dec import Transformer
 from protein_transformer_tpu_torch.models.encoder_only import (
     EncoderOnlyTransformer)
 
@@ -59,7 +60,17 @@ def make_model(cfg, angle_means) -> nn.Module:
             use_embedding=cfg.use_embedding,
             conv_out_matches_dm=cfg.conv_out_matches_dm, **common)
     if name == "enc-dec":
-        raise NotImplementedError(
-            "the enc-dec model is not ported yet (ROADMAP.md, Queue 1: "
-            "enc-dec model)")
+        common.pop("n_layers")
+        common.pop("use_tanh_out")
+        return Transformer(
+            n_enc_layers=cfg.n_layers, n_dec_layers=cfg.n_layers,
+            fraction_complete_tf=cfg.fraction_complete_tf,
+            fraction_subseq_tf=cfg.fraction_subseq_tf, **common)
     raise ValueError(f"Unknown model architecture: {name}")
+
+
+def model_args(model: nn.Module, seq, ang) -> tuple:
+    """The positional arguments of ``model``'s forward for a batch's ids and
+    target angles: the encoder models read the ids alone, the encoder-decoder
+    also the targets it is teacher-forced on."""
+    return (seq, ang) if isinstance(model, Transformer) else (seq,)

@@ -23,15 +23,21 @@ from torch import nn
 
 _MODULE_NAMES = {
     "Encoder_0": "encoder",
+    # the encoder-decoder names its three parts itself
+    "encoder": "encoder",
+    "decoder": "decoder",
+    "output_projection": "output_projection",
     "Embeddings_0": "embeddings",
     "Embed_0": "embed",
     "MultiHeadedAttention_0": "attn",
+    "MultiHeadedAttention_1": "cross_attn",
     "PositionwiseFeedForward_0": "ff",
     "LayerNorm_0": "norm",
     "AngleProjection_0": "head",
 }
 _INDEXED = (
     (re.compile(r"EncoderLayer_(\d+)$"), lambda i: f"layers.{i}"),
+    (re.compile(r"DecoderLayer_(\d+)$"), lambda i: f"layers.{i}"),
     (re.compile(r"SublayerConnection_(\d+)$"), lambda i: f"sublayer.{i}"),
     (re.compile(r"Conv_(\d+)$"), lambda i: f"convs.{i}"),
     (re.compile(r"Dense_(\d+)$"), lambda i: f"w_{i + 1}"),
@@ -41,14 +47,16 @@ _LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight",
 _GOLDEN_KEY = re.compile(r"\['([^']*)'\]")
 
 
-def _module_name(seg: str) -> str:
+def _module_name(seg: str, parent: str | None = None) -> str:
+    if (parent, seg) == ("decoder", "Dense_0"):
+        return "embed"  # the decoder's input embedding, not a feed-forward
     if seg in _MODULE_NAMES:
         return _MODULE_NAMES[seg]
     for pattern, fmt in _INDEXED:
         m = pattern.match(seg)
         if m:
             return fmt(int(m.group(1)))
-    if seg in ("wq", "wk", "wv", "wo", "output_projection"):
+    if seg in ("wq", "wk", "wv", "wo"):
         return seg
     raise KeyError(f"no port module for flax module {seg!r}")
 
@@ -75,7 +83,8 @@ def flax_to_state_dict(params: Mapping, model: nn.Module
         flax_name = "/".join(path)
         if path[-1] not in _LEAF_NAMES:
             raise KeyError(f"no port parameter for flax leaf {flax_name}")
-        name = ".".join([_module_name(s) for s in path[:-1]]
+        name = ".".join([_module_name(seg, parent) for parent, seg
+                         in zip((None,) + path, path[:-1])]
                         + [_LEAF_NAMES[path[-1]]])
         if name not in target:
             raise KeyError(f"flax parameter {flax_name} maps to {name}, "

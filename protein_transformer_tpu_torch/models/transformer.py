@@ -1,6 +1,6 @@
-"""Transformer encoder building blocks as torch ``nn.Module``s.
+"""Transformer encoder and decoder building blocks as torch ``nn.Module``s.
 
-Port of protein_transformer_tpu/models/transformer.py (encoder side):
+Port of protein_transformer_tpu/models/transformer.py:
 
 * scaled embeddings (x sqrt(dm)) and sinusoidal positional encoding, with
   the reference's quirk kept: ``PositionalEncoding`` returns x + pe and the
@@ -11,7 +11,12 @@ Port of protein_transformer_tpu/models/transformer.py (encoder side):
   queries still attend to the real keys. With ``impl="flash"`` the
   self-attention of every call without dropout on the probabilities goes
   through ``ops/attention.py`` (the flash kernels on a CUDA device), which
-  computes the same function without materialising the probabilities.
+  computes the same function without materialising the probabilities;
+* the decoder: a linear embedding of the 24 target sin/cos values, the same
+  x + PE(x) quirk, then layers of causal self-attention, cross-attention on
+  the encoder output under its key-padding mask, and the feed-forward.
+  Neither attention of a decoder layer is key-padding-masked
+  self-attention, so both always materialise their probabilities.
 
 Layer norms use eps 1e-6, flax's default (torch's is 1e-5). Dropout sits
 where the JAX modules have it, is inactive in ``eval()`` mode, and draws its
@@ -217,4 +222,47 @@ class Encoder(nn.Module):
         x = self.dropout(x + self.pe(x))
         for layer in self.layers:
             x = layer(x, mask)
+        return x
+
+
+class DecoderLayer(nn.Module):
+    """Masked self-attention + cross-attention on the encoder output +
+    feed-forward."""
+
+    def __init__(self, dim: int, dff: int, n_heads: int, dropout: float = 0.1,
+                 prenorm: bool = True):
+        super().__init__()
+        self.attn = MultiHeadedAttention(dim, n_heads, dropout)
+        self.cross_attn = MultiHeadedAttention(dim, n_heads, dropout)
+        self.ff = PositionwiseFeedForward(dim, dff, dropout)
+        self.sublayer = nn.ModuleList(
+            [SublayerConnection(dim, dropout, prenorm) for _ in range(3)])
+
+    def forward(self, x, enc_out, tgt_mask, src_mask):
+        x = self.sublayer[0](x, lambda y: self.attn(y, y, y, tgt_mask))
+        x = self.sublayer[1](
+            x, lambda y: self.cross_attn(y, enc_out, enc_out, src_mask))
+        return self.sublayer[2](x, self.ff)
+
+
+class Decoder(nn.Module):
+    """Linear input embedding + positional encoding + N decoder layers."""
+
+    def __init__(self, d_out: int, dim: int, dff: int, n_heads: int,
+                 n_layers: int, max_len: int, dropout: float = 0.1,
+                 prenorm: bool = True):
+        super().__init__()
+        self.embed = nn.Linear(d_out, dim)
+        self.pe = PositionalEncoding(dim, max_len, dropout)
+        self.dropout = Dropout(dropout)
+        self.layers = nn.ModuleList(
+            [DecoderLayer(dim, dff, n_heads, dropout, prenorm)
+             for _ in range(n_layers)])
+
+    def forward(self, tgt, enc_out, tgt_mask, src_mask):
+        x = self.embed(tgt)
+        # the encoder's quirk: x + PE(x), where PE(x) already adds x
+        x = self.dropout(x + self.pe(x))
+        for layer in self.layers:
+            x = layer(x, enc_out, tgt_mask, src_mask)
         return x

@@ -143,7 +143,11 @@ def drmsd_grad_b_torch(a: torch.Tensor, b: torch.Tensor,
 # (int batch, int n) pair of ``int fn(...)``; the stream is the last pointer.
 _LAUNCHERS = {"drmsd_fwd": {"drmsd_fwd": (3, 5)},
               "drmsd_train": {"drmsd_fwd_grad": (3, 8),
-                              "drmsd_grad_b": (3, 4)}}
+                              "drmsd_grad_b": (3, 4)},
+              # the bench's variants (ops/drmsd_variants.py)
+              "drmsd_variants": {"drmsd_fwd_sqrt1": (3, 5),
+                                 "drmsd_fwd_mxu": (3, 5),
+                                 "drmsd_grad_a_mxu": (3, 4)}}
 
 
 @functools.cache

@@ -7,7 +7,9 @@ rebuild all-atom coordinates on the device, and write pred/true PDB pairs.
 ``--reconstruct`` rebuilds the TRUE structures from the TRUE angles, a
 geometry check. With ``attention_impl: "flash"`` in the run's
 ``config.json`` every encoder layer's attention goes through
-``ops/attention.py`` (the flash kernels on a CUDA device).
+``ops/attention.py`` (the flash kernels on a CUDA device). An
+encoder-decoder run is predicted as the JAX package predicts it: one
+teacher-forced pass on the split's true angles.
 
 The run goes to the GPU unless ``--device cpu`` asks for the CPU; without a
 GPU ``--device cuda`` raises.
@@ -29,7 +31,8 @@ from protein_transformer_tpu_torch.config import TrainConfig
 from protein_transformer_tpu_torch.data.dataset import (
     DataModule, collate, load_dataset)
 from protein_transformer_tpu_torch.device import cuda_device
-from protein_transformer_tpu_torch.models.factory import make_model
+from protein_transformer_tpu_torch.models.factory import (
+    make_model, model_args)
 from protein_transformer_tpu_torch.ops import sidechain
 from protein_transformer_tpu_torch.protein.geometry import (
     build_coords_batch, inverse_trig_transform)
@@ -88,7 +91,7 @@ def predict_structures(run_dir: str, data_path: str, split: str = "test",
 
     @torch.inference_mode()
     def infer(seq, ang):
-        sincos = ang if reconstruct else model(seq)
+        sincos = ang if reconstruct else model(*model_args(model, seq, ang))
         return build_coords_batch(inverse_trig_transform(sincos), seq,
                                   sidechain_impl)
 

@@ -168,15 +168,15 @@ def import_run(exported_dir: str, run_dir: str,
 
     Settings of the JAX run that the port has no field for are dropped when
     they only say how that run was executed (logging, profiling, the mesh,
-    the data store). The two that decide what the restored model computes
-    are refused as the training CLI refuses them: a compute dtype other than
-    float32 and the encoder-decoder model raise NotImplementedError."""
+    the data store). The one that decides what the restored model computes
+    is refused as the training CLI refuses it: a compute dtype other than
+    float32 raises NotImplementedError."""
     from protein_transformer_tpu_torch.config import TrainConfig
     from protein_transformer_tpu_torch.models.factory import make_model
     from protein_transformer_tpu_torch.training.cli import check_ported
     with open(os.path.join(exported_dir, "config.json")) as f:
         saved = json.load(f)
-    check_ported(saved["config"], only=("compute_dtype", "model"))
+    check_ported(saved["config"], only=("compute_dtype",))
     cfg = TrainConfig.from_dict(saved["config"])
     cfg.drmsd_impl = cfg.sidechain_impl = "auto"
     cfg = cfg.finalize()

@@ -167,13 +167,6 @@ def check_ported(settings: Mapping, only: Optional[Sequence[str]] = None
                  or list(get("mesh_axes", ["data"])) != ["data"],
                  "--mesh_shape / --mesh_axes",
                  "device meshes and multi-GPU runs (parallel/)"),
-        "save_pngs": (get("save_pngs")
-                      and (get("log_structure_step", 0) > 0
-                           or get("log_val_struct_step", 0) > 0),
-                      "--save_pngs True with a structure-logging step",
-                      "structure logging (training/structure_logging.py)"),
-        "model": (get("model") == "enc-dec", "-m enc-dec",
-                  "the encoder-decoder model (models/enc_dec.py)"),
     }
     for name in (asked if only is None else only):
         wanted, flag, part = asked[name]
@@ -205,10 +198,6 @@ def main(argv=None):
     from protein_transformer_tpu_torch.training.trainer import Trainer
     device = (cuda_device() if args.device == "cuda"
               else torch.device("cpu"))
-    if args.log_structure_step > 0 or args.log_val_struct_step > 0:
-        print("[Info] structure logging is not in the PyTorch port yet: "
-              "--log_structure_step and --log_val_struct_step write "
-              "nothing.")
     trainer = Trainer(cfg, device=device)
     return trainer.train()
 

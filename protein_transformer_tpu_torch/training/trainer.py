@@ -16,8 +16,9 @@ polls the copies that have arrived after every step.
 ``Trainer.train`` is the host loop with the reference's semantics: epochs,
 the validation splits after each, plateau scheduling and early stopping on
 the monitored metric, 'best' / 'latest' checkpoints, resume, the CSV log,
-and the test split at the end. Structure logging, wandb, the
-device-resident data path and meshes are not in the port yet.
+structure logging (``training/structure_logging.py``), and the test split
+at the end. wandb, the device-resident data path and meshes are not in the
+port yet.
 """
 from __future__ import annotations
 
@@ -34,19 +35,28 @@ from protein_transformer_tpu_torch.training import metrics as M
 from protein_transformer_tpu_torch import losses as L
 from protein_transformer_tpu_torch.config import TrainConfig
 from protein_transformer_tpu_torch.data.dataset import (
-    Batch, DataModule, load_dataset)
-from protein_transformer_tpu_torch.models.factory import make_model
+    Batch, DataModule, collate, load_dataset)
+from protein_transformer_tpu_torch.models.enc_dec import (
+    OUTPUT_GAIN, Transformer)
+from protein_transformer_tpu_torch.models.factory import (
+    make_model, model_args)
 from protein_transformer_tpu_torch.models.transformer import (
     set_dropout_generator)
 from protein_transformer_tpu_torch.ops import sidechain
 from protein_transformer_tpu_torch.ops.drmsd import resolve_impl
 from protein_transformer_tpu_torch.protein.geometry import build_coords_batch
+from protein_transformer_tpu_torch.training.structure_logging import (
+    StructureLogger)
 from protein_transformer_tpu_torch.training.checkpoint import (
     CheckpointManager, checkpoint_policy)
 from protein_transformer_tpu_torch.training.optim import (
     EarlyStopping, OptState, PlateauState, make_optimizer, noam_schedule)
 
 DRMSD_LOSSES = ("drmsd", "lndrmsd", "combined")
+
+# The sampling generator's seeds start here, past every seed the dropout
+# generator gets (cfg.seed + step), so the two streams stay apart.
+SAMPLING_SEED_BASE = 1 << 32
 
 # Fixed order in which a step packs its scalar metrics into one (K,) vector,
 # so a window of steps is fetched to the host in one copy.
@@ -83,7 +93,8 @@ def compute_losses(model, params, batch: Batch, cfg: TrainConfig,
     as the original torch code stitched its gradients."""
     if with_drmsd is None:
         with_drmsd = cfg.loss in DRMSD_LOSSES
-    pred = functional_call(model, params, (batch.seq,))
+    pred = functional_call(model, params,
+                           model_args(model, batch.seq, batch.ang))
     m_full = L.mse_over_angles(pred, batch.ang, batch.ang_mask)
     m_bb = L.mse_over_angles(pred, batch.ang, batch.ang_mask, bb_only=True)
     m_sc = L.mse_over_angles(pred, batch.ang, batch.ang_mask, sc_only=True)
@@ -190,6 +201,12 @@ class Trainer:
         self.dropout_generator = torch.Generator(device=self.device)
         self.dropout_generator.manual_seed(cfg.seed)
         set_dropout_generator(self.model, self.dropout_generator)
+        # the encoder-decoder's scheduled-sampling draws: a stream of their
+        # own, on the host, where they decide which decoder passes run
+        self.sampling_generator = torch.Generator()
+        self.sampling_generator.manual_seed(SAMPLING_SEED_BASE + cfg.seed)
+        if isinstance(self.model, Transformer):
+            self.model.sampling_generator = self.sampling_generator
         if cfg.lr_scheduling == "noam":
             self.lr_schedule = noam_schedule(cfg.d_model, cfg.n_warmup_steps)
             self.plateau = None
@@ -213,6 +230,8 @@ class Trainer:
         os.makedirs(self.out_dir, exist_ok=True)
         self.ckpt = CheckpointManager(os.path.join(self.out_dir,
                                                    "checkpoints"))
+        self.structure_logger = StructureLogger(self.out_dir,
+                                                save_pngs=cfg.save_pngs)
         # live per-batch status line; --cluster disables it, otherwise it is
         # on for an interactive stderr
         self.batch_status = M.BatchStatus(
@@ -230,14 +249,18 @@ class Trainer:
         """Fresh parameters, drawn on the CPU from ``generator`` and moved to
         the device, initialised as the flax modules are: xavier-uniform
         weights (Linear, Conv1d, Embedding), zero biases, unit LayerNorm
-        scales, and the zero-weight, angle-mean-bias output head."""
+        scales, and the output head: the angle-mean bias under a zero weight
+        (encoder models) or a tiny-gain Xavier weight (encoder-decoder)."""
         params = {}
         for name, p in self.model.named_parameters():
             t = torch.empty(p.shape, dtype=p.dtype)
             if name.endswith("norm.weight"):
                 t.fill_(1.0)
-            elif name == "head.output_projection.bias":
+            elif name.endswith("output_projection.bias"):
                 t.copy_(p.detach().cpu())  # angle-mean bias, set at build
+            elif name == "output_projection.weight":
+                torch.nn.init.xavier_uniform_(t, gain=OUTPUT_GAIN,
+                                              generator=generator)
             elif name.endswith("bias") or name.startswith("head."):
                 t.zero_()
             else:
@@ -266,10 +289,11 @@ class Trainer:
 
         The checkpoint holds no random state, as in the JAX package, whose
         dropout keys are a function of the seed and the step. The port's
-        dropout generator is reseeded here with ``seed + step``, so a
-        resumed run draws masks that depend on where it resumes and does not
-        replay those of the run's first steps; it does not continue the
-        interrupted run's stream."""
+        dropout generator is reseeded here with ``seed + step`` (and the
+        sampling generator likewise, from its own base), so a resumed run
+        draws masks that depend on where it resumes and does not replay
+        those of the run's first steps; it does not continue the interrupted
+        run's stream."""
         cfg = self.cfg
         modifier = cfg.load_chkpt or "best"
         if cfg.restart or not self.ckpt.exists(modifier):
@@ -300,6 +324,8 @@ class Trainer:
             self.early_stop.load_state_dict(dict(meta["early_stop"]))
         self._best_history = list(meta.get("best_history", []))
         self.dropout_generator.manual_seed(cfg.seed + step)
+        self.sampling_generator.manual_seed(SAMPLING_SEED_BASE + cfg.seed
+                                            + step)
         print(f"[Info] Resumed from '{modifier}' at epoch {self.start_epoch}.")
         return TrainState(params, opt_state, step)
 
@@ -345,6 +371,37 @@ class Trainer:
                                 with_drmsd=True, with_rmsd=True,
                                 sidechain_impl=self.sidechain_impl)
         return pack_metrics(out)
+
+    # ---------------- structure logging ----------------
+
+    @torch.no_grad()
+    def _log_structure(self, params: dict, batch: Batch, step: int,
+                       name: str = "train") -> None:
+        """Predict the last real protein of a host batch in eval mode, build
+        its coordinates on the device and hand them to the structure
+        logger, whose worker thread makes the copy to the host."""
+        idx = max(int(batch.protein_mask.sum()) - 1, 0)
+        seq = torch.as_tensor(batch.seq[idx:idx + 1]).to(self.device).long()
+        ang = torch.as_tensor(batch.ang[idx:idx + 1]).to(self.device)
+        was_training = self.model.training
+        self.model.eval()
+        pred = functional_call(self.model, params,
+                               model_args(self.model, seq, ang))
+        self.model.train(was_training)
+        crd = build_coords_batch(L.inverse_trig_transform(pred), seq,
+                                 self.sidechain_impl)
+        self.structure_logger.log(step, name, batch.seq[idx], crd[0],
+                                  batch.crd[idx], batch.crd_mask[idx])
+
+    def _log_validation_structures(self, params: dict, step: int) -> None:
+        """Log the middle protein of each validation split."""
+        for split, ds in self.dm.eval_splits.items():
+            if split == "test" or len(ds) == 0:
+                continue
+            batch = collate(ds, np.array([len(ds) // 2]),
+                            self.cfg.bucket_sizes, self.dm.max_seq_len)
+            self._log_structure(params, batch, step,
+                                name=f"V{split.split('-')[-1]}")
 
     # ---------------- epoch loops ----------------
 
@@ -432,6 +489,14 @@ class Trainer:
             host, event = self._start_fetch(out, host_rows, len(pending))
             pending.append([host, event, batch.n_res, step, None])
             check_ready()
+            # at dispatch, so the logged parameters are those after this
+            # step's update, labelled with its number
+            if (self.cfg.log_structure_step
+                    and step % self.cfg.log_structure_step == 0):
+                self._log_structure(state.params, batch, step)
+            if (self.cfg.log_val_struct_step
+                    and step % self.cfg.log_val_struct_step == 0):
+                self._log_validation_structures(state.params, step)
             step += 1
             if len(pending) >= self.FLUSH_EVERY:
                 flush()
@@ -570,4 +635,5 @@ class Trainer:
             self.eval_epoch(state.params, "test", logger=logger)
             M.print_epoch_status("test", self.metrics, start)
         logger.close()
+        self.structure_logger.close()
         return state

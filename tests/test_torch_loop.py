@@ -286,8 +286,6 @@ NOT_PORTED = {
     "profile": (["--profile_dir", "p"], "profiler traces"),
     "mesh": (["--mesh_shape", "2", "2", "--mesh_axes", "data", "model"],
              "device meshes"),
-    "pngs": (["--save_pngs", "True"], "structure logging"),
-    "enc-dec": (["-m", "enc-dec"], "encoder-decoder model"),
 }
 
 
@@ -298,6 +296,25 @@ def test_flags_of_parts_not_ported_are_refused(case):
         tcli.config_from_args(argv)
     with pytest.raises(NotImplementedError, match="not in the PyTorch port"):
         tcli.main(argv + ["--device", "cpu"])
+
+
+NOW_PORTED = {
+    "pngs": (["--save_pngs", "True"],
+             dict(save_pngs=True, log_structure_step=10,
+                  log_val_struct_step=50)),
+    "enc-dec": (["-m", "enc-dec", "-fctf", "0.5", "-fsstf", "0.25"],
+                dict(model="enc-dec", add_sos_eos=True,
+                     fraction_complete_tf=0.5, fraction_subseq_tf=0.25)),
+}
+
+
+@pytest.mark.parametrize("case", list(NOW_PORTED))
+def test_flags_of_parts_now_ported_are_accepted_and_kept(case):
+    argv, fields = NOW_PORTED[case]
+    ours, theirs = tcli.config_from_args(argv), jcli.config_from_args(argv)
+    for field, value in fields.items():
+        assert getattr(ours, field) == getattr(theirs, field) == value, field
+    tcli.check_ported(ours.to_dict())
 
 
 def test_accepted_values_of_those_flags_pass():
@@ -394,7 +411,8 @@ def loop_ab(data, tmp_path_factory):
     jtr.train(JTrainState(params, jtr.tx.init(params),
                           jnp.zeros((), jnp.int32)))
 
-    ttr = port_trainer(data, out)
+    ttr = port_trainer(data, out, log_structure_step=0,
+                       log_val_struct_step=0)
     recording_saves(ttr, tsaves)
     state = ttr.train(ttr.state_from(flax_to_state_dict(params, ttr.model)))
     return dict(jtr=jtr, ttr=ttr, state=state, jsaves=jsaves, tsaves=tsaves,

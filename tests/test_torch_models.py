@@ -192,5 +192,9 @@ def test_factory_and_conv_name_parsing():
     lin = make_model(TrainConfig(model="enc-only-linear-out", d_model=DM,
                                  n_heads=NH, max_seq_len=L), angle_means())
     assert not lin.head.use_tanh_out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model(TrainConfig(model="enc-dec"), angle_means())
+    enc_dec = make_model(TrainConfig(model="enc-dec", d_model=DM, d_ff=DFF,
+                                     n_heads=NH, n_layers=2, max_seq_len=L),
+                         angle_means())
+    assert len(enc_dec.encoder.layers) == len(enc_dec.decoder.layers) == 2
+    with pytest.raises(ValueError, match="Unknown model architecture"):
+        make_model(TrainConfig(model="dec-only"), angle_means())

@@ -210,14 +210,15 @@ def test_imported_checkpoint_holds_the_exported_parameters(runs):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("compute_dtype", "bfloat16", "bfloat16 compute"),
-    ("model", "enc-dec", "encoder-decoder"),
+    ("compute_dtype", "bfloat16", (NotImplementedError, "bfloat16 compute")),
+    ("model", "enc-dec", (KeyError, "which the model does not have")),
     ("mesh_shape", [4], None), ("use_wandb", True, None)])
 def test_import_refuses_what_changes_the_models_results(runs, tmp_path, key,
                                                         value, match):
     """A run trained with a setting the port lacks is not imported as if
-    it were a float32 encoder run; settings that only say how the JAX run
-    was executed are dropped."""
+    it were a float32 encoder run, nor are an encoder's parameters imported
+    under another model family's name; settings that only say how the JAX
+    run was executed are dropped."""
     exported = str(tmp_path / "exported")
     shutil.copytree(runs["exported"], exported)
     cfg_path = os.path.join(exported, "config.json")
@@ -233,7 +234,7 @@ def test_import_refuses_what_changes_the_models_results(runs, tmp_path, key,
         with open(os.path.join(run_dir, "config.json")) as f:
             assert key not in json.load(f)["config"]
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(match[0], match=match[1]):
         tckpt.import_run(exported, run_dir)
     assert not os.path.exists(run_dir)
 
