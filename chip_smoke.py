@@ -13,8 +13,10 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
 3. kernels against their plain PyTorch versions on the card.
    dRMSD (K1a, K1b, K1c), ~70% of atoms valid and one protein all masked,
    at B=8 x N = 600, 768, 3584, 7000 and at the training step's B=16 x
-   N = 768, 3584: equal pair counts, |d dRMSD| <= 1e-4 A, K1b's S equal to
-   K1a's bit for bit, gradients (K1b: dS/da, K1c: dS/db) within
+   N = 768, 3584, then on the training step's structured masks (each
+   residue's real slots, 2% missing, padded tails, one protein all masked)
+   at B=16 and 8 x N = 3584: equal pair counts, |d dRMSD| <= 1e-4 A, K1b's S
+   equal to K1a's bit for bit, gradients (K1b: dS/da, K1c: dS/db) within
    1e-4 * max(1, max|g|), zero statistic and gradient for the all-masked
    protein, the same bits on a second call.
    Sidechain build (K2a, K2b) at (B, L) = (8, 256), (16, 256), (8, 500),
@@ -30,12 +32,15 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    torsions within 1e-4 * max(1, max|g|) of autograd through plain; the
    same bits on a second call.
    Median times of kernel and plain over 25 runs (CUDA events), and each
-   kernel's bound: the larger of its bytes (inputs read once, outputs
-   written once) over 3.35 TB/s and its operations on this run's data over
-   67 TFLOP/s (fp32 outside the tensor cores). At the shape of its row in
-   the kernel table each kernel also gets a device-only time: the device
-   time of what one wrapper call launches, from a torch.profiler trace,
-   beside the event time, which holds the wrapper's host work too.
+   kernel's bound: the largest of its bytes (inputs read once, outputs
+   written once) over 3.35 TB/s, its operations on this run's data over
+   67 TFLOP/s (fp32 outside the tensor cores) and its special-function
+   operations (rsqrt, sqrt, exp) over 132 SMs x 16 a clock x 1.98 GHz. At
+   the shape of its row in the kernel table each kernel also gets a
+   device-only time: the device time of what one wrapper call launches,
+   from a torch.profiler trace, beside the event time, which holds the
+   wrapper's host work too (K1 also at B=8 x N = 7000 and on the
+   structured masks).
    Then the kernel variants of the bench tool (K4a one square root a pair,
    K4b and K4c the norm + cross-term form on the tensor cores, TF32 split
    in two) at the same (B, N) cases against their plain versions and
@@ -89,7 +94,8 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    over 25 runs of each kernel, of plain, and of
    torch.nn.functional.scaled_dot_product_attention with the same boolean
    mask (forward, and autograd's backward), a yardstick that the port never
-   calls; each kernel's bound from this run's valid keys;
+   calls, and at the table's shapes the device-only time of each kernel and
+   of that call; each kernel's bound from this run's valid keys;
 9. predict at the flagship width: one CLI epoch with --attention_impl flash
    (every eval step launches K3a 6 times, the dropout-0.1 train steps
    never), the output head then set to seeded random weights so that the
@@ -160,7 +166,7 @@ from protein_transformer_tpu_torch.config import TrainConfig
 from protein_transformer_tpu_torch.data.dataset import collate
 from protein_transformer_tpu_torch.data.dataset import DataModule
 from protein_transformer_tpu_torch.data.synthetic import (
-    make_dataset, sidechain_case)
+    atom_mask_case, make_dataset, sidechain_case)
 from protein_transformer_tpu_torch.device import cuda_device
 from protein_transformer_tpu_torch.models.conv_encoder import (
     ConvEncoderOnlyTransformer)
@@ -191,6 +197,8 @@ KERNEL_CASES = ((8, 600), (8, 768), (8, 3584), (8, 7000), (16, 768),
                 (16, 3584))
 EVAL_CASE = (8, 3584)    # the eval step's full-atom sweep
 TRAIN_CASE = (16, 3584)  # the train step's full-atom sweep
+# device-only times of K1 at the table's shapes and at the longest proteins
+K1_DEVICE_CASES = (EVAL_CASE, TRAIN_CASE, (8, 7000))
 # (B, L) of the sidechain kernels: the eval and train steps' batches, the
 # longest proteins, and the small sizes of the TPU kernel's tests
 SIDECHAIN_CASES = ((8, 256), (16, 256), (8, 500), (3, 37), (1, 1))
@@ -213,16 +221,27 @@ ARMS = {"all": ("cuda", "cuda"), "drmsd": ("cuda", "torch"),
 
 # The card's peaks for the bounds: HBM bytes/s, fp32 FLOP/s outside the
 # tensor cores and dense TF32 FLOP/s inside them (NVIDIA's H100 SXM data
-# sheet).
+# sheet), and special-function operations a second (rsqrt, sqrt, exp): 16 a
+# clock on each of the 132 SMs, at the 1.98 GHz that 67 TFLOP/s implies (132
+# SMs x 128 lanes x 2 x 1.98 GHz).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_SPECIAL_PER_S = 132 * 16 * 1.98e9
 # fp32 operations per valid pair i < j. K1a: per distance 3 subtractions, 5
 # for the squared norm, max, rsqrt, a product (11), twice; the difference and
 # its squared accumulation (3). K1b adds coef = 2 delta / Da (2), coef * diff
 # (3) and the two accumulations per component (6). K1c needs both distances
 # and their difference (23), then the same 11 on b's differences.
 FLOPS_PER_PAIR = {"drmsd_fwd": 25, "drmsd_fwd_grad": 36, "drmsd_grad_b": 34}
+# special-function operations per valid pair (K3: per weighted (query, key)
+# pair): K1's two rsqrt; K4a one sqrtf, K4b two rsqrt, K4c a sqrtf and an
+# rsqrt; one expf per pair in each K3 kernel (the forward's P, the
+# backward's recomputed P).
+SPECIAL_PER_PAIR = {"drmsd_fwd": 2, "drmsd_fwd_grad": 2, "drmsd_grad_b": 2,
+                    "drmsd_fwd_sqrt1": 1, "drmsd_fwd_mxu": 2,
+                    "drmsd_grad_a_mxu": 2, "flash_attn_fwd": 1,
+                    "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1}
 # The variants, per valid pair: (fp32 operations outside the tensor cores,
 # operations of the matrix products as mathematics has them, 2 x 3 per
 # 3-deep or 3-wide product entry, not the padded or split ones). K4a: two
@@ -266,15 +285,18 @@ def require(ok: bool, what: str) -> None:
 cuda_ms = bench_drmsd_kernel.event_ms
 
 
-def bound(n_bytes: float, flops: float,
-          tensor_flops: float = 0.0) -> tuple[float, str]:
-    """(ms, "bytes" | "operations"): the least time the card could take to
-    move n_bytes, do flops fp32 operations outside the tensor cores and
-    tensor_flops TF32 operations inside them, and which it is."""
-    t_bytes = 1e3 * n_bytes / PEAK_BYTES_PER_S
-    t_ops = max(1e3 * flops / PEAK_FP32_FLOPS,
-                1e3 * tensor_flops / PEAK_TF32_FLOPS)
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def bound(n_bytes: float, flops: float, tensor_flops: float = 0.0,
+          special: float = 0.0) -> tuple[float, str]:
+    """(ms, "bytes" | "operations" | "special functions"): the least time
+    the card could take to move n_bytes, do flops fp32 operations outside
+    the tensor cores, tensor_flops TF32 operations inside them and special
+    special-function operations, and which of the three it is."""
+    times = {"bytes": n_bytes / PEAK_BYTES_PER_S,
+             "operations": max(flops / PEAK_FP32_FLOPS,
+                               tensor_flops / PEAK_TF32_FLOPS),
+             "special functions": special / PEAK_SPECIAL_PER_S}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
 
 
 # device ms of everything one fn() call puts on the device, and the
@@ -332,14 +354,20 @@ def grad_err(got, want, what):
     return err
 
 
-def kernel_case(dev, card, rng, bsz, n):
+def kernel_case(dev, card, rng, bsz, n, structured=False):
     """All three dRMSD kernels against their plain versions on one (B, N)
-    case; returns {kernel: (max abs error, kernel ms, plain ms, bound ms,
-    what bounds it, device ms or None)}."""
+    case: ~70% of atoms valid at random, or with ``structured`` the masks of
+    the training step (``atom_mask_case``: residues' real slots, 2% missing,
+    padded tails); the last protein all masked either way. Returns {kernel:
+    (max abs error, kernel ms, plain ms, bound ms, what bounds it, device ms
+    or None)}."""
     a, b = (torch.from_numpy(rng.normal(0, 10, (bsz, n, 3)).astype(
         np.float32)).to(dev) for _ in range(2))
-    m = torch.from_numpy(rng.random((bsz, n)) < 0.7).to(dev)
-    m[-1] = False  # an all-masked protein
+    if structured:
+        m = torch.from_numpy(atom_mask_case(rng, bsz, n)).to(dev)
+    else:
+        m = torch.from_numpy(rng.random((bsz, n)) < 0.7).to(dev)
+        m[-1] = False  # an all-masked protein
     fs, fc = D.drmsd_stats_cuda(a, b, m)
     gs, gc, ga = D.drmsd_stats_grad_cuda(a, b, m)
     gb = D.drmsd_grad_b_cuda(a, b, m)
@@ -347,7 +375,7 @@ def kernel_case(dev, card, rng, bsz, n):
     _, _, pga = D.drmsd_stats_grad_torch(a, b, m)
     pgb = D.drmsd_grad_b_torch(a, b, m)
     torch.cuda.synchronize()
-    where = f"B={bsz} N={n}"
+    where = f"B={bsz} N={n}" + (" structured masks" if structured else "")
     require(torch.isfinite(fs).all().item(), f"K1a values finite, {where}")
     require(torch.equal(fc, pc) and torch.equal(gc, pc),
             f"pair counts equal, {where}")
@@ -367,20 +395,19 @@ def kernel_case(dev, card, rng, bsz, n):
     # bytes: a, b and the mask read once; S and C, or a gradient, written
     pairs = int(fc.sum())
     read = bsz * n * 25
-    bounds = {"drmsd_fwd": bound(read + bsz * 12,
-                                 FLOPS_PER_PAIR["drmsd_fwd"] * pairs),
-              "drmsd_fwd_grad": bound(read + bsz * 12 + bsz * n * 12,
-                                      FLOPS_PER_PAIR["drmsd_fwd_grad"]
-                                      * pairs),
-              "drmsd_grad_b": bound(read + bsz * n * 12,
-                                    FLOPS_PER_PAIR["drmsd_grad_b"] * pairs)}
+    written = {"drmsd_fwd": bsz * 12, "drmsd_fwd_grad": bsz * (12 + n * 12),
+               "drmsd_grad_b": bsz * n * 12}
+    bounds = {k: bound(read + w, FLOPS_PER_PAIR[k] * pairs,
+                       special=SPECIAL_PER_PAIR[k] * pairs)
+              for k, w in written.items()}
     calls = {"drmsd_fwd": (err, D.drmsd_stats_cuda, D.drmsd_stats_torch),
              "drmsd_fwd_grad": (ga_err, D.drmsd_stats_grad_cuda,
                                 D.drmsd_stats_grad_torch),
              "drmsd_grad_b": (gb_err, D.drmsd_grad_b_cuda,
                               D.drmsd_grad_b_torch)}
-    # device-only time at the shapes of the kernels' table rows
-    in_table = (bsz, n) in (EVAL_CASE, TRAIN_CASE)
+    # device-only time at the shapes of the kernels' table rows, and at the
+    # longest proteins
+    in_table = structured or (bsz, n) in K1_DEVICE_CASES
     out = {k: (e, cuda_ms(lambda: kernel(a, b, m)),
                cuda_ms(lambda: plain(a, b, m)), *bounds[k],
                device_ms(lambda: kernel(a, b, m)) if in_table else None)
@@ -399,9 +426,14 @@ def kernel_case(dev, card, rng, bsz, n):
 
 
 def phase_kernel(dev, card):
+    """Returns ({case: kernel_case(...)} on the random masks, the same at
+    the table's two shapes on the structured masks)."""
     rng = np.random.default_rng(0)
-    return {case: kernel_case(dev, card, rng, *case)
-            for case in KERNEL_CASES}
+    random = {case: kernel_case(dev, card, rng, *case)
+              for case in KERNEL_CASES}
+    structured = {case: kernel_case(dev, card, rng, *case, structured=True)
+                  for case in (TRAIN_CASE, EVAL_CASE)}
+    return random, structured
 
 
 VARIANT_STATS = {
@@ -500,7 +532,8 @@ def variant_times(dev, card, shape):
         out[name] = (cuda_ms(lambda: kernel(a, b, m)),
                      cuda_ms(lambda: plain(a, b, m)),
                      *bound(read + written[name], flops * pairs,
-                            tensor_flops * pairs),
+                            tensor_flops * pairs,
+                            SPECIAL_PER_PAIR[name] * pairs),
                      device_ms(lambda: kernel(a, b, m)))
     cur = {name: (cuda_ms(lambda: fn(a, b, m)),
                   device_ms(lambda: fn(a, b, m)))
@@ -1186,7 +1219,7 @@ def attention_grads(q, k, v, valid, d_out, scale, impl):
 def attention_case(dev, card, rng, shape):
     """K3a, K3b and K3c against the plain version on one (B, H, L, D) case;
     returns {kernel: (max abs error, kernel ms, plain ms, bound ms, what
-    bounds it, library ms, device ms or None)}."""
+    bounds it, library ms, device ms or None, library device ms or None)}."""
     bsz, heads, length, dim = shape
     where = f"B={bsz} H={heads} L={length} D={dim}"
     # q three times wider than k: scores of standard deviation 3, a softmax
@@ -1271,7 +1304,7 @@ def attention_case(dev, card, rng, shape):
                "flash_attn_bwd_dq": 5 * tensor + 3 * stats + bsz * length}
     errs = {"flash_attn_fwd": err, "flash_attn_bwd_dkv": max(g_errs[1:]),
             "flash_attn_bwd_dq": g_errs[0]}
-    dev_ms = dict.fromkeys(times)
+    dev_ms = lib_dev_ms = dict.fromkeys(times)
     if shape in (ATTENTION_PREDICT_CASE, ATTENTION_TRAIN_CASE):
         dev_ms = {
             "flash_attn_fwd": device_ms(lambda: A.flash_attn_fwd_cuda(
@@ -1280,10 +1313,18 @@ def attention_case(dev, card, rng, shape):
                 q, k, v, valid, d_out, m, l, delta, scale)),
             "flash_attn_bwd_dq": device_ms(lambda: A.flash_attn_bwd_dq_cuda(
                 q, k, v, valid, d_out, m, l, delta, scale))}
+        # the library call's device time: its forward, and autograd's
+        # backward through it (one backward gives dQ, dK and dV alike)
+        lib_dev_ms = {
+            "flash_attn_fwd": device_ms(no_grad(lambda: sdpa(
+                q, k, v, attn_mask=key_mask, scale=scale))),
+            "flash_attn_bwd_dkv": device_ms(backward(lib_out, leaves[1:])),
+            "flash_attn_bwd_dq": device_ms(backward(lib_out, leaves[:1]))}
     out = {name: (errs[name], t[0], t[1],
                   *bound(n_bytes[name],
-                         ATTENTION_FLOPS_PER_PAIR[name] * dim * pairs), t[2],
-                  dev_ms[name])
+                         ATTENTION_FLOPS_PER_PAIR[name] * dim * pairs,
+                         special=SPECIAL_PER_PAIR[name] * pairs), t[2],
+                  dev_ms[name], lib_dev_ms[name])
            for name, t in times.items()}
     print(f"[kernel] attention {where}: |d O| {err:.3e}, |d dQ| "
           f"{g_errs[0]:.3e}, |d dK| {g_errs[1]:.3e}, |d dV| {g_errs[2]:.3e} "
@@ -1297,6 +1338,9 @@ def attention_case(dev, card, rng, shape):
           + ", ".join(f"{name} {v[3]:.5f} by {v[4]}"
                       for name, v in out.items())
           + device_only({name: v[6] for name, v in out.items()})
+          + ("; the library call's device-only ms: " + ", ".join(
+              f"{name} {v[7]:.4f}" for name, v in out.items())
+             if out["flash_attn_fwd"][7] is not None else "")
           + f" (median of {TIMED_RUNS}; {card})")
     return out
 
@@ -1799,7 +1843,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev, card = phase_device()
     phase_build()
-    table = phase_kernel(dev, card)
+    table, structured = phase_kernel(dev, card)
     variant_table, variant_errs, bench_launches = phase_variants(dev, card)
     sc_table, sc_errs = phase_sidechain_kernel(dev, card)
     attn_table = phase_attention_kernel(dev, card)
@@ -1822,12 +1866,18 @@ def main() -> int:
             ("drmsd_grad_b", "drmsd_train.cu", 87, TRAIN_CASE,
              train_launches["drmsd_grad_b"])):
         _, k_ms, p_ms, b_ms, b_by, d_ms = table[case][name]
+        _, s_ms, s_plain, s_bound, s_by, s_dev = structured[case][name]
         rows.append({"name": name, "route": "cuda", "source": source + src,
                      "replaces": f"{replaces}drmsd_pallas.py:{line}",
                      "launches": launches,
-                     "max_abs_err": max(t[name][0] for t in table.values()),
+                     "max_abs_err": max(t[name][0] for t in
+                                        [*table.values(),
+                                         *structured.values()]),
                      "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "structured_masks": {
+                         "ms": s_ms, "device_ms": s_dev, "plain_ms": s_plain,
+                         "bound_ms": s_bound, "bound_by": s_by}})
     for name, line in (("sidechain_fwd", 104), ("sidechain_bwd", 136)):
         k_ms, p_ms, b_ms, b_by, d_ms = sc_table[SIDECHAIN_TRAIN_CASE][name]
         rows.append({"name": name, "route": "cuda",
@@ -1847,7 +1897,8 @@ def main() -> int:
              flash_launches["flash_attn_bwd_dkv"]),
             ("flash_attn_bwd_dq", 1146, ATTENTION_TRAIN_CASE,
              flash_launches["flash_attn_bwd_dq"])):
-        _, k_ms, p_ms, b_ms, b_by, lib_ms, d_ms = attn_table[case][name]
+        _, k_ms, p_ms, b_ms, b_by, lib_ms, d_ms, lib_d_ms = \
+            attn_table[case][name]
         rows.append({"name": name, "route": "cuda",
                      "source": source + "attention.cu",
                      "replaces": f"{flash}:{line}",
@@ -1857,7 +1908,7 @@ def main() -> int:
                                         for t in attn_table.values()),
                      "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms})
+                     "library_ms": lib_ms, "library_device_ms": lib_d_ms})
     # no one PyTorch call computes a masked pair statistic: no library time
     for name, line in (("drmsd_fwd_sqrt1", 42), ("drmsd_fwd_mxu", 84),
                        ("drmsd_grad_a_mxu", 105)):

@@ -57,6 +57,29 @@ def sidechain_case(rng: np.random.Generator, bsz: int, length: int,
     return ang, ids
 
 
+def atom_mask_case(rng: np.random.Generator, bsz: int, n: int,
+                   missing_atoms: float = 0.02) -> np.ndarray:
+    """(B, n) bool atom masks as the training step builds them for its
+    full-atom dRMSD: atoms in residue-major order, NUM_PREDICTED_COORDS
+    slots a residue, of which slots 0 .. 3 + SC_NUM_ATOMS of the residue's
+    random amino acid are real; ``missing_atoms`` of them missing; each
+    protein ends in a padded tail of a random length up to a quarter of the
+    rows (n need not be a multiple of the slots: the last residue is cut);
+    the last protein is all padding, as a batch padded to its bucket."""
+    n_res = -(-n // NUM_PREDICTED_COORDS)
+    aa = rng.integers(0, len(STD_AAS), (bsz, n_res))
+    n_sc = np.asarray(ff.SC_NUM_ATOMS)[[VOCAB[c] for c in STD_AAS]][aa]
+    slot = np.arange(n_res * NUM_PREDICTED_COORDS) % NUM_PREDICTED_COORDS
+    res = np.arange(n_res * NUM_PREDICTED_COORDS) // NUM_PREDICTED_COORDS
+    mask = (slot[None] < 4 + n_sc[:, res])[:, :n]
+    mask &= rng.random((bsz, n)) >= missing_atoms
+    for row in range(bsz):
+        tail = int(rng.integers(0, n_res // 4 + 1))
+        mask[row, (n_res - tail) * NUM_PREDICTED_COORDS:] = False
+    mask[-1] = False
+    return np.ascontiguousarray(mask)
+
+
 def _make_split(rng: np.random.Generator, n: int, min_len: int, max_len: int,
                 missing_atoms: float, device: torch.device):
     lengths = rng.integers(min_len, max_len + 1, size=n)

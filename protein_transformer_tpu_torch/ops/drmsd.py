@@ -25,6 +25,12 @@ Three kernels, each with its plain PyTorch version beside it:
 * K1c ``drmsd_grad_b_cuda`` (``csrc/drmsd_train.cu``) -> dS/db; plain
   ``drmsd_grad_b_torch``.
 
+The three are instances of one kernel body (``csrc/drmsd_common.cuh``,
+"K1"): each block compacts the valid atoms of its two tiles and sweeps valid
+pairs only, once each. A call is two launches and no fill: the outputs are
+``torch.empty`` and written in full by the kernels, and the scratch is one
+uninitialised allocation.
+
 A kernel wrapper takes CUDA tensors only and raises on anything else. The
 plain versions run on any device, over row blocks of explicit formulas, so
 the (N, N) matrices are never held whole; the CPU tests run them, and
@@ -141,13 +147,16 @@ def drmsd_grad_b_torch(a: torch.Tensor, b: torch.Tensor,
 
 # Each library's launch functions, as (pointers before, pointers after) the
 # (int batch, int n) pair of ``int fn(...)``; the stream is the last pointer.
-_LAUNCHERS = {"drmsd_fwd": {"drmsd_fwd": (3, 5)},
-              "drmsd_train": {"drmsd_fwd_grad": (3, 8),
-                              "drmsd_grad_b": (3, 4)},
+_LAUNCHERS = {"drmsd_fwd": {"drmsd_fwd": (3, 4)},
+              "drmsd_train": {"drmsd_fwd_grad": (3, 5),
+                              "drmsd_grad_b": (3, 3)},
               # the bench's variants (ops/drmsd_variants.py)
               "drmsd_variants": {"drmsd_fwd_sqrt1": (3, 5),
                                  "drmsd_fwd_mxu": (3, 5),
                                  "drmsd_grad_a_mxu": (3, 4)}}
+# K1's libraries also export ``<name>_scratch_bytes(int batch, int n)``, the
+# variants' library ``<name>_tile()``.
+_K1_LIBRARIES = ("drmsd_fwd", "drmsd_train")
 
 
 @functools.cache
@@ -160,8 +169,13 @@ def _lib(name: str) -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = [p] * before + [ctypes.c_int, ctypes.c_int] + [p] * after
         f.restype = ctypes.c_int
-    tile = getattr(lib, f"{name}_tile")
-    tile.argtypes, tile.restype = [], ctypes.c_int
+    if name in _K1_LIBRARIES:
+        size = getattr(lib, f"{name}_scratch_bytes")
+        size.argtypes = [ctypes.c_int, ctypes.c_int]
+        size.restype = ctypes.c_longlong
+    else:
+        tile = getattr(lib, f"{name}_tile")
+        tile.argtypes, tile.restype = [], ctypes.c_int
     err_string = getattr(lib, f"{name}_error_string")
     err_string.argtypes, err_string.restype = [ctypes.c_int], ctypes.c_char_p
     return lib
@@ -200,19 +214,11 @@ def _launch(name: str, fn: str, a, b, mask, *ptrs) -> None:
                            .decode())
 
 
-def _scratch(name: str, bsz: int, n: int, device, grad: bool):
-    """Per-block partials: (S, C) per tile pair, and with grad the (3, tile)
-    row and column partials of each tile pair."""
-    tile = getattr(_lib(name), f"{name}_tile")()
-    n_tiles = -(-n // tile)
-    n_pairs = n_tiles * (n_tiles + 1) // 2
-    f32 = dict(dtype=torch.float32, device=device)
-    out = [torch.empty((bsz, n_pairs), **f32),
-           torch.empty((bsz, n_pairs), dtype=torch.int32, device=device)]
-    if grad:
-        out += [torch.empty((bsz, n_pairs, 3, tile), **f32),   # rows
-                torch.empty((bsz, n_pairs, 3, tile), **f32)]   # columns
-    return out
+def _k1_scratch(name: str, bsz: int, n: int, device) -> torch.Tensor:
+    """K1's scratch, one uninitialised allocation of the size the library
+    asks for: the kernels write every byte they read."""
+    size = getattr(_lib(name), f"{name}_scratch_bytes")(bsz, n)
+    return torch.empty(size, dtype=torch.uint8, device=device)
 
 
 def drmsd_stats_cuda(a: torch.Tensor, b: torch.Tensor,
@@ -225,13 +231,14 @@ def drmsd_stats_cuda(a: torch.Tensor, b: torch.Tensor,
     _check_cuda("drmsd_stats_cuda", a, b, mask)
     lead, n = a.shape[:-2], a.shape[-2]
     bsz = mask.numel() // max(n, 1)
-    out_s = torch.zeros(lead, dtype=torch.float32, device=a.device)
-    out_c = torch.zeros(lead, dtype=torch.int64, device=a.device)
     if bsz == 0 or n == 0:
-        return out_s, out_c
-    part_s, part_c = _scratch("drmsd_fwd", bsz, n, a.device, grad=False)
-    _launch("drmsd_fwd", "drmsd_fwd", a, b, mask, part_s.data_ptr(),
-            part_c.data_ptr(), out_s.data_ptr(), out_c.data_ptr())
+        return (torch.zeros(lead, dtype=torch.float32, device=a.device),
+                torch.zeros(lead, dtype=torch.int64, device=a.device))
+    out_s = torch.empty(lead, dtype=torch.float32, device=a.device)
+    out_c = torch.empty(lead, dtype=torch.int64, device=a.device)
+    scratch = _k1_scratch("drmsd_fwd", bsz, n, a.device)
+    _launch("drmsd_fwd", "drmsd_fwd", a, b, mask, scratch.data_ptr(),
+            out_s.data_ptr(), out_c.data_ptr())
     drmsd_stats_cuda.launches += 1
     return out_s, out_c
 
@@ -249,15 +256,16 @@ def drmsd_stats_grad_cuda(a: torch.Tensor, b: torch.Tensor,
     _check_cuda("drmsd_stats_grad_cuda", a, b, mask)
     lead, n = a.shape[:-2], a.shape[-2]
     bsz = mask.numel() // max(n, 1)
-    out_s = torch.zeros(lead, dtype=torch.float32, device=a.device)
-    out_c = torch.zeros(lead, dtype=torch.int64, device=a.device)
-    out_g = torch.zeros_like(a)
     if bsz == 0 or n == 0:
-        return out_s, out_c, out_g
-    scratch = _scratch("drmsd_train", bsz, n, a.device, grad=True)
-    _launch("drmsd_train", "drmsd_fwd_grad", a, b, mask,
-            *(t.data_ptr() for t in scratch), out_s.data_ptr(),
-            out_c.data_ptr(), out_g.data_ptr())
+        return (torch.zeros(lead, dtype=torch.float32, device=a.device),
+                torch.zeros(lead, dtype=torch.int64, device=a.device),
+                torch.zeros_like(a))
+    out_s = torch.empty(lead, dtype=torch.float32, device=a.device)
+    out_c = torch.empty(lead, dtype=torch.int64, device=a.device)
+    out_g = torch.empty_like(a)
+    scratch = _k1_scratch("drmsd_train", bsz, n, a.device)
+    _launch("drmsd_train", "drmsd_fwd_grad", a, b, mask, scratch.data_ptr(),
+            out_s.data_ptr(), out_c.data_ptr(), out_g.data_ptr())
     drmsd_stats_grad_cuda.launches += 1
     return out_s, out_c, out_g
 
@@ -272,13 +280,12 @@ def drmsd_grad_b_cuda(a: torch.Tensor, b: torch.Tensor,
     _check_cuda("drmsd_grad_b_cuda", a, b, mask)
     n = a.shape[-2]
     bsz = mask.numel() // max(n, 1)
-    out_g = torch.zeros_like(b)
     if bsz == 0 or n == 0:
-        return out_g
-    _, _, part_row, part_col = _scratch("drmsd_train", bsz, n, a.device,
-                                        grad=True)
-    _launch("drmsd_train", "drmsd_grad_b", a, b, mask, part_row.data_ptr(),
-            part_col.data_ptr(), out_g.data_ptr())
+        return torch.zeros_like(b)
+    out_g = torch.empty_like(b)
+    scratch = _k1_scratch("drmsd_train", bsz, n, a.device)
+    _launch("drmsd_train", "drmsd_grad_b", a, b, mask, scratch.data_ptr(),
+            out_g.data_ptr())
     drmsd_grad_b_cuda.launches += 1
     return out_g
 

@@ -30,9 +30,24 @@ import contextlib
 import torch
 
 from protein_transformer_tpu_torch.ops.drmsd import (
-    DIST_CLAMP, ROW_BLOCK, _check_cuda, _flatten, _launch, _scratch)
+    DIST_CLAMP, ROW_BLOCK, _check_cuda, _flatten, _launch, _lib)
 
 LIBRARY = "drmsd_variants"
+
+
+def _scratch(name: str, bsz: int, n: int, device, grad: bool):
+    """Per-block partials: (S, C) per tile pair, and with grad the (3, tile)
+    row and column partials of each tile pair."""
+    tile = getattr(_lib(name), f"{name}_tile")()
+    n_tiles = -(-n // tile)
+    n_pairs = n_tiles * (n_tiles + 1) // 2
+    f32 = dict(dtype=torch.float32, device=device)
+    out = [torch.empty((bsz, n_pairs), **f32),
+           torch.empty((bsz, n_pairs), dtype=torch.int32, device=device)]
+    if grad:
+        out += [torch.empty((bsz, n_pairs, 3, tile), **f32),   # rows
+                torch.empty((bsz, n_pairs, 3, tile), **f32)]   # columns
+    return out
 
 
 @contextlib.contextmanager

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 
-def _check_against(template, restored, where: str) -> None:
+def check_against(template, restored, where: str) -> None:
     """Raise if ``restored`` does not have ``template``'s structure: the same
     dict keys and tensor shapes."""
     if isinstance(template, dict):
@@ -47,7 +47,7 @@ def _check_against(template, restored, where: str) -> None:
                 f"(missing {sorted(set(template) - set(restored or ()))}, "
                 f"unexpected {sorted(set(restored or ()) - set(template))})")
         for key in template:
-            _check_against(template[key], restored[key], f"{where}.{key}")
+            check_against(template[key], restored[key], f"{where}.{key}")
     elif isinstance(template, torch.Tensor):
         if not isinstance(restored, torch.Tensor) \
                 or restored.shape != template.shape:
@@ -111,7 +111,7 @@ class CheckpointManager:
         arrays have ``template``'s structure (keys and shapes)."""
         result = self.restore_raw(modifier, map_location)
         if result is not None:
-            _check_against(template, result[0], repr(modifier))
+            check_against(template, result[0], repr(modifier))
         return result
 
     def exists(self, modifier: str) -> bool:

@@ -48,7 +48,7 @@ from protein_transformer_tpu_torch.protein.geometry import build_coords_batch
 from protein_transformer_tpu_torch.training.structure_logging import (
     StructureLogger)
 from protein_transformer_tpu_torch.training.checkpoint import (
-    CheckpointManager, checkpoint_policy)
+    CheckpointManager, check_against, checkpoint_policy)
 from protein_transformer_tpu_torch.training.optim import (
     EarlyStopping, OptState, PlateauState, make_optimizer, noam_schedule)
 
@@ -305,14 +305,22 @@ class Trainer:
             opt_state = state.opt_state
         else:
             template = self._arrays(state)
-            arrays, meta = self.ckpt.restore(modifier, template, self.device)
+            arrays, meta = self.ckpt.restore_raw(modifier, self.device)
             saved = arrays["opt_state"]
-            # the moments are stored by parameter name: the optimizer holds
+            if any(set(saved[moment]) != set(template["opt_state"][moment])
+                   for moment in ("mu", "nu")):
+                raise ValueError(
+                    f"checkpoint {modifier!r}: its optimizer state does not "
+                    f"fit -opt {cfg.optimizer} (its moments name "
+                    f"{len(saved['mu'])} parameters, the live optimizer's "
+                    f"{len(state.opt_state.mu)}); pass --restart_opt to "
+                    f"resume from its weights with a fresh optimizer")
+            check_against(template, arrays, repr(modifier))
+            # the moments are stored by parameter name, the optimizer holds
             # them as lists in the live parameters' order
-            opt_state = OptState(
-                saved["count"],
-                [saved["mu"][k] for k in state.params if k in saved["mu"]],
-                [saved["nu"][k] for k in state.params if k in saved["nu"]])
+            opt_state = OptState(saved["count"],
+                                 [saved["mu"][k] for k in state.params],
+                                 [saved["nu"][k] for k in state.params])
         params = {k: arrays["params"][k].to(self.device).requires_grad_()
                   for k in state.params}
         step = int(arrays["step"])

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from protein_transformer_tpu_torch.data.synthetic import atom_mask_case
 from protein_transformer_tpu_torch.ops import _build
 from protein_transformer_tpu_torch.ops import drmsd as D
 
@@ -50,6 +51,24 @@ def cloud(rng, bsz, n, valid=0.7):
     b = rng.normal(0, 10, (bsz, n, 3)).astype(np.float32)
     m = rng.random((bsz, n)) < valid
     return a, b, m
+
+
+def structured_batch(n, seed):
+    """A batch of the training step's masks at n atoms (``atom_mask_case``:
+    two proteins with each residue's real slots, 2% missing and a padded
+    tail, then an all-masked one), then one protein with exactly one valid
+    atom and one with exactly two."""
+    rng = np.random.default_rng(seed)
+    a, b, _ = cloud(rng, 5, n)
+    m = np.zeros((5, n), bool)
+    m[:3] = atom_mask_case(rng, 3, n)
+    m[3, rng.integers(n)] = True
+    m[4, rng.choice(n, 2, replace=False)] = True
+    return a, b, m
+
+
+# around the kernels' 128-atom tile edge, and past two tiles
+EDGE_N = [127, 128, 129, 255, 257]
 
 
 def drmsd_of(s, c):
@@ -169,6 +188,53 @@ def test_plain_grads_match_pallas_vjp(jax_ref):
         assert grad_gate(ta.grad[i], ga) and grad_gate(tb.grad[i], gb)
 
 
+@pytest.mark.parametrize("n", EDGE_N)
+def test_plain_matches_pallas_on_structured_masks(jax_ref, n):
+    """The plain versions against the Pallas kernels (interpret mode) on the
+    training step's masks, an all-masked protein and proteins with one and
+    two valid atoms: S, C and the gradients of the dRMSD in a and b."""
+    _, dp = jax_ref
+    import jax
+    import jax.numpy as jnp
+    from protein_transformer_tpu_torch import losses as TL
+    a, b, m = structured_batch(n, n)
+    s, c = port_stats(a, b, m)
+    assert c[2] == 0 and c[3] == 0 and c[4] == 1
+    ta = torch.from_numpy(a).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    TL.drmsd_masked(ta, tb, torch.from_numpy(m)).sum().backward()
+    stats = jax.jit(dp.drmsd_stats_pallas)
+    grad = jax.jit(jax.grad(dp.drmsd_masked_pallas, argnums=(0, 1)))
+    for i in range(5):
+        args = [jnp.asarray(x[i]) for x in (a, b, m)]
+        ps, pc = stats(*args)
+        assert int(c[i]) == int(pc)
+        assert abs(drmsd_of(s[i], c[i]) - drmsd_of(ps, pc)) <= 1e-4
+        ga, gb = grad(*args)
+        assert grad_gate(ta.grad[i], ga) and grad_gate(tb.grad[i], gb)
+    assert not ta.grad[2:4].any() and not tb.grad[2:4].any()
+
+
+def test_bound_of_k1a_is_the_special_function_unit():
+    """chip_smoke's bound at K1a's table row (B=8 x 3584 atoms, 22,218,809
+    valid pairs): two rsqrt a pair over 132 SMs x 16 a clock x 1.98 GHz take
+    longer than its 25 fp32 operations a pair over 67 TFLOP/s."""
+    import chip_smoke
+    pairs = 22_218_809
+    n_bytes = 8 * 3584 * 25 + 8 * 12
+    ms, by = chip_smoke.bound(
+        n_bytes, chip_smoke.FLOPS_PER_PAIR["drmsd_fwd"] * pairs,
+        special=chip_smoke.SPECIAL_PER_PAIR["drmsd_fwd"] * pairs)
+    assert by == "special functions"
+    assert ms == pytest.approx(1e3 * 2 * pairs / (132 * 16 * 1.98e9))
+    assert round(ms, 4) == 0.0106
+    fp32_ms, fp32_by = chip_smoke.bound(
+        n_bytes, chip_smoke.FLOPS_PER_PAIR["drmsd_fwd"] * pairs)
+    assert fp32_by == "operations" and fp32_ms == pytest.approx(0.00829,
+                                                                 rel=1e-3)
+    assert chip_smoke.bound(1e9, 1.0, special=1.0)[1] == "bytes"
+
+
 def test_plain_grads_match_autograd():
     """The explicit gradient formulas against torch.autograd through the
     plain statistics, over several row blocks."""
@@ -267,6 +333,37 @@ def test_train_kernels_match_plain_on_card(cuda, n):
     ks2, _, kga2 = D.drmsd_stats_grad_cuda(ta, tb, tm)
     assert torch.equal(ks, ks2) and torch.equal(kga, kga2)
     assert torch.equal(kgb, D.drmsd_grad_b_cuda(ta, tb, tm))
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("n", EDGE_N + [3584])
+def test_kernels_on_structured_masks_on_card(cuda, n):
+    """K1a, K1b and K1c against their plain versions on the training step's
+    masks, an all-masked protein and proteins with one and two valid atoms:
+    counts equal, K1b's S has K1a's bits, the same bits on a second call,
+    exact zeros where there is no pair."""
+    a, b, m = structured_batch(n, n + 7)
+    ta, tb, tm = (torch.from_numpy(x).to(cuda) for x in (a, b, m))
+    fs, fc = D.drmsd_stats_cuda(ta, tb, tm)
+    ks, kc, kga = D.drmsd_stats_grad_cuda(ta, tb, tm)
+    kgb = D.drmsd_grad_b_cuda(ta, tb, tm)
+    ps, pc, pga = D.drmsd_stats_grad_torch(ta, tb, tm)
+    pgb = D.drmsd_grad_b_torch(ta, tb, tm)
+    torch.cuda.synchronize()
+    assert torch.equal(fc, pc) and torch.equal(kc, pc)
+    assert torch.equal(ks, fs)
+    kd = torch.sqrt(torch.clamp(fs / fc.clamp(min=1), min=1e-30))
+    pd = torch.sqrt(torch.clamp(ps / pc.clamp(min=1), min=1e-30))
+    assert float((kd - pd).abs().max()) <= 1e-4
+    assert grad_gate(kga.cpu(), pga.cpu()) and grad_gate(kgb.cpu(), pgb.cpu())
+    assert int(kc[4]) == 1
+    for i in (2, 3):
+        assert fs[i] == 0 and kc[i] == 0
+        assert not kga[i].any() and not kgb[i].any()
+    assert torch.equal(D.drmsd_stats_cuda(ta, tb, tm)[0], fs)
+    ks2, _, kga2 = D.drmsd_stats_grad_cuda(ta, tb, tm)
+    assert torch.equal(ks2, ks) and torch.equal(kga2, kga)
+    assert torch.equal(D.drmsd_grad_b_cuda(ta, tb, tm), kgb)
 
 
 @pytest.mark.needs_cuda

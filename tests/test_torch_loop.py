@@ -214,6 +214,32 @@ def test_resume_restart_opt_and_missing_sidecar(data, tmp_path):
                for k, v in got.params.items())
 
 
+def test_resume_with_another_optimizer_needs_restart_opt(data, tmp_path):
+    """An SGD run's checkpoint (no moments) resumed with -opt adam: the
+    restore raises and names --restart_opt; with it the run resumes from
+    the weights and the step, with fresh Adam moments."""
+    tr = port_trainer(data, tmp_path, optimizer="sgd")
+    state = stepped_state(tr)
+    tr._save_checkpoint(state, epoch=0, cur_loss=4.0, history=[4.0])
+    saved = torch.load(tr.ckpt._path("best"), weights_only=True)
+    assert saved["opt_state"]["mu"] == {}
+
+    adam = port_trainer(data, tmp_path, optimizer="adam")
+    init = adam.init_state(torch.Generator().manual_seed(9))
+    with pytest.raises(ValueError, match="--restart_opt") as err:
+        adam.maybe_restore(init)
+    assert "-opt adam" in str(err.value)
+
+    adam = port_trainer(data, tmp_path, optimizer="adam", restart_opt=True)
+    init = adam.init_state(torch.Generator().manual_seed(9))
+    got = adam.maybe_restore(init)
+    assert got.step == 2 and adam.start_epoch == 1
+    assert got.opt_state is init.opt_state and got.opt_state.count == 0
+    assert len(got.opt_state.mu) == len(got.params)
+    assert all(torch.equal(v, saved["params"][k])
+               for k, v in got.params.items())
+
+
 # ------------------------------------------------------------------- CLI
 
 # flags of the JAX parser's "TPU Args" group that the port's "GPU Args"
