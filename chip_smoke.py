@@ -9,7 +9,7 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
 2. build: compiles the five kernel libraries from this checkout at once,
    one nvcc each: csrc/drmsd_fwd.cu (K1a), csrc/drmsd_train.cu (K1b, K1c),
    csrc/drmsd_variants.cu (K4a, K4b, K4c), csrc/sidechain.cu (K2a, K2b)
-   and csrc/attention.cu (K3a, K3b, K3c);
+   and csrc/attention.cu (K3a and the flash backward);
 3. kernels against their plain PyTorch versions on the card.
    dRMSD (K1a, K1b, K1c), ~70% of atoms valid and one protein all masked,
    at B=8 x N = 600, 768, 3584, 7000 and at the training step's B=16 x
@@ -84,18 +84,20 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    the checkpoint restored bit for bit; then ``main`` again with -e 3 on
    the same directory, which must resume from 'best' at epoch 2 and
    finish. Prints ms per train step and residues/s of the second epoch;
-8. flash attention (K3a forward, K3b dK/dV, K3c dQ) against its plain
-   version on the card, on the model's head-split views, at (B, H, L, D) =
-   (8, 8, 256, 64), (16, 8, 256, 64), (8, 8, 500, 64), (3, 2, 37, 16),
-   (1, 1, 1, 16), ragged valid lengths and one batch row with no valid key:
-   every row within 2e-5 of plain (fp32 sums in another order; TF32 off),
-   everything finite, dQ, dK and dV within 1e-4 * max(1, max|g|) of
-   autograd through plain, the same bits on a second call. Median times
-   over 25 runs of each kernel, of plain, and of
-   torch.nn.functional.scaled_dot_product_attention with the same boolean
-   mask (forward, and autograd's backward), a yardstick that the port never
-   calls, and at the table's shapes the device-only time of each kernel and
-   of that call; each kernel's bound from this run's valid keys;
+8. flash attention (K3a forward; the backward, dQ, dK and dV in one launch)
+   against its plain version on the card, on the model's head-split views,
+   at (B, H, L, D) = (8, 8, 256, 64), (16, 8, 256, 64), (8, 8, 500, 64),
+   (3, 2, 37, 16), (1, 1, 1, 16), ragged valid lengths and one batch row
+   with no valid key: every row within 2e-5 of plain (fp32 sums in another
+   order; TF32 off), everything finite, dQ, dK and dV within
+   1e-4 * max(1, max|g|) of autograd through plain, of the backward's plain
+   version on the same inputs and of a float64 plain run, the same bits on
+   a second call. Median times over 25 runs of each kernel, of plain, and
+   of torch.nn.functional.scaled_dot_product_attention with the same
+   boolean mask (forward, and autograd's one backward), a yardstick that
+   the port never calls, and at the table's shapes the device-only time of
+   each kernel and of that call; each kernel's bound from this run's valid
+   keys;
 9. predict at the flagship width: one CLI epoch with --attention_impl flash
    (every eval step launches K3a 6 times, the dropout-0.1 train steps
    never), the output head then set to seeded random weights so that the
@@ -108,9 +110,9 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    magnify the angle error; 1e-3 A does not hold at L=256); ms per batch
    and residues/s of both, from interleaved timed batches;
 10. flash training at the same width: -do 0 --attention_impl flash, per
-   step K3a 6, K3b 6, K3c 6 (and the delta pre-pass 6), K1b 2, K2a 1,
-   K2b 1; ms per step of both arms, interleaved; one step from identical
-   weights against the materialised branch, loss within 1e-4 relative.
+   step K3a 6, the flash backward 6, K1b 2, K2a 1, K2b 1; ms per step of
+   both arms, interleaved; one step from identical weights against the
+   materialised branch, loss within 1e-4 relative.
    Under the MSE loss every parameter's gradient within 1e-3 of its largest
    entry, the hidden units whose ReLU differs between the arms left out (the
    arms' activations differ by fp32 rounding, and a unit that flips for one
@@ -236,12 +238,12 @@ PEAK_SPECIAL_PER_S = 132 * 16 * 1.98e9
 FLOPS_PER_PAIR = {"drmsd_fwd": 25, "drmsd_fwd_grad": 36, "drmsd_grad_b": 34}
 # special-function operations per valid pair (K3: per weighted (query, key)
 # pair): K1's two rsqrt; K4a one sqrtf, K4b two rsqrt, K4c a sqrtf and an
-# rsqrt; one expf per pair in each K3 kernel (the forward's P, the
-# backward's recomputed P).
+# rsqrt; one expf per pair in the forward (P) and in the backward (the
+# recomputed P).
 SPECIAL_PER_PAIR = {"drmsd_fwd": 2, "drmsd_fwd_grad": 2, "drmsd_grad_b": 2,
                     "drmsd_fwd_sqrt1": 1, "drmsd_fwd_mxu": 2,
                     "drmsd_grad_a_mxu": 2, "flash_attn_fwd": 1,
-                    "flash_attn_bwd_dkv": 1, "flash_attn_bwd_dq": 1}
+                    "flash_attn_bwd": 1}
 # The variants, per valid pair: (fp32 operations outside the tensor cores,
 # operations of the matrix products as mathematics has them, 2 x 3 per
 # 3-deep or 3-wide product entry, not the padded or split ones). K4a: two
@@ -267,13 +269,15 @@ FLOPS_PER_SLOT = {"sidechain_fwd": 83, "sidechain_bwd": 216}
 # and their cotangent (336) with the same tables and anchor (256), and writes
 # 48 + 12 + 40.
 SIDECHAIN_BYTES = {"sidechain_fwd": 304 + 168, "sidechain_bwd": 592 + 100}
-# fp32 operations per (query, key) pair that carries weight, in units of the
-# head dimension D: K3a the two products S = Q K^T and P V (2 D each); K3b
-# recomputes S, takes dP = dO V^T and adds dV and dK (8 D); K3c S, dP and dQ
-# (6 D). The exp, the maxima and the sums per pair are left out (~10 against
-# 256 at D=64).
-ATTENTION_FLOPS_PER_PAIR = {"flash_attn_fwd": 4, "flash_attn_bwd_dkv": 8,
-                            "flash_attn_bwd_dq": 6}
+# operations per (query, key) pair that carries weight, in units of the head
+# dimension D: (fp32 on the CUDA cores, products on the tensor cores as
+# mathematics has them, not the split ones). K3a: S = Q K^T and P V in fp32
+# FMAs (2 D each). The backward: S, dP = dO V^T, dV, dK and dQ on the tensor
+# cores (2 D each), counted once though each of its two roles recomputes S
+# and dP. The exp, the maxima and the sums per pair are left out (~10
+# against 256 at D=64).
+ATTENTION_FLOPS_PER_PAIR = {"flash_attn_fwd": (4, 0),
+                            "flash_attn_bwd": (0, 10)}
 
 
 def require(ok: bool, what: str) -> None:
@@ -786,9 +790,7 @@ COUNTERS = {"drmsd_fwd": D.drmsd_stats_cuda,
             "sidechain_fwd": S.sidechain_fwd_cuda,
             "sidechain_bwd": S.sidechain_bwd_cuda,
             "flash_attn_fwd": A.flash_attn_fwd_cuda,
-            "flash_attn_bwd_dkv": A.flash_attn_bwd_dkv_cuda,
-            "flash_attn_bwd_dq": A.flash_attn_bwd_dq_cuda,
-            "attention_delta": A.attention_delta_cuda,
+            "flash_attn_bwd": A.flash_attn_bwd_cuda,
             "drmsd_fwd_sqrt1": V.drmsd_stats_sqrt1_cuda,
             "drmsd_fwd_mxu": V.drmsd_stats_mxu_cuda,
             "drmsd_grad_a_mxu": V.drmsd_grad_a_mxu_cuda}
@@ -1217,9 +1219,10 @@ def attention_grads(q, k, v, valid, d_out, scale, impl):
 
 
 def attention_case(dev, card, rng, shape):
-    """K3a, K3b and K3c against the plain version on one (B, H, L, D) case;
-    returns {kernel: (max abs error, kernel ms, plain ms, bound ms, what
-    bounds it, library ms, device ms or None, library device ms or None)}."""
+    """K3a and the backward against the plain version on one (B, H, L, D)
+    case; returns {kernel: (max abs error, kernel ms, plain ms, bound ms,
+    what bounds it, library ms, device ms or None, library device ms or
+    None)}."""
     bsz, heads, length, dim = shape
     where = f"B={bsz} H={heads} L={length} D={dim}"
     # q three times wider than k: scores of standard deviation 3, a softmax
@@ -1236,28 +1239,42 @@ def attention_case(dev, card, rng, shape):
 
     got, k_grads = attention_grads(q, k, v, valid, d_out, scale, "cuda")
     want, p_grads = attention_grads(q, k, v, valid, d_out, scale, "torch")
+    _, f64_grads = attention_grads(q.double(), k.double(), v.double(), valid,
+                                   d_out.double(), scale, "torch")
+    _, m, l = A.flash_attn_fwd_cuda(q, k, v, valid, scale, with_stats=True)
+    bwd_args = (q, k, v, valid, d_out, got, m, l, scale)
+    b_grads = A.flash_attn_bwd_cuda(*bwd_args)
+    b_plain = A.flash_attn_bwd_torch(*bwd_args)
     torch.cuda.synchronize()
     require(torch.isfinite(got).all().item()
-            and all(torch.isfinite(g).all().item() for g in k_grads),
+            and all(torch.isfinite(g).all().item()
+                    for g in (*k_grads, *b_grads)),
             f"values and gradients finite, the all-pad row included, {where}")
     err = float((got - want).abs().max())
     require(err <= 2e-5, f"K3a within 2e-5 of plain on every row "
                          f"({err:.3e}), {where}")
-    g_errs = [grad_err(g, p, f"K3 d/d{name}, {where}")
+    g_errs = [grad_err(g, p, f"K3 d/d{name} against autograd through plain, "
+                             f"{where}")
               for name, g, p in zip("qkv", k_grads, p_grads)]
+    b_errs = [grad_err(g, p, f"backward d/d{name} against its plain version, "
+                             f"{where}")
+              for name, g, p in zip("qkv", b_grads, b_plain)]
+    f64_errs = [grad_err(g.double(), p, f"K3 d/d{name} against float64 "
+                                        f"plain, {where}")
+                for name, g, p in zip("qkv", k_grads, f64_grads)]
     got2, k_grads2 = attention_grads(q, k, v, valid, d_out, scale, "cuda")
     with torch.no_grad():
         got3 = A.flash_self_attention(q, k, v, valid, sm_scale=scale)
+    b_grads2 = A.flash_attn_bwd_cuda(*bwd_args)
     require(torch.equal(got2, got) and torch.equal(got3, got)
-            and all(torch.equal(a, b) for a, b in zip(k_grads2, k_grads)),
+            and all(torch.equal(a, b) for a, b in zip(k_grads2, k_grads))
+            and all(torch.equal(a, b) for a, b in zip(b_grads2, b_grads)),
             f"a second call gives the same bits, {where}")
 
     # times: each kernel's wrapper, autograd through plain, and the library
     # call with the same boolean mask
     sdpa = torch.nn.functional.scaled_dot_product_attention
     key_mask = valid[:, None, None, :]
-    _, m, l = A.flash_attn_fwd_cuda(q, k, v, valid, scale, with_stats=True)
-    delta = A.attention_delta_cuda(got, d_out)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     plain_out = A.flash_self_attention_torch(*leaves, valid, sm_scale=scale)
     lib_out = sdpa(*leaves, attn_mask=key_mask, scale=scale)
@@ -1268,8 +1285,8 @@ def attention_case(dev, card, rng, shape):
                 return fn()
         return run
 
-    def backward(out, wanted):
-        return lambda: torch.autograd.grad(out, wanted, d_out,
+    def backward(out):
+        return lambda: torch.autograd.grad(out, leaves, d_out,
                                            retain_graph=True)
 
     times = {
@@ -1279,17 +1296,10 @@ def attention_case(dev, card, rng, shape):
                 q, k, v, valid, sm_scale=scale))),
             cuda_ms(no_grad(lambda: sdpa(q, k, v, attn_mask=key_mask,
                                          scale=scale)))),
-        "flash_attn_bwd_dkv": (
-            cuda_ms(lambda: A.flash_attn_bwd_dkv_cuda(
-                q, k, v, valid, d_out, m, l, delta, scale)),
-            cuda_ms(backward(plain_out, leaves[1:])),
-            cuda_ms(backward(lib_out, leaves[1:]))),
-        "flash_attn_bwd_dq": (
-            cuda_ms(lambda: A.flash_attn_bwd_dq_cuda(
-                q, k, v, valid, d_out, m, l, delta, scale)),
-            cuda_ms(backward(plain_out, leaves[:1])),
-            cuda_ms(backward(lib_out, leaves[:1])))}
-    delta_ms = cuda_ms(lambda: A.attention_delta_cuda(got, d_out))
+        "flash_attn_bwd": (
+            cuda_ms(lambda: A.flash_attn_bwd_cuda(*bwd_args)),
+            cuda_ms(backward(plain_out)),
+            cuda_ms(backward(lib_out)))}
     pair = [cuda_ms(lambda: attention_grads(q, k, v, valid, d_out, scale,
                                             impl)) for impl in ("cuda",
                                                                 "torch")]
@@ -1299,42 +1309,45 @@ def attention_case(dev, card, rng, shape):
     pairs = heads * length * int(keys.sum())
     tensor = 4 * bsz * heads * length * dim   # bytes of one (B, H, L, D)
     stats = 4 * bsz * heads * length          # bytes of one (B, H, L)
+    # the forward reads q, k, v and writes O; the backward reads q, k, v,
+    # dO, O, m and l and writes dQ, dK and dV; both read the mask
     n_bytes = {"flash_attn_fwd": 4 * tensor + bsz * length,
-               "flash_attn_bwd_dkv": 6 * tensor + 3 * stats + bsz * length,
-               "flash_attn_bwd_dq": 5 * tensor + 3 * stats + bsz * length}
-    errs = {"flash_attn_fwd": err, "flash_attn_bwd_dkv": max(g_errs[1:]),
-            "flash_attn_bwd_dq": g_errs[0]}
+               "flash_attn_bwd": 8 * tensor + 2 * stats + bsz * length}
+    errs = {"flash_attn_fwd": err, "flash_attn_bwd": max(b_errs)}
     dev_ms = lib_dev_ms = dict.fromkeys(times)
     if shape in (ATTENTION_PREDICT_CASE, ATTENTION_TRAIN_CASE):
         dev_ms = {
             "flash_attn_fwd": device_ms(lambda: A.flash_attn_fwd_cuda(
                 q, k, v, valid, scale)),
-            "flash_attn_bwd_dkv": device_ms(lambda: A.flash_attn_bwd_dkv_cuda(
-                q, k, v, valid, d_out, m, l, delta, scale)),
-            "flash_attn_bwd_dq": device_ms(lambda: A.flash_attn_bwd_dq_cuda(
-                q, k, v, valid, d_out, m, l, delta, scale))}
-        # the library call's device time: its forward, and autograd's
-        # backward through it (one backward gives dQ, dK and dV alike)
+            "flash_attn_bwd": device_ms(
+                lambda: A.flash_attn_bwd_cuda(*bwd_args))}
+        # the library call's device time: its forward, and autograd's one
+        # backward through it (dQ, dK and dV)
         lib_dev_ms = {
             "flash_attn_fwd": device_ms(no_grad(lambda: sdpa(
                 q, k, v, attn_mask=key_mask, scale=scale))),
-            "flash_attn_bwd_dkv": device_ms(backward(lib_out, leaves[1:])),
-            "flash_attn_bwd_dq": device_ms(backward(lib_out, leaves[:1]))}
-    out = {name: (errs[name], t[0], t[1],
-                  *bound(n_bytes[name],
-                         ATTENTION_FLOPS_PER_PAIR[name] * dim * pairs,
-                         special=SPECIAL_PER_PAIR[name] * pairs), t[2],
-                  dev_ms[name], lib_dev_ms[name])
-           for name, t in times.items()}
+            "flash_attn_bwd": device_ms(backward(lib_out))}
+    out = {}
+    for name, t in times.items():
+        fp32_d, tensor_d = ATTENTION_FLOPS_PER_PAIR[name]
+        out[name] = (errs[name], t[0], t[1],
+                     *bound(n_bytes[name], fp32_d * dim * pairs,
+                            tensor_d * dim * pairs,
+                            special=SPECIAL_PER_PAIR[name] * pairs),
+                     t[2], dev_ms[name], lib_dev_ms[name])
     print(f"[kernel] attention {where}: |d O| {err:.3e}, |d dQ| "
           f"{g_errs[0]:.3e}, |d dK| {g_errs[1]:.3e}, |d dV| {g_errs[2]:.3e} "
-          f"(max|g| {max(float(g.abs().max()) for g in p_grads):.3e}), all "
-          f"finite, same bits twice; kernel vs plain vs library ms: "
+          f"(max|g| {max(float(g.abs().max()) for g in p_grads):.3e}); the "
+          f"backward against its plain version on the same inputs "
+          + ", ".join(f"{e:.3e}" for e in b_errs)
+          + ", and from a float64 plain run "
+          + ", ".join(f"{e:.3e}" for e in f64_errs)
+          + " (dQ, dK, dV); all finite, same bits twice; kernel vs plain vs "
+          "library ms: "
           + ", ".join(f"{name} {v[1]:.4f} vs {v[2]:.4f} vs {v[5]:.4f}"
                       for name, v in out.items())
-          + f"; delta pre-pass {delta_ms:.4f}; forward + backward through "
-          f"autograd {pair[0]:.4f} vs plain {pair[1]:.4f}; {pairs} weighted "
-          f"pairs, bounds in ms: "
+          + f"; forward + backward through autograd {pair[0]:.4f} vs plain "
+          f"{pair[1]:.4f}; {pairs} weighted pairs, bounds in ms: "
           + ", ".join(f"{name} {v[3]:.5f} by {v[4]}"
                       for name, v in out.items())
           + device_only({name: v[6] for name, v in out.items()})
@@ -1528,9 +1541,7 @@ def phase_flash_train(dev, card, out_dir):
     launches = read_launches()
     expected = launched(drmsd_fwd_grad=2 * steps, sidechain_fwd=steps,
                         sidechain_bwd=steps, flash_attn_fwd=6 * steps,
-                        flash_attn_bwd_dkv=6 * steps,
-                        flash_attn_bwd_dq=6 * steps,
-                        attention_delta=6 * steps)
+                        flash_attn_bwd=6 * steps)
     require(steps >= 4 and launches == expected,
             f"flash training launches {launches}: expected {expected} for "
             f"{steps} steps")
@@ -1893,10 +1904,11 @@ def main() -> int:
     for name, line, case, launches in (
             ("flash_attn_fwd", 331, ATTENTION_PREDICT_CASE,
              predict_launches["flash_attn_fwd"]),
-            ("flash_attn_bwd_dkv", 796, ATTENTION_TRAIN_CASE,
-             flash_launches["flash_attn_bwd_dkv"]),
-            ("flash_attn_bwd_dq", 1146, ATTENTION_TRAIN_CASE,
-             flash_launches["flash_attn_bwd_dq"])):
+            # the backward replaces the dK/dV and the dQ bodies together
+            ("flash_attn_bwd", 796, ATTENTION_TRAIN_CASE,
+             flash_launches["flash_attn_bwd"]),
+            ("flash_attn_bwd", 1146, ATTENTION_TRAIN_CASE,
+             flash_launches["flash_attn_bwd"])):
         _, k_ms, p_ms, b_ms, b_by, lib_ms, d_ms, lib_d_ms = \
             attn_table[case][name]
         rows.append({"name": name, "route": "cuda",

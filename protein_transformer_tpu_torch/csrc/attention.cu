@@ -1,13 +1,12 @@
-// Flash self-attention over a key-padding mask: forward (K3a) and the two
-// backward passes (K3b: dK and dV, K3c: dQ), with a row pre-pass for
-// delta_i = sum_d dO[i][d] O[i][d].
+// Flash self-attention over a key-padding mask: the forward (K3a) and the
+// backward (dQ, dK and dV in one launch).
 //
 // Replaces the TPU flash kernels that
 // protein_transformer_tpu/ops/attention.py::flash_self_attention reaches in
 // jax/experimental/pallas/ops/tpu/flash_attention.py
-// (_flash_attention_kernel, _flash_attention_dkv_kernel,
-// _flash_attention_dq_kernel). What it computes, per batch row b and head h,
-// with s_ij = scale * q_i . k_j:
+// (_flash_attention_kernel; _flash_attention_dkv_kernel and
+// _flash_attention_dq_kernel together). What it computes, per batch row b
+// and head h, with s_ij = scale * q_i . k_j:
 //
 //     key j valid:   score s_ij
 //     key j masked:  score -FLT_MAX (the largest negative fp32 value, finite)
@@ -25,49 +24,92 @@
 //
 // The probabilities never reach device memory. The forward keeps a running
 // maximum m and a running sum l per query row and can write both, (B, H, L)
-// each; the backward passes recompute P = exp(s - m) / l tile by tile. m and
-// l are kept apart, not folded into one logsumexp: for a row with no valid
-// key m = -FLT_MAX swallows log(l), and exp(s - lse) would be 1, not 1/L.
-// The gradient is that of the masked softmax: dS = P o (dP - delta) on valid
+// each; the backward recomputes P = exp(s - m) / l tile by tile. m and l are
+// kept apart, not folded into one logsumexp: for a row with no valid key
+// m = -FLT_MAX swallows log(l), and exp(s - lse) would be 1, not 1/L. The
+// gradient is that of the masked softmax: dS = P o (dP - delta) on valid
 // keys and 0 on masked ones (a constant score passes no gradient), dP = dO
-// V^T, dV = P^T dO, dK = scale * dS^T Q, dQ = scale * dS K.
+// V^T, delta_i = sum_d dO[i][d] O[i][d], dV = P^T dO, dK = scale * dS^T Q,
+// dQ = scale * dS K.
 //
-// What bounds it on Hopper: fp32 operations. At B=8, H=8, L=256, D=64 the
-// forward is 4 B H L^2 D = 1.07 GFLOP against 17 MB moved: 16 us at the
-// card's 67 TFLOP/s outside the tensor cores, 5 us by bytes. The products
-// are fp32 FMAs, not tensor-core operations, to hold the model's 2e-5
-// forward gate; exp is expf (never __expf: ~2 ulp more error on every
-// probability, over six layers).
-//
-// Design:
-//   * one block of 256 threads (16 x 16) owns 64 query rows (forward, dQ) or
-//     64 key rows (dK/dV) of one (b, h) and loops over 64-row tiles of the
-//     other axis, where the TPU grid ran sequentially over key blocks.
-//     Every output element is written by exactly one block, its sum taken in
-//     a fixed order: no atomics, the same bits on every call.
+// The forward (K3a): fp32 FMAs on the CUDA cores, 4 L^2 D operations a (b, h)
+// (1.07 GFLOP at B=8, H=8, L=256, D=64: 16 us at 67 TFLOP/s, 5 us by bytes).
+// exp is expf (never __expf: ~2 ulp more error on every probability, over
+// six layers).
+//   * one block of 256 threads (16 x 16) owns 64 query rows of one (b, h)
+//     and loops over 64-row key tiles, where the TPU grid ran sequentially
+//     over key blocks; no atomics, the same bits on every call.
 //   * tiles sit row-major in shared memory with a row stride of D + 4
-//     floats. For a product over the head dimension, C[r][c] = A[r] . B[c],
-//     thread (ty, tx) holds rows 4 ty .. 4 ty + 3 and the strided columns
-//     tx, tx + 16, tx + 32, tx + 48: the A rows are broadcasts within a
-//     half-warp, and the B rows of neighbouring threads are D + 4 floats
-//     apart, so their 16-byte loads fall in distinct banks. Each thread does
-//     a 4 x 4 register tile: 8 vector loads for 64 FMAs.
-//   * the 64 x 64 tile of P (or dS) goes through shared memory once (stride
-//     68), and the second product, out[r][:] += sum_j P[r][j] V[j][:], reads
-//     P as broadcasts and V's row j as neighbouring vectors: each thread
-//     holds 4 rows x D/16 columns of the output in registers.
-//   * row maxima and sums are reduced over the 16 threads of a row group by
-//     shuffles, in a fixed tree.
-//   * q, k, v, o and the gradients are addressed by strides (batch, head,
-//     row; elements of a row adjacent), so the (B, L, H, D) memory of the
-//     model's head split is read and written in place, without a copy.
-//   * shared memory is dynamic: 70 KB (forward), 87 KB (dQ), 104 KB (dK/dV)
-//     at D=64; 119, 152 and 170 KB at D=128. D is one of 16, 32, 64, 128.
+//     floats. For C[r][c] = A[r] . B[c] thread (ty, tx) holds rows 4 ty ..
+//     4 ty + 3 and the strided columns tx, tx + 16, tx + 32, tx + 48: the A
+//     rows are broadcasts within a half-warp, the B rows of neighbouring
+//     threads D + 4 floats apart, so their 16-byte loads fall in distinct
+//     banks: 8 vector loads for 64 FMAs.
+//   * the 64 x 64 tile of P goes through shared memory once (stride 68) for
+//     O += P V; row maxima and sums are reduced over the 16 threads of a row
+//     group by shuffles, in a fixed tree.
+//
+// The backward: one launch, two roles, products on the tensor cores.
+//   * grid (kv_blocks + q_blocks, B * H) of 128-thread blocks (four warps, a
+//     warp owning 16 rows of 64). A dK/dV block owns 64 key rows, loops over
+//     every query tile and keeps dK and dV in registers; a dQ block owns 64
+//     query rows, loops over the key tiles and keeps dQ. A role that is not
+//     wanted has no blocks. Each role recomputes S and dP (2 x 2D operations
+//     a pair each): 14 D a pair in all, against 10 D for one pass that would
+//     need dQ partials summed by a second pass. Every output element is
+//     written by one block, its sums taken in a fixed order: no atomics, the
+//     same bits on every call. delta is taken inside, from O and dO as a tile
+//     is staged, by the same code in both roles: no pre-pass, no (B, H, L)
+//     buffer.
+//   * the five products (S = Q K^T, dP = dO V^T, dV = P^T dO, dK = dS^T Q,
+//     dQ = dS K) are mma.sync m16n8k8 in TF32 with every operand split into a
+//     TF32 head and remainder, three products a tile (mma_tf32.cuh): the
+//     sums keep ~21 bits, fp32-grade (64-deep scores within ~2e-7 of the
+//     largest from float64, where one TF32 product misses by ~3e-4), which
+//     holds the gradients' 1e-4 gate. That is 3 x 2 operations a
+//     multiply-add on the tensor cores where an FMA was 2 on the CUDA cores
+//     (67 TFLOP/s). K3a keeps its FMAs: it is 4 D a pair, already ahead of
+//     the library's forward, and its 2e-5 gate is the model's.
+//   * what bounds it: bytes, by the count (q, k, v, dO, O read once, dQ, dK,
+//     dV written once, m, l and the mask: 20 us at (16, 8, 256, 64)); what
+//     holds it back is the 14 D a pair times three mma.sync, fed by 32-bit
+//     shared-memory loads of the right operands, at two blocks (eight warps)
+//     an SM (PERF.md, section 6).
+//   * a staged tile of the looped axis is split once as it lands and stored
+//     as head and rest (the right operands, read by all four warps); the
+//     block's own two tiles stay fp32 and are split as a warp loads its left
+//     operand, once a k-step for 8 products. S and dP leave the accumulators
+//     straight into the next product: their 8 columns are the contraction,
+//     so column 2t is taken as k = t and 2t + 1 as k = t + 4, which is the
+//     register mma.sync reads, and the right operand's rows follow that order
+//     (no shared-memory round trip for P or dS). Row stride D + 4 = 4 mod 32
+//     words: every fragment load of a warp hits 32 banks.
+//   * key tiles without a valid key are skipped. A dQ block skips them in
+//     every batch row (dS is zero on masked keys). A dK/dV block whose tile
+//     has none, in a row that has a valid key, writes zeros to its rows (the
+//     outputs are torch.empty) and returns; in a row with no valid key every
+//     key weighs 1/L, so the block walks every query tile and dV is the mean
+//     of dO. Query tiles are never skipped: a pad query row attends like any
+//     other.
+//   * shared memory: 6 tiles [64][D + 4] of 4-byte words and 64 rows of
+//     statistics: 31, 55, 103 and 199 KB at D = 16, 32, 64 and 128 (two
+//     blocks an SM at D = 64). At D = 128 a pass covers 32 rows of the
+//     staged tile, so that the dK/dV role's accumulators stay in registers.
+//
+// q, k, v, o and the gradients are addressed by strides (batch, head, row;
+// elements of a row adjacent), so the (B, L, H, D) memory of the model's
+// head split is read and written in place. D is one of 16, 32, 64, 128; the
+// forward's shared memory is 70 KB at D=64 and 119 KB at D=128.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cfloat>
+#include <cstdint>
+
+#include "mma_tf32.cuh"
+
+using namespace tf32;
 
 namespace {
 
@@ -75,7 +117,7 @@ constexpr int kTile = 64;             // query rows and key rows per tile
 constexpr int kGroup = 16;            // threads per row group
 constexpr int kThreads = kGroup * kGroup;
 constexpr int kRows = kTile / kGroup;  // rows (and strided columns) a thread
-constexpr int kPStride = kTile + 4;   // row stride of the P / dS tile
+constexpr int kPStride = kTile + 4;   // row stride of the forward's P tile
 
 constexpr unsigned char kKeyMasked = 0;
 constexpr unsigned char kKeyValid = 1;
@@ -257,15 +299,6 @@ template <int D>
 constexpr int fwd_smem_bytes() {
   return (3 * kTile * (D + 4) + kTile * kPStride) * 4 + kTile;
 }
-template <int D>
-constexpr int dq_smem_bytes() {
-  return (4 * kTile * (D + 4) + kTile * kPStride) * 4 + kTile;
-}
-template <int D>
-constexpr int dkv_smem_bytes() {
-  return (4 * kTile * (D + 4) + 2 * kTile * kPStride + 3 * kTile) * 4;
-}
-
 // K3a. Grid (ceil(L / 64), B * H). m_out and l_out may be null.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -358,202 +391,386 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// delta[b, h, i] = sum_d dO[i][d] * O[i][d]: one thread per row.
-__global__ void attn_delta_kernel(const float* __restrict__ o,
-                                  const float* __restrict__ d_o,
-                                  float* __restrict__ delta, int n_heads,
-                                  int length, int head_dim, long long n_rows,
-                                  Strides so, Strides sdo) {
-  const long long r = static_cast<long long>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-  if (r >= n_rows) return;
-  const int i = static_cast<int>(r % length);
-  const long long bh = r / length;
-  const int h = static_cast<int>(bh % n_heads);
-  const long long b = bh / n_heads;
-  const float* o_row = o + b * so.b + h * so.h + i * so.l;
-  const float* do_row = d_o + b * sdo.b + h * sdo.h + i * sdo.l;
-  float sum = 0.0f;
-  for (int d = 0; d < head_dim; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(o_row + d);
-    const float4 y = *reinterpret_cast<const float4*>(do_row + d);
-    sum = fmaf(x.x, y.x, sum);
-    sum = fmaf(x.y, y.y, sum);
-    sum = fmaf(x.z, y.z, sum);
-    sum = fmaf(x.w, y.w, sum);
-  }
-  delta[r] = sum;
+// ---------------------------------------------------------- the backward
+
+// Four warps a block; a warp owns 16 rows of the block's 64.
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+
+// Rows of the staged tile that one pass covers: all 64 up to D = 64, 32 at
+// D = 128, so that the dK/dV role's four accumulators stay in registers.
+template <int D>
+constexpr int kBwdChunk = D <= 64 ? kTile : kTile / 2;
+
+// Two fp32 tiles [64][D + 4] (the block's own rows), the TF32 head and rest
+// of two staged tiles [64][D + 4], m, 1 / l and delta of 64 query rows, and
+// 64 key flags.
+template <int D>
+constexpr int bwd_smem_bytes() {
+  return (6 * kTile * (D + 4) + 3 * kTile) * 4 + kTile;
 }
 
-// K3c. dQ of 64 query rows; grid (ceil(L / 64), B * H).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dq_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const unsigned char* __restrict__ valid,
-                         const float* __restrict__ d_o,
-                         const float* __restrict__ m_in,
-                         const float* __restrict__ l_in,
-                         const float* __restrict__ delta,
-                         float* __restrict__ d_q, int n_heads, int length,
-                         float scale, Strides sq, Strides sk, Strides sv,
-                         Strides sdo, Strides sdq) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int DP = D + 4;
-  constexpr int DC = D / kGroup;
-  float* q_s = smem;
-  float* do_s = q_s + kTile * DP;
-  float* k_s = do_s + kTile * DP;
-  float* v_s = k_s + kTile * DP;
-  float* ds_s = v_s + kTile * DP;
-  unsigned char* flag_s = reinterpret_cast<unsigned char*>(ds_s
-                                                           + kTile * kPStride);
-  const int tid = threadIdx.x, ty = tid / kGroup, tx = tid % kGroup;
-  const int b = blockIdx.y / n_heads, h = blockIdx.y % n_heads;
-  const int q0 = blockIdx.x * kTile;
-  const float* k_bh = k + b * sk.b + h * sk.h;
-  const float* v_bh = v + b * sv.b + h * sv.h;
+struct BwdArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  const unsigned char* valid;
+  const float* d_o;
+  const float* o;
+  const float* m;
+  const float* l;
+  float* d_q;
+  float* d_k;
+  float* d_v;
+  Strides sq, sk, sv, sdo, so, sdq, sdk, sdv;
+  int n_heads, length;
+  int kv_blocks;  // blocks 0 .. kv_blocks - 1 take the dK/dV role
+  float scale;
+};
 
-  load_tile<D>(q_s, q + b * sq.b + h * sq.h, sq.l, q0, length, tid);
-  load_tile<D>(do_s, d_o + b * sdo.b + h * sdo.h, sdo.l, q0, length, tid);
-  // rows beyond L: m = 0 and 1 / l = 0 make every probability 0
-  float m_row[kRows], inv_l[kRows], delta_row[kRows];
-  const long long row0 = static_cast<long long>(blockIdx.y) * length;
+// Rows row0 .. row0 + 63 of a strided (L, D) matrix into a tile [64][D + 4],
+// rows beyond n_rows as zeros: fp32 into `dst`, or split into `head` and
+// `rest` (kSplit). With `o`, also delta[r] = sum_d src[r][d] o[r][d]: the
+// D / 4 threads of a row are adjacent lanes and add their partials in a
+// fixed shuffle tree, so both roles get delta with the same bits.
+template <int D, bool kSplit>
+__device__ __forceinline__ void stage_bwd_tile(
+    float* dst, uint32_t* head, uint32_t* rest, const float* src,
+    long long stride, int row0, int n_rows, const float* o = nullptr,
+    long long o_stride = 0, float* delta = nullptr) {
+  constexpr int kVecs = D / 4;
+  constexpr int S = D + 4;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int idx = threadIdx.x; idx < kTile * kVecs; idx += kBwdThreads) {
+    const int r = idx / kVecs, c = (idx % kVecs) * 4;
+    const bool inside = row0 + r < n_rows;
+    const float4 x = inside ? *reinterpret_cast<const float4*>(
+                                  src + (row0 + r) * stride + c)
+                            : zero;
+    if constexpr (kSplit) {
+      uint4 hd, rs;
+      split_tf32(x.x, &hd.x, &rs.x);
+      split_tf32(x.y, &hd.y, &rs.y);
+      split_tf32(x.z, &hd.z, &rs.z);
+      split_tf32(x.w, &hd.w, &rs.w);
+      *reinterpret_cast<uint4*>(head + r * S + c) = hd;
+      *reinterpret_cast<uint4*>(rest + r * S + c) = rs;
+    } else {
+      *reinterpret_cast<float4*>(dst + r * S + c) = x;
+    }
+    if (o != nullptr) {
+      const float4 y = inside ? *reinterpret_cast<const float4*>(
+                                    o + (row0 + r) * o_stride + c)
+                              : zero;
+      float part = __fmul_rn(x.x, y.x);
+      part = __fmaf_rn(x.y, y.y, part);
+      part = __fmaf_rn(x.z, y.z, part);
+      part = __fmaf_rn(x.w, y.w, part);
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + ty * kRows + i;
-    const bool inside = row < length;
-    m_row[i] = inside ? m_in[row0 + row] : 0.0f;
-    inv_l[i] = inside ? 1.0f / l_in[row0 + row] : 0.0f;
-    delta_row[i] = inside ? delta[row0 + row] : 0.0f;
+      for (int off = kVecs / 2; off > 0; off >>= 1)
+        part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, off));
+      if (c == 0) delta[r] = part;
+    }
   }
-  float acc[kRows][DC];
+}
+
+// The left operand (16 x 8 at row0, col0) of an fp32 tile [64][S], split.
+template <int S>
+__device__ __forceinline__ SplitFrag<4> left_split(const float* tile,
+                                                   int row0, int col0, int g,
+                                                   int t) {
+  const float* p = tile + (row0 + g) * S + col0 + t;
+  SplitFrag<4> a;
+  split_tf32(p[0], &a.head[0], &a.rest[0]);
+  split_tf32(p[8 * S], &a.head[1], &a.rest[1]);
+  split_tf32(p[4], &a.head[2], &a.rest[2]);
+  split_tf32(p[8 * S + 4], &a.head[3], &a.rest[3]);
+  return a;
+}
+
+// The right operand of A B^T from a staged tile [64][S] that holds B's
+// columns as rows: (k, n) = (t, g) and (t + 4, g) at tile row n0 + g, column
+// k0 + t. With S = D + 4 = 4 mod 32, a warp's 32 loads hit 32 banks.
+template <int S>
+__device__ __forceinline__ SplitFrag<2> right_t(const uint32_t* head,
+                                                const uint32_t* rest, int n0,
+                                                int k0, int g, int t) {
+  const int i = (n0 + g) * S + k0 + t;
+  return {{head[i], head[i + 4]}, {rest[i], rest[i + 4]}};
+}
+
+// The right operand of A B from a staged tile [64][S] that holds B's rows,
+// in the column order of acc_as_left: k = t is tile row k0 + 2t, k = t + 4
+// is row k0 + 2t + 1 (banks 8t + g: again all 32).
+template <int S>
+__device__ __forceinline__ SplitFrag<2> right_perm(const uint32_t* head,
+                                                   const uint32_t* rest,
+                                                   int k0, int n0, int g,
+                                                   int t) {
+  const int i = (k0 + 2 * t) * S + n0 + g;
+  return {{head[i], head[i + S]}, {rest[i], rest[i + S]}};
+}
+
+// An accumulator tile (16 x 8; a thread holds (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1)) as the left operand of the next product,
+// split. The contraction runs over its 8 columns, so their order is free:
+// column 2t becomes k = t and column 2t + 1 becomes k = t + 4, which puts
+// every value in the register of its own thread that mma.sync reads.
+__device__ __forceinline__ SplitFrag<4> acc_as_left(const float (&c)[4]) {
+  SplitFrag<4> a;
+  split_tf32(c[0], &a.head[0], &a.rest[0]);
+  split_tf32(c[2], &a.head[1], &a.rest[1]);
+  split_tf32(c[1], &a.head[2], &a.rest[2]);
+  split_tf32(c[3], &a.head[3], &a.rest[3]);
+  return a;
+}
+
+// The dQ role: 64 query rows of one (b, h); loops over the key tiles that
+// hold a valid key (a tile without one adds nothing: dS is zero on masked
+// keys, in every batch row).
+template <int D>
+__device__ __forceinline__ void bwd_dq_role(const BwdArgs& a, float* smem,
+                                            int tile) {
+  constexpr int S = D + 4, NT = kBwdChunk<D> / 8, DT = D / 8;
+  float* q_s = smem;
+  float* do_s = q_s + kTile * S;
+  uint32_t* k_head = reinterpret_cast<uint32_t*>(do_s + kTile * S);
+  uint32_t* k_rest = k_head + kTile * S;
+  uint32_t* v_head = k_rest + kTile * S;
+  uint32_t* v_rest = v_head + kTile * S;
+  float* m_s = reinterpret_cast<float*>(v_rest + kTile * S);
+  float* inv_l_s = m_s + kTile;
+  float* delta_s = inv_l_s + kTile;
+  unsigned char* flag_s = reinterpret_cast<unsigned char*>(delta_s + kTile);
+  const int tid = threadIdx.x, g = tid % 32 / 4, t = tid % 4;
+  const int wrow = tid / 32 * 16;  // the warp's first row in the tile
+  const int bh = blockIdx.y, b = bh / a.n_heads, h = bh % a.n_heads;
+  const int length = a.length, q0 = tile * kTile;
+  const float* k_bh = a.k + b * a.sk.b + h * a.sk.h;
+  const float* v_bh = a.v + b * a.sv.b + h * a.sv.h;
+
+  stage_bwd_tile<D, false>(q_s, nullptr, nullptr,
+                           a.q + b * a.sq.b + h * a.sq.h, a.sq.l, q0, length);
+  stage_bwd_tile<D, false>(do_s, nullptr, nullptr,
+                           a.d_o + b * a.sdo.b + h * a.sdo.h, a.sdo.l, q0,
+                           length, a.o + b * a.so.b + h * a.so.h, a.so.l,
+                           delta_s);
+  if (tid < kTile) {
+    // rows beyond L: m = 0 and 1 / l = 0 make every probability 0
+    const bool inside = q0 + tid < length;
+    const long long i = static_cast<long long>(bh) * length + q0 + tid;
+    m_s[tid] = inside ? a.m[i] : 0.f;
+    inv_l_s[tid] = inside ? 1.f / a.l[i] : 0.f;
+  }
+  __syncthreads();
+  float m_row[2], inv_l[2], delta_row[2];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.0f;
+  for (int i = 0; i < 2; ++i) {
+    const int r = wrow + g + 8 * i;
+    m_row[i] = m_s[r];
+    inv_l[i] = inv_l_s[r];
+    delta_row[i] = delta_s[r];
+  }
+  float acc[DT][4] = {};
 
   for (int k0 = 0; k0 < length; k0 += kTile) {
-    load_tile<D>(k_s, k_bh, sk.l, k0, length, tid);
-    load_tile<D>(v_s, v_bh, sv.l, k0, length, tid);
-    if (tid < kTile) flag_s[tid] = key_flag(valid, b, length, k0 + tid);
+    unsigned char flag = kKeyOutside;
+    if (tid < kTile) {
+      flag = key_flag(a.valid, b, length, k0 + tid);
+      flag_s[tid] = flag;
+    }
+    if (!__syncthreads_or(flag == kKeyValid)) continue;
+    stage_bwd_tile<D, true>(nullptr, k_head, k_rest, k_bh, a.sk.l, k0,
+                            length);
+    stage_bwd_tile<D, true>(nullptr, v_head, v_rest, v_bh, a.sv.l, k0,
+                            length);
     __syncthreads();
-
-    float s[kRows][kRows], dp[kRows][kRows];
-    tile_dot<D>(q_s, k_s, ty, tx, s);
-    tile_dot<D>(do_s, v_s, ty, tx, dp);
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += 8 * NT) {
+      float s[NT][4] = {}, dp[NT][4] = {};
+#pragma unroll 2
+      for (int kk = 0; kk < D; kk += 8) {
+        const SplitFrag<4> aq = left_split<S>(q_s, wrow, kk, g, t);
+        const SplitFrag<4> ado = left_split<S>(do_s, wrow, kk, g, t);
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const unsigned char f = flag_s[tx + kGroup * j];
+        for (int j = 0; j < NT; ++j) {
+          mma_split(s[j], aq,
+                    right_t<S>(k_head, k_rest, c0 + 8 * j, kk, g, t));
+          mma_split(dp[j], ado,
+                    right_t<S>(v_head, v_rest, c0 + 8 * j, kk, g, t));
+        }
+      }
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = expf(masked_score(s[i][j], scale, f) - m_row[i])
-                        * inv_l[i];
-        ds_s[(ty * kRows + i) * kPStride + tx + kGroup * j] =
-            f == kKeyValid ? p * (dp[i][j] - delta_row[i]) : 0.0f;
+      for (int j = 0; j < NT; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const unsigned char f = flag_s[c0 + 8 * j + 2 * t + (e & 1)];
+          const float p = expf(masked_score(s[j][e], a.scale, f) - m_row[i])
+                          * inv_l[i];
+          ds[e] = f == kKeyValid ? p * (dp[j][e] - delta_row[i]) : 0.0f;
+        }
+        const SplitFrag<4> a_ds = acc_as_left(ds);
+#pragma unroll
+        for (int n = 0; n < DT; ++n)
+          mma_split(acc[n], a_ds,
+                    right_perm<S>(k_head, k_rest, c0 + 8 * j, 8 * n, g, t));
       }
     }
     __syncthreads();
-    tile_accum<D>(ds_s, k_s, ty, tx, acc);
-    __syncthreads();
   }
 
-  float factor[kRows];
+  float* dq_bh = a.d_q + b * a.sdq.b + h * a.sdq.h;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) factor[i] = scale;
-  store_rows<D>(d_q + b * sdq.b + h * sdq.h, sdq.l, q0, length, ty, tx, acc,
-                factor);
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + wrow + g + 8 * i;
+    if (row >= length) continue;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      *reinterpret_cast<float2*>(dq_bh + row * a.sdq.l + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * i] * a.scale, acc[n][2 * i + 1] * a.scale);
+  }
 }
 
-// K3b. dK and dV of 64 key rows; grid (ceil(L / 64), B * H). The score tile
-// is held transposed: rows are keys, strided columns are queries.
+// The dK/dV role: 64 key rows of one (b, h), the score tile held
+// transposed (rows are keys, columns queries); loops over every query tile.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dkv_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const unsigned char* __restrict__ valid,
-                          const float* __restrict__ d_o,
-                          const float* __restrict__ m_in,
-                          const float* __restrict__ l_in,
-                          const float* __restrict__ delta,
-                          float* __restrict__ d_k, float* __restrict__ d_v,
-                          int n_heads, int length, float scale, Strides sq,
-                          Strides sk, Strides sv, Strides sdo, Strides sdk,
-                          Strides sdv) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int DP = D + 4;
-  constexpr int DC = D / kGroup;
+__device__ __forceinline__ void bwd_dkv_role(const BwdArgs& a, float* smem,
+                                             int tile) {
+  constexpr int S = D + 4, NT = kBwdChunk<D> / 8, DT = D / 8;
   float* k_s = smem;
-  float* v_s = k_s + kTile * DP;
-  float* q_s = v_s + kTile * DP;
-  float* do_s = q_s + kTile * DP;
-  float* p_s = do_s + kTile * DP;
-  float* ds_s = p_s + kTile * kPStride;
-  float* m_s = ds_s + kTile * kPStride;
+  float* v_s = k_s + kTile * S;
+  uint32_t* q_head = reinterpret_cast<uint32_t*>(v_s + kTile * S);
+  uint32_t* q_rest = q_head + kTile * S;
+  uint32_t* do_head = q_rest + kTile * S;
+  uint32_t* do_rest = do_head + kTile * S;
+  float* m_s = reinterpret_cast<float*>(do_rest + kTile * S);
   float* inv_l_s = m_s + kTile;
   float* delta_s = inv_l_s + kTile;
-  const int tid = threadIdx.x, ty = tid / kGroup, tx = tid % kGroup;
-  const int b = blockIdx.y / n_heads, h = blockIdx.y % n_heads;
-  const int k0 = blockIdx.x * kTile;
-  const float* q_bh = q + b * sq.b + h * sq.h;
-  const float* do_bh = d_o + b * sdo.b + h * sdo.h;
-  const long long row0 = static_cast<long long>(blockIdx.y) * length;
+  unsigned char* flag_s = reinterpret_cast<unsigned char*>(delta_s + kTile);
+  const int tid = threadIdx.x, g = tid % 32 / 4, t = tid % 4;
+  const int wrow = tid / 32 * 16;
+  const int bh = blockIdx.y, b = bh / a.n_heads, h = bh % a.n_heads;
+  const int length = a.length, k0 = tile * kTile;
+  const float* q_bh = a.q + b * a.sq.b + h * a.sq.h;
+  const float* do_bh = a.d_o + b * a.sdo.b + h * a.sdo.h;
+  const float* o_bh = a.o + b * a.so.b + h * a.so.h;
+  float* dk_bh = a.d_k + b * a.sdk.b + h * a.sdk.h;
+  float* dv_bh = a.d_v + b * a.sdv.b + h * a.sdv.h;
 
-  load_tile<D>(k_s, k + b * sk.b + h * sk.h, sk.l, k0, length, tid);
-  load_tile<D>(v_s, v + b * sv.b + h * sv.h, sv.l, k0, length, tid);
-  unsigned char flag[kRows];
+  // Where the batch row has a valid key and this tile none, no key of the
+  // tile weighs anything: its dK and dV rows are zero. A row with no valid
+  // key at all weighs every key 1/L and walks on.
+  bool row_valid = false;
+  for (int j = tid; j < length; j += kBwdThreads)
+    row_valid |= a.valid[static_cast<long long>(b) * length + j] != 0;
+  unsigned char flag = kKeyOutside;
+  if (tid < kTile) {
+    flag = key_flag(a.valid, b, length, k0 + tid);
+    flag_s[tid] = flag;
+  }
+  const bool tile_valid = __syncthreads_or(flag == kKeyValid);
+  if (__syncthreads_or(row_valid) && !tile_valid) {
+    constexpr int kVecs = D / 4;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int idx = tid; idx < kTile * kVecs; idx += kBwdThreads) {
+      const int row = k0 + idx / kVecs, c = (idx % kVecs) * 4;
+      if (row >= length) continue;
+      *reinterpret_cast<float4*>(dk_bh + row * a.sdk.l + c) = zero;
+      *reinterpret_cast<float4*>(dv_bh + row * a.sdv.l + c) = zero;
+    }
+    return;
+  }
+  stage_bwd_tile<D, false>(k_s, nullptr, nullptr,
+                           a.k + b * a.sk.b + h * a.sk.h, a.sk.l, k0, length);
+  stage_bwd_tile<D, false>(v_s, nullptr, nullptr,
+                           a.v + b * a.sv.b + h * a.sv.h, a.sv.l, k0, length);
+  unsigned char key_f[2];
 #pragma unroll
-  for (int j = 0; j < kRows; ++j)
-    flag[j] = key_flag(valid, b, length, k0 + ty * kRows + j);
-  float acc_k[kRows][DC], acc_v[kRows][DC];
-#pragma unroll
-  for (int j = 0; j < kRows; ++j)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc_k[j][c] = acc_v[j][c] = 0.0f;
+  for (int i = 0; i < 2; ++i) key_f[i] = flag_s[wrow + g + 8 * i];
+  float acc_k[DT][4] = {}, acc_v[DT][4] = {};
 
   for (int q0 = 0; q0 < length; q0 += kTile) {
-    load_tile<D>(q_s, q_bh, sq.l, q0, length, tid);
-    load_tile<D>(do_s, do_bh, sdo.l, q0, length, tid);
+    stage_bwd_tile<D, true>(nullptr, q_head, q_rest, q_bh, a.sq.l, q0,
+                            length);
+    stage_bwd_tile<D, true>(nullptr, do_head, do_rest, do_bh, a.sdo.l, q0,
+                            length, o_bh, a.so.l, delta_s);
     if (tid < kTile) {
       // queries beyond L: m = 0 and 1 / l = 0 make every probability 0
       const bool inside = q0 + tid < length;
-      m_s[tid] = inside ? m_in[row0 + q0 + tid] : 0.0f;
-      inv_l_s[tid] = inside ? 1.0f / l_in[row0 + q0 + tid] : 0.0f;
-      delta_s[tid] = inside ? delta[row0 + q0 + tid] : 0.0f;
+      const long long i = static_cast<long long>(bh) * length + q0 + tid;
+      m_s[tid] = inside ? a.m[i] : 0.f;
+      inv_l_s[tid] = inside ? 1.f / a.l[i] : 0.f;
     }
     __syncthreads();
-
-    float s[kRows][kRows], dp[kRows][kRows];
-    tile_dot<D>(k_s, q_s, ty, tx, s);    // s[j][i] = k_j . q_i
-    tile_dot<D>(v_s, do_s, ty, tx, dp);  // dp[j][i] = v_j . dO_i
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += 8 * NT) {
+      float s[NT][4] = {}, dp[NT][4] = {};
+#pragma unroll 2
+      for (int kk = 0; kk < D; kk += 8) {
+        const SplitFrag<4> ak = left_split<S>(k_s, wrow, kk, g, t);
+        const SplitFrag<4> av = left_split<S>(v_s, wrow, kk, g, t);
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int col = tx + kGroup * i;
-      const float m_i = m_s[col], inv_l_i = inv_l_s[col], delta_i = delta_s[col];
+        for (int j = 0; j < NT; ++j) {
+          mma_split(s[j], ak,
+                    right_t<S>(q_head, q_rest, c0 + 8 * j, kk, g, t));
+          mma_split(dp[j], av,
+                    right_t<S>(do_head, do_rest, c0 + 8 * j, kk, g, t));
+        }
+      }
 #pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        const float p = expf(masked_score(s[j][i], scale, flag[j]) - m_i)
-                        * inv_l_i;
-        p_s[(ty * kRows + j) * kPStride + col] = p;
-        ds_s[(ty * kRows + j) * kPStride + col] =
-            flag[j] == kKeyValid ? p * (dp[j][i] - delta_i) : 0.0f;
+      for (int j = 0; j < NT; ++j) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * j + 2 * t + (e & 1);
+          const unsigned char f = key_f[e >> 1];
+          p[e] = expf(masked_score(s[j][e], a.scale, f) - m_s[col])
+                 * inv_l_s[col];
+          ds[e] = f == kKeyValid ? p[e] * (dp[j][e] - delta_s[col]) : 0.0f;
+        }
+        const SplitFrag<4> a_p = acc_as_left(p);
+        const SplitFrag<4> a_ds = acc_as_left(ds);
+#pragma unroll
+        for (int n = 0; n < DT; ++n) {
+          mma_split(acc_v[n], a_p,
+                    right_perm<S>(do_head, do_rest, c0 + 8 * j, 8 * n, g, t));
+          mma_split(acc_k[n], a_ds,
+                    right_perm<S>(q_head, q_rest, c0 + 8 * j, 8 * n, g, t));
+        }
       }
     }
     __syncthreads();
-    tile_accum<D>(p_s, do_s, ty, tx, acc_v);
-    tile_accum<D>(ds_s, q_s, ty, tx, acc_k);
-    __syncthreads();
   }
 
-  float one[kRows], factor[kRows];
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) one[j] = 1.0f, factor[j] = scale;
-  store_rows<D>(d_v + b * sdv.b + h * sdv.h, sdv.l, k0, length, ty, tx, acc_v,
-                one);
-  store_rows<D>(d_k + b * sdk.b + h * sdk.h, sdk.l, k0, length, ty, tx, acc_k,
-                factor);
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + wrow + g + 8 * i;
+    if (row >= length) continue;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      *reinterpret_cast<float2*>(dv_bh + row * a.sdv.l + 8 * n + 2 * t) =
+          make_float2(acc_v[n][2 * i], acc_v[n][2 * i + 1]);
+      *reinterpret_cast<float2*>(dk_bh + row * a.sdk.l + 8 * n + 2 * t) =
+          make_float2(acc_k[n][2 * i] * a.scale,
+                      acc_k[n][2 * i + 1] * a.scale);
+    }
+  }
+}
+
+// The backward. Grid (kv_blocks + q_blocks, B * H): blocks below kv_blocks
+// take the dK/dV role of key tile blockIdx.x, the others the dQ role of query
+// tile blockIdx.x - kv_blocks. A role that is not wanted has no blocks.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attn_bwd_kernel(const BwdArgs args) {
+  extern __shared__ __align__(16) float smem[];
+  const int x = static_cast<int>(blockIdx.x);
+  if (x < args.kv_blocks)
+    bwd_dkv_role<D>(args, smem, x);
+  else
+    bwd_dq_role<D>(args, smem, x - args.kv_blocks);
 }
 
 inline Strides strides_at(const long long* st, int tensor) {
@@ -585,39 +802,15 @@ int launch_fwd(const float* q, const float* k, const float* v,
 }
 
 template <int D>
-int launch_dq(const float* q, const float* k, const float* v,
-              const unsigned char* valid, const float* d_o, const float* m_in,
-              const float* l_in, const float* delta, float* d_q, int batch,
-              int n_heads, int length, float scale, const long long* st,
-              cudaStream_t stream) {
-  auto kernel = flash_attn_bwd_dq_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem_bytes<D>());
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((length + kTile - 1) / kTile, batch * n_heads);
-  kernel<<<grid, kThreads, dq_smem_bytes<D>(), stream>>>(
-      q, k, v, valid, d_o, m_in, l_in, delta, d_q, n_heads, length, scale,
-      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      strides_at(st, 3), strides_at(st, 4));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int launch_dkv(const float* q, const float* k, const float* v,
-               const unsigned char* valid, const float* d_o, const float* m_in,
-               const float* l_in, const float* delta, float* d_k, float* d_v,
-               int batch, int n_heads, int length, float scale,
-               const long long* st, cudaStream_t stream) {
-  auto kernel = flash_attn_bwd_dkv_kernel<D>;
+int launch_bwd(const BwdArgs& args, int batch, int q_blocks,
+               cudaStream_t stream) {
+  auto kernel = flash_attn_bwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dkv_smem_bytes<D>());
+      bwd_smem_bytes<D>());
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((length + kTile - 1) / kTile, batch * n_heads);
-  kernel<<<grid, kThreads, dkv_smem_bytes<D>(), stream>>>(
-      q, k, v, valid, d_o, m_in, l_in, delta, d_k, d_v, n_heads, length, scale,
-      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      strides_at(st, 3), strides_at(st, 4), strides_at(st, 5));
+  const dim3 grid(args.kv_blocks + q_blocks, batch * args.n_heads);
+  kernel<<<grid, kBwdThreads, bwd_smem_bytes<D>(), stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -661,47 +854,29 @@ int flash_attn_fwd(const float* q, const float* k, const float* v,
                      static_cast<cudaStream_t>(stream))
 }
 
-// delta = sum over D of dO o O. strides: o, dO.
-int attention_delta(const float* o, const float* d_o, float* delta, int batch,
-                    int n_heads, int length, int head_dim,
-                    const long long* strides, void* stream) {
-  if (bad_shape(batch, n_heads, length, head_dim))
+// The backward, one launch: dQ when d_q is non-null, dK and dV when both are
+// non-null (one of the two alone, or no output at all, is refused), from the
+// forward's O and row statistics m and l. strides: q, k, v, dO, O, dQ, dK,
+// dV (any values for an output not asked for).
+int flash_attn_bwd(const float* q, const float* k, const float* v,
+                   const unsigned char* valid, const float* d_o,
+                   const float* o, const float* m, const float* l,
+                   float* d_q, float* d_k, float* d_v, int batch, int n_heads,
+                   int length, int head_dim, float scale,
+                   const long long* strides, void* stream) {
+  if (bad_shape(batch, n_heads, length, head_dim)
+      || (d_k == nullptr) != (d_v == nullptr)
+      || (d_q == nullptr && d_k == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_rows = static_cast<long long>(batch) * n_heads * length;
-  const int threads = 128;
-  const unsigned blocks = static_cast<unsigned>((n_rows + threads - 1)
-                                                / threads);
-  attn_delta_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      o, d_o, delta, n_heads, length, head_dim, n_rows, strides_at(strides, 0),
-      strides_at(strides, 1));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K3b. strides: q, k, v, dO, dK, dV.
-int flash_attn_bwd_dkv(const float* q, const float* k, const float* v,
-                       const unsigned char* valid, const float* d_o,
-                       const float* m_in, const float* l_in,
-                       const float* delta, float* d_k, float* d_v, int batch,
-                       int n_heads, int length, int head_dim, float scale,
-                       const long long* strides, void* stream) {
-  if (bad_shape(batch, n_heads, length, head_dim))
-    return static_cast<int>(cudaErrorInvalidValue);
-  ATTENTION_DISPATCH(head_dim, launch_dkv, q, k, v, valid, d_o, m_in, l_in,
-                     delta, d_k, d_v, batch, n_heads, length, scale, strides,
-                     static_cast<cudaStream_t>(stream))
-}
-
-// K3c. strides: q, k, v, dO, dQ.
-int flash_attn_bwd_dq(const float* q, const float* k, const float* v,
-                      const unsigned char* valid, const float* d_o,
-                      const float* m_in, const float* l_in,
-                      const float* delta, float* d_q, int batch, int n_heads,
-                      int length, int head_dim, float scale,
-                      const long long* strides, void* stream) {
-  if (bad_shape(batch, n_heads, length, head_dim))
-    return static_cast<int>(cudaErrorInvalidValue);
-  ATTENTION_DISPATCH(head_dim, launch_dq, q, k, v, valid, d_o, m_in, l_in,
-                     delta, d_q, batch, n_heads, length, scale, strides,
+  const int n_tiles = (length + kTile - 1) / kTile;
+  const BwdArgs args{q, k, v, valid, d_o, o, m, l, d_q, d_k, d_v,
+                     strides_at(strides, 0), strides_at(strides, 1),
+                     strides_at(strides, 2), strides_at(strides, 3),
+                     strides_at(strides, 4), strides_at(strides, 5),
+                     strides_at(strides, 6), strides_at(strides, 7),
+                     n_heads, length, d_k != nullptr ? n_tiles : 0, scale};
+  ATTENTION_DISPATCH(head_dim, launch_bwd, args, batch,
+                     d_q != nullptr ? n_tiles : 0,
                      static_cast<cudaStream_t>(stream))
 }
 

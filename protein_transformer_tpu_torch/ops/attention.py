@@ -24,12 +24,12 @@ constant score passes none; the mean of dO for v).
 
 * K3a ``flash_attn_fwd_cuda`` (``csrc/attention.cu``) -> O and, when asked,
   the running maximum m and sum l of every query row, (B, H, L) each;
-* K3b ``flash_attn_bwd_dkv_cuda`` -> (dK, dV) and K3c
-  ``flash_attn_bwd_dq_cuda`` -> dQ, from q, k, v, the mask, dO, m, l and
-  delta = sum_d dO o O (``attention_delta_cuda``, a row pre-pass in the same
-  library); the probabilities are recomputed tile by tile;
-* the plain version of all three is ``flash_self_attention_torch`` (the
-  materialised masked softmax in fp32) with autograd for its gradient.
+* the backward ``flash_attn_bwd_cuda`` -> (dQ, dK, dV), any of them left out
+  when not wanted, in one launch from q, k, v, the mask, dO, O, m and l: the
+  probabilities are recomputed tile by tile and delta = sum_d dO o O is taken
+  inside; its plain version is ``flash_attn_bwd_torch``;
+* the plain version of the whole Function is ``flash_self_attention_torch``
+  (the materialised masked softmax in fp32) with autograd for its gradient.
 
 The kernels address their tensors by strides, so the (B, H, L, D) views that
 the model's head split makes of (B, L, H * D) memory are read in place, and
@@ -69,7 +69,7 @@ def resolve_impl(impl: str, device: torch.device) -> str:
 def flash_self_attention_torch(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, valid: torch.Tensor, *,
                                sm_scale: float) -> torch.Tensor:
-    """Plain PyTorch version of K3a and, through autograd, of K3b and K3c:
+    """Plain PyTorch version of K3a and, through autograd, of the backward:
     the materialised masked softmax in fp32, under the module's masking
     contract. q, k, v (B, H, L, D); valid (B, L) bool; returns (B, H, L, D).
     """
@@ -87,11 +87,8 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
     lib.flash_attn_fwd.argtypes = [p] * 7 + [i] * 4 + [f, strides, p]
-    lib.attention_delta.argtypes = [p] * 3 + [i] * 4 + [strides, p]
-    lib.flash_attn_bwd_dkv.argtypes = [p] * 10 + [i] * 4 + [f, strides, p]
-    lib.flash_attn_bwd_dq.argtypes = [p] * 9 + [i] * 4 + [f, strides, p]
-    for fn in (lib.flash_attn_fwd, lib.attention_delta,
-               lib.flash_attn_bwd_dkv, lib.flash_attn_bwd_dq):
+    lib.flash_attn_bwd.argtypes = [p] * 11 + [i] * 4 + [f, strides, p]
+    for fn in (lib.flash_attn_fwd, lib.flash_attn_bwd):
         fn.restype = ctypes.c_int
     lib.attention_error_string.argtypes = [ctypes.c_int]
     lib.attention_error_string.restype = ctypes.c_char_p
@@ -115,11 +112,11 @@ def _head_layout(shape, like: torch.Tensor) -> torch.Tensor:
                        device=like.device).transpose(1, 2)
 
 
-def _check_cuda(fn: str, valid: torch.Tensor | None, stats: dict,
+def _check_cuda(fn: str, valid: torch.Tensor, stats: dict,
                 **tensors: torch.Tensor) -> tuple[int, int, int, int]:
     """What every kernel wrapper takes: float32 (B, H, L, D) tensors of one
-    shape on one CUDA device, D in HEAD_DIMS, a bool (B, L) mask (where the
-    kernel reads one) and contiguous float32 (B, H, L) row statistics.
+    shape on one CUDA device, D in HEAD_DIMS, a contiguous bool (B, L) mask
+    and contiguous float32 (B, H, L) row statistics.
     Returns (B, H, L, D)."""
     first = next(iter(tensors.values()))
     device, shape = first.device, tuple(first.shape)
@@ -139,10 +136,9 @@ def _check_cuda(fn: str, valid: torch.Tensor | None, stats: dict,
                              f"{t.device}, expected {shape} on {device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{fn} takes float32 {name}; got {t.dtype}")
-    if valid is not None and (
-            valid.device != device or valid.dtype != torch.bool
-            or tuple(valid.shape) != (bsz, length)
-            or not valid.is_contiguous()):
+    if valid.device != device or valid.dtype != torch.bool \
+            or tuple(valid.shape) != (bsz, length) \
+            or not valid.is_contiguous():
         raise ValueError(f"{fn} takes a contiguous bool mask "
                          f"{(bsz, length)} on {device}; got {valid.dtype} "
                          f"{tuple(valid.shape)} on {valid.device}")
@@ -161,10 +157,10 @@ def _launch(fn: str, device, pointers, ints, scale, strided) -> None:
     lib = _lib()
     flat = [s for t in strided for s in t.stride()[:3]]
     strides = (ctypes.c_longlong * len(flat))(*flat)
-    scale = () if scale is None else (float(scale),)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = getattr(lib, fn)(*pointers, *ints, *scale, strides, stream)
+        err = getattr(lib, fn)(*pointers, *ints, float(scale), strides,
+                               stream)
     if err:
         raise RuntimeError(f"{fn} kernel launch failed: "
                            + lib.attention_error_string(err).decode())
@@ -202,76 +198,57 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attn_fwd_cuda.launches = 0
 
 
-def attention_delta_cuda(out: torch.Tensor, d_out: torch.Tensor
-                         ) -> torch.Tensor:
-    """delta = sum over D of dO o O, (B, H, L), from the row pre-pass kernel
-    of the backward; its plain version is ``(d_out * out).sum(-1)``. Adds
-    one to ``attention_delta_cuda.launches`` per launch."""
-    shape = _check_cuda("attention_delta_cuda", None, {}, out=out,
-                        d_out=d_out)
-    out, d_out = _rows_in_place(out), _rows_in_place(d_out)
-    delta = torch.empty(shape[:3], dtype=torch.float32, device=out.device)
-    if out.numel() == 0:
-        return delta
-    _launch("attention_delta", out.device,
-            (out.data_ptr(), d_out.data_ptr(), delta.data_ptr()), shape, None,
-            (out, d_out))
-    attention_delta_cuda.launches += 1
-    return delta
+def flash_attn_bwd_torch(q, k, v, valid, d_out, out, m, l,
+                         sm_scale: float):
+    """Plain version of the backward kernel, (dQ, dK, dV): the
+    probabilities recomputed from the forward's row statistics as
+    exp(s - m) / l, delta = sum_d dO o O, dS zero on masked keys."""
+    scores = torch.matmul(q, k.transpose(-2, -1)) * sm_scale
+    key = valid.bool()[:, None, None, :]
+    scores = scores.masked_fill(~key, torch.finfo(torch.float32).min)
+    p = torch.exp(scores - m[..., None]) / l[..., None]
+    dp = torch.matmul(d_out, v.transpose(-2, -1))
+    delta = (d_out * out).sum(-1)
+    ds = torch.where(key, p * (dp - delta[..., None]), 0.0)
+    return (torch.matmul(ds, k) * sm_scale,
+            torch.matmul(ds.transpose(-2, -1), q) * sm_scale,
+            torch.matmul(p.transpose(-2, -1), d_out))
 
 
-attention_delta_cuda.launches = 0
+def flash_attn_bwd_cuda(q, k, v, valid, d_out, out, m, l, sm_scale: float, *,
+                        want_dq: bool = True, want_dkv: bool = True):
+    """The backward kernel: (dQ or None, dK or None, dV or None), each
+    (B, H, L, D) in (B, L, H, D) memory, from one launch.
 
-
-def flash_attn_bwd_dkv_cuda(q, k, v, valid, d_out, m, l, delta,
-                            sm_scale: float
-                            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3b: (dK, dV) from the CUDA kernel, each (B, H, L, D) in (B, L, H, D)
-    memory. q, k, v, valid as ``flash_attn_fwd_cuda`` takes them; d_out the
-    cotangent of O; m, l the forward's row statistics and delta
-    ``attention_delta_cuda``'s, (B, H, L) float32, contiguous. Adds one to
-    ``flash_attn_bwd_dkv_cuda.launches`` per launch."""
-    shape = _check_cuda("flash_attn_bwd_dkv_cuda", valid,
-                        {"m": m, "l": l, "delta": delta}, q=q, k=k, v=v,
-                        d_out=d_out)
-    q, k, v, d_out = (_rows_in_place(t) for t in (q, k, v, d_out))
-    d_k, d_v = _head_layout(shape, q), _head_layout(shape, q)
+    q, k, v, valid as ``flash_attn_fwd_cuda`` takes them; d_out the
+    cotangent of O and out the forward's O, (B, H, L, D); m, l the
+    forward's row statistics, (B, H, L) float32, contiguous. ``want_dq`` and
+    ``want_dkv`` pick the gradients (at least one). Raises for any other
+    input, and if the kernel fails to build or launch. Adds one to
+    ``flash_attn_bwd_cuda.launches`` per launch."""
+    if not (want_dq or want_dkv):
+        raise ValueError("flash_attn_bwd_cuda: want_dq or want_dkv must be "
+                         "set")
+    shape = _check_cuda("flash_attn_bwd_cuda", valid, {"m": m, "l": l}, q=q,
+                        k=k, v=v, d_out=d_out, out=out)
+    q, k, v, d_out, out = (_rows_in_place(t) for t in (q, k, v, d_out, out))
+    d_q = _head_layout(shape, q) if want_dq else None
+    d_k = _head_layout(shape, q) if want_dkv else None
+    d_v = _head_layout(shape, q) if want_dkv else None
     if q.numel() == 0:
-        return d_k, d_v
-    _launch("flash_attn_bwd_dkv", q.device,
+        return d_q, d_k, d_v
+    grads = (d_q, d_k, d_v)
+    _launch("flash_attn_bwd", q.device,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-             d_out.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
-             d_k.data_ptr(), d_v.data_ptr()),
-            shape, sm_scale, (q, k, v, d_out, d_k, d_v))
-    flash_attn_bwd_dkv_cuda.launches += 1
-    return d_k, d_v
+             d_out.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+             *(None if g is None else g.data_ptr() for g in grads)),
+            shape, sm_scale,
+            (q, k, v, d_out, out, *(q if g is None else g for g in grads)))
+    flash_attn_bwd_cuda.launches += 1
+    return d_q, d_k, d_v
 
 
-flash_attn_bwd_dkv_cuda.launches = 0
-
-
-def flash_attn_bwd_dq_cuda(q, k, v, valid, d_out, m, l, delta,
-                           sm_scale: float) -> torch.Tensor:
-    """K3c: dQ from the CUDA kernel, (B, H, L, D) in (B, L, H, D) memory;
-    takes what ``flash_attn_bwd_dkv_cuda`` takes. Adds one to
-    ``flash_attn_bwd_dq_cuda.launches`` per launch."""
-    shape = _check_cuda("flash_attn_bwd_dq_cuda", valid,
-                        {"m": m, "l": l, "delta": delta}, q=q, k=k, v=v,
-                        d_out=d_out)
-    q, k, v, d_out = (_rows_in_place(t) for t in (q, k, v, d_out))
-    d_q = _head_layout(shape, q)
-    if q.numel() == 0:
-        return d_q
-    _launch("flash_attn_bwd_dq", q.device,
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-             d_out.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
-             d_q.data_ptr()),
-            shape, sm_scale, (q, k, v, d_out, d_q))
-    flash_attn_bwd_dq_cuda.launches += 1
-    return d_q
-
-
-flash_attn_bwd_dq_cuda.launches = 0
+flash_attn_bwd_cuda.launches = 0
 
 
 class FlashSelfAttention(torch.autograd.Function):
@@ -279,8 +256,9 @@ class FlashSelfAttention(torch.autograd.Function):
     VJP around the TPU flash kernel.
 
     Forward: K3a with the row statistics; saves q, k, v, the mask, O, m and
-    l (never the probabilities). Backward: the delta pre-pass, then K3b when
-    k or v needs a gradient and K3c when q does."""
+    l (never the probabilities). Backward: one launch of the backward
+    kernel, asking for dQ when q needs a gradient and for dK and dV when k
+    or v does."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid, sm_scale):
@@ -293,15 +271,12 @@ class FlashSelfAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_out):
         q, k, v, valid, out, m, l = ctx.saved_tensors
-        delta = attention_delta_cuda(out, d_out)
-        d_q = d_k = d_v = None
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            d_k, d_v = flash_attn_bwd_dkv_cuda(q, k, v, valid, d_out, m, l,
-                                               delta, ctx.sm_scale)
-        if ctx.needs_input_grad[0]:
-            d_q = flash_attn_bwd_dq_cuda(q, k, v, valid, d_out, m, l, delta,
-                                         ctx.sm_scale)
-        return d_q, d_k, d_v, None, None
+        want_dq, want_k, want_v = ctx.needs_input_grad[:3]
+        d_q, d_k, d_v = flash_attn_bwd_cuda(
+            q, k, v, valid, d_out, out, m, l, ctx.sm_scale, want_dq=want_dq,
+            want_dkv=want_k or want_v)
+        return (d_q, d_k if want_k else None, d_v if want_v else None, None,
+                None)
 
 
 def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -164,63 +164,46 @@ def reference_fwd(q, k, v, valid, sm_scale, with_stats=False):
     return (out, m, l) if with_stats else (out, None, None)
 
 
-def reference_bwd(q, k, v, valid, d_out, m, l, delta, sm_scale):
-    """What K3b and K3c compute from the saved statistics: probabilities
-    recomputed as exp(s - m) / l, dS zero on masked keys."""
-    scores = torch.matmul(q, k.transpose(-2, -1)) * sm_scale
-    key = valid[:, None, None, :]
-    scores = scores.masked_fill(~key, torch.finfo(torch.float32).min)
-    p = torch.exp(scores - m[..., None]) / l[..., None]
-    dp = torch.matmul(d_out, v.transpose(-2, -1))
-    ds = torch.where(key, p * (dp - delta[..., None]), 0.0)
-    return (torch.matmul(ds, k) * sm_scale,
-            torch.matmul(ds.transpose(-2, -1), q) * sm_scale,
-            torch.matmul(p.transpose(-2, -1), d_out))
-
-
 @pytest.fixture
 def plain_launchers(monkeypatch):
     """The kernel wrappers replaced by the same arithmetic in tensor
-    operations, with the device check left out: the autograd wiring around
-    the kernels, and the backward formulas the kernels implement, can then
-    be followed on the CPU. Returns the call counts."""
-    calls = {"fwd": 0, "fwd_stats": 0, "delta": 0, "dkv": 0, "dq": 0}
+    operations (``flash_attn_bwd_torch`` for the backward), with the device
+    check left out: the autograd wiring around the kernels, and the
+    backward formulas the kernel implements, can then be followed on the
+    CPU. Returns the calls: counts of the forward, and (want_dq, want_dkv)
+    of each backward."""
+    calls = {"fwd": 0, "fwd_stats": 0, "bwd": []}
 
     def fwd(q, k, v, valid, sm_scale, with_stats=False):
         calls["fwd_stats" if with_stats else "fwd"] += 1
         assert valid.dtype == torch.bool and valid.is_contiguous()
         return reference_fwd(q, k, v, valid, sm_scale, with_stats)
 
-    def delta(out, d_out):
-        calls["delta"] += 1
-        return (out * d_out).sum(-1)
-
-    def dkv(q, k, v, valid, d_out, m, l, delta, sm_scale):
-        calls["dkv"] += 1
-        return reference_bwd(q, k, v, valid, d_out, m, l, delta, sm_scale)[1:]
-
-    def dq(q, k, v, valid, d_out, m, l, delta, sm_scale):
-        calls["dq"] += 1
-        return reference_bwd(q, k, v, valid, d_out, m, l, delta, sm_scale)[0]
+    def bwd(q, k, v, valid, d_out, out, m, l, sm_scale, *, want_dq,
+            want_dkv):
+        calls["bwd"].append((want_dq, want_dkv))
+        assert want_dq or want_dkv
+        d_q, d_k, d_v = A.flash_attn_bwd_torch(q, k, v, valid, d_out, out, m,
+                                               l, sm_scale)
+        return (d_q if want_dq else None, d_k if want_dkv else None,
+                d_v if want_dkv else None)
 
     monkeypatch.setattr(A, "flash_attn_fwd_cuda", fwd)
-    monkeypatch.setattr(A, "attention_delta_cuda", delta)
-    monkeypatch.setattr(A, "flash_attn_bwd_dkv_cuda", dkv)
-    monkeypatch.setattr(A, "flash_attn_bwd_dq_cuda", dq)
+    monkeypatch.setattr(A, "flash_attn_bwd_cuda", bwd)
     return calls
 
 
 def test_function_wiring_and_backward_formulas(plain_launchers):
     """Through ``FlashSelfAttention`` (impl "cuda", launchers replaced): the
-    saved statistics, the delta pre-pass and the two backward passes give
-    autograd's gradients of the plain version, all-pad row included."""
+    saved statistics and the one backward call give autograd's gradients of
+    the plain version, all-pad row included."""
     length = 37
     q, k, v = qkv(length, seed=9, bsz=3)
     valid = ragged_valid(length, [length, 20, 0])
     every_row = np.ones_like(valid)
     got, got_grads = port_out_and_grads(q, k, v, valid, every_row, "cuda")
-    assert plain_launchers == {"fwd": 0, "fwd_stats": 1, "delta": 1,
-                               "dkv": 1, "dq": 1}
+    assert plain_launchers == {"fwd": 0, "fwd_stats": 1,
+                               "bwd": [(True, True)]}
     want, want_grads = port_out_and_grads(q, k, v, valid, every_row, "torch")
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL)
     for name, g, w in zip("qkv", got_grads, want_grads):
@@ -228,14 +211,87 @@ def test_function_wiring_and_backward_formulas(plain_launchers):
         grad_close(g, w, f"d/d{name}")
 
 
-def test_only_the_wanted_gradients_are_computed(plain_launchers):
-    q, k, v = (torch.from_numpy(x) for x in qkv(12))
+@pytest.mark.parametrize("wanted", ["q", "kv", "qkv"])
+def test_only_the_wanted_gradients_are_computed(plain_launchers, wanted):
+    """One backward call, asking for dQ only when q needs it and for dK and
+    dV only when k or v does."""
+    tensors = dict(zip("qkv", (torch.from_numpy(x) for x in qkv(12))))
     valid = torch.ones((B, 12), dtype=torch.bool)
-    q.requires_grad_()
-    out = A.flash_self_attention(q, k, v, valid, sm_scale=0.25, impl="cuda")
+    for name in wanted:
+        tensors[name].requires_grad_()
+    out = A.flash_self_attention(*tensors.values(), valid, sm_scale=0.25,
+                                 impl="cuda")
     out.sum().backward()
-    assert (plain_launchers["dq"], plain_launchers["dkv"]) == (1, 0)
-    assert q.grad is not None
+    assert plain_launchers["bwd"] == [("q" in wanted, "k" in wanted)]
+    for name, t in tensors.items():
+        assert (t.grad is not None) == (name in wanted)
+
+
+def test_plain_backward_equals_autograd_through_plain():
+    """``flash_attn_bwd_torch`` from the forward's row statistics gives
+    autograd's gradients through ``flash_self_attention_torch``, the all-pad
+    row included."""
+    length = 37
+    q, k, v = (torch.from_numpy(x) for x in qkv(length, seed=4, bsz=3))
+    valid = torch.from_numpy(ragged_valid(length, [length, 20, 0]))
+    scale = 1.0 / math.sqrt(D)
+    d_out = torch.from_numpy(np.random.default_rng(8).normal(
+        size=q.shape).astype(np.float32))
+    out, m, l = reference_fwd(q, k, v, valid, scale, with_stats=True)
+    got = A.flash_attn_bwd_torch(q, k, v, valid, d_out, out, m, l, scale)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        A.flash_self_attention_torch(*leaves, valid, sm_scale=scale),
+        leaves, d_out)
+    for name, g, w in zip("qkv", got, want):
+        assert torch.isfinite(g).all()
+        grad_close(g.numpy(), w.numpy(), f"d/d{name}")
+    assert not got[0][2].any() and not got[1][2].any()
+
+
+def tf32_rna(x):
+    """``cvt.rna.tf32.f32`` in numpy: x rounded to 10 explicit mantissa
+    bits, ties away from zero (the sign bit stands apart, so adding half an
+    ulp of TF32 to the bits rounds the magnitude)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def mma_sums(terms, depth):
+    """Products summed as mma.sync m16n8k8 sums them: every 8-deep product
+    of TF32 values exact, added to an fp32 accumulator, the terms of each
+    k-step in the order given."""
+    acc = np.zeros((terms[0][0].shape[0], terms[0][1].shape[0]), np.float32)
+    for k0 in range(0, depth, 8):
+        for a, b in terms:
+            part = (a[:, k0:k0 + 8].astype(np.float64)
+                    @ b[:, k0:k0 + 8].T.astype(np.float64))
+            acc = (acc + part.astype(np.float32)).astype(np.float32)
+    return acc
+
+
+def test_split_tf32_products_hold_fp32_accuracy():
+    """Why the backward splits its operands: on the scores of phase 8 of
+    chip_smoke.py (64-deep, q of standard deviation 3, k of 1), three TF32
+    products (rest x head, head x rest, head x head) land within 1e-6 of the
+    largest score from float64, where one TF32 product misses by more than
+    1e-4 (~3e-4)."""
+    assert tf32_rna(np.float32(1 + 2 ** -11)) == np.float32(1 + 2 ** -10)
+    assert tf32_rna(np.float32(-(1 + 2 ** -11))) == np.float32(-(1 + 2 ** -10))
+    assert tf32_rna(np.float32(1 + 2 ** -12)) == np.float32(1.0)
+    rng = np.random.default_rng(0)
+    q = rng.normal(0, 3, (64, 64)).astype(np.float32)
+    k = rng.normal(0, 1, (64, 64)).astype(np.float32)
+    exact = q.astype(np.float64) @ k.T.astype(np.float64)
+    heads = [tf32_rna(x) for x in (q, k)]
+    rests = [tf32_rna(x - h) for x, h in zip((q, k), heads)]
+    three = mma_sums([(rests[0], heads[1]), (heads[0], rests[1]),
+                      (heads[0], heads[1])], 64)
+    one = mma_sums([(heads[0], heads[1])], 64)
+    top = np.abs(exact).max()
+    assert np.abs(three - exact).max() <= 1e-6 * top
+    assert np.abs(one - exact).max() >= 1e-4 * top
 
 
 @pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "no_leaf"])
@@ -252,8 +308,7 @@ def test_nothing_is_saved_without_a_gradient(plain_launchers, mode):
         out = A.flash_self_attention(q, k, v, valid, sm_scale=0.25,
                                      impl="cuda")
     assert out.grad_fn is None
-    assert plain_launchers == {"fwd": 1, "fwd_stats": 0, "delta": 0,
-                               "dkv": 0, "dq": 0}
+    assert plain_launchers == {"fwd": 1, "fwd_stats": 0, "bwd": []}
 
 
 def test_wrappers_refuse_cpu_tensors_and_unknown_impls():
@@ -269,6 +324,25 @@ def test_wrappers_refuse_cpu_tensors_and_unknown_impls():
     assert A.resolve_impl("auto", torch.device("cuda", 0)) == "cuda"
     assert not hasattr(A, "flash_available")
     assert A.flash_attn_fwd_cuda.launches == 0
+
+
+def test_bench_tool_inputs_and_refusal_without_a_card(monkeypatch):
+    """``tools/bench_attention.py`` draws phase 8's kind of inputs (head-split
+    views, the first batch row full, the last with no valid key) and
+    refuses to time anything without a CUDA device."""
+    from protein_transformer_tpu_torch.tools import bench_attention
+    q, k, v, d_out, valid = bench_attention.attention_inputs(
+        torch.device("cpu"), (3, 2, 40, 16), seed=1)
+    assert all(t.shape == (3, 2, 40, 16) and not t.is_contiguous()
+               and A._rows_in_place(t) is t for t in (q, k, v, d_out))
+    n_valid = valid.sum(1).tolist()
+    assert n_valid[0] == 40 and n_valid[-1] == 0
+    assert torch.equal(valid, torch.arange(40)[None, :]
+                       < valid.sum(1, keepdim=True))  # valid prefixes
+    assert 2.0 < float(q.std() / k.std()) < 4.0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_attention.main([])
 
 
 def test_head_layout_makes_the_merge_a_view():
@@ -442,15 +516,13 @@ def card_case(shape, seed, cuda):
                                    (1, 1, 1, 16)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_kernels_match_plain_on_card(cuda, shape):
-    """K3a, K3b and K3c against the plain version and autograd through it,
-    on every row, the all-pad batch row included."""
+    """K3a and the backward against the plain version and autograd through
+    it, on every row, the all-pad batch row included: one launch each."""
     q, k, v, valid = card_case(shape, seed=sum(shape), cuda=cuda)
     scale = 1.0 / math.sqrt(shape[-1])
     d_out = torch.randn(shape, device=cuda,
                         generator=torch.Generator(cuda).manual_seed(1))
-    before = (A.flash_attn_fwd_cuda.launches,
-              A.flash_attn_bwd_dkv_cuda.launches,
-              A.flash_attn_bwd_dq_cuda.launches)
+    before = (A.flash_attn_fwd_cuda.launches, A.flash_attn_bwd_cuda.launches)
     results = {}
     for impl in ("cuda", "torch"):
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -459,10 +531,8 @@ def test_kernels_match_plain_on_card(cuda, shape):
         grads = torch.autograd.grad(out, leaves, d_out)
         results[impl] = (out.detach(), grads)
     torch.cuda.synchronize()
-    after = (A.flash_attn_fwd_cuda.launches,
-             A.flash_attn_bwd_dkv_cuda.launches,
-             A.flash_attn_bwd_dq_cuda.launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+    after = (A.flash_attn_fwd_cuda.launches, A.flash_attn_bwd_cuda.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1)
     (got, got_grads), (want, want_grads) = results["cuda"], results["torch"]
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
@@ -490,3 +560,117 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     want = A.flash_self_attention_torch(q, k, v, valid, sm_scale=0.25)
     np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
                                atol=ATOL, rtol=ATOL)
+
+
+def backward_case(shape, n_valid, cuda, seed=0):
+    """q, k, v (head-split views; q three times wider, as phase 8 of
+    chip_smoke.py draws them), the mask of ``n_valid`` keys per batch row,
+    dO, and the forward's O, m and l from K3a."""
+    bsz, heads, length, dim = shape
+    rng = np.random.default_rng(seed)
+    q, k, v, d_out = (
+        torch.from_numpy(rng.normal(0, gain, (bsz, length, heads * dim))
+                         .astype(np.float32)).to(cuda)
+        .reshape(bsz, length, heads, dim).transpose(1, 2)
+        for gain in (3.0, 1.0, 1.0, 1.0))
+    valid = torch.from_numpy(ragged_valid(length, n_valid)).to(cuda)
+    scale = 1.0 / math.sqrt(dim)
+    out, m, l = A.flash_attn_fwd_cuda(q, k, v, valid, scale, with_stats=True)
+    return (q, k, v, valid, d_out, out, m, l), scale
+
+
+def poison_allocator(cuda):
+    """Leave NaNs where the caching allocator hands out the next blocks, so
+    that an output row the kernel fails to write shows."""
+    torch.full((64 << 20,), float("nan"), device=cuda)
+    torch.cuda.synchronize()
+
+
+def hold_backward(got, want, what):
+    for name, g, w in zip("qkv", got, want):
+        assert torch.isfinite(g).all(), f"d/d{name} finite, {what}"
+        grad_close(g.cpu().numpy(), w.cpu().numpy(), f"d/d{name}, {what}")
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("shape", [(8, 8, 256, 64), (16, 8, 256, 64),
+                                   (8, 8, 500, 64), (3, 2, 37, 16),
+                                   (1, 1, 1, 16), (2, 3, 130, 32),
+                                   (2, 2, 70, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_backward_kernel_matches_plain_on_card(cuda, shape):
+    """The backward kernel against ``flash_attn_bwd_torch`` on the same
+    inputs (ragged lengths, one batch row with no valid key), one launch;
+    the same bits on a second call."""
+    bsz, _, length, _ = shape
+    n_valid = np.random.default_rng(sum(shape)).integers(1, length + 1, bsz)
+    n_valid[0] = length
+    if bsz > 1:
+        n_valid[-1] = 0
+    args, scale = backward_case(shape, n_valid, cuda)
+    poison_allocator(cuda)
+    before = A.flash_attn_bwd_cuda.launches
+    got = A.flash_attn_bwd_cuda(*args, scale)
+    torch.cuda.synchronize()
+    assert A.flash_attn_bwd_cuda.launches - before == 1
+    hold_backward(got, A.flash_attn_bwd_torch(*args, scale), f"{shape}")
+    again = A.flash_attn_bwd_cuda(*args, scale)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("last_valid", [63, 64, 65, 128, 255])
+def test_backward_skips_key_tiles_without_a_valid_key(cuda, last_valid):
+    """Valid keys ending at the edges of the 64-key tiles: every gradient
+    within the gate of plain, dK = dV = 0 exactly on every masked key of a
+    row that has a valid key (the skipped tiles, written though the outputs
+    start as NaN), dQ = dK = 0 and dV the mean of dO in the all-pad row; q
+    alone and k, v alone give the same bits as all three."""
+    shape = (3, 4, 256, 64)
+    n_valid = [last_valid, 256, 0]
+    args, scale = backward_case(shape, n_valid, cuda, seed=last_valid)
+    poison_allocator(cuda)
+    d_q, d_k, d_v = A.flash_attn_bwd_cuda(*args, scale)
+    torch.cuda.synchronize()
+    hold_backward((d_q, d_k, d_v), A.flash_attn_bwd_torch(*args, scale),
+                  f"keys valid up to {last_valid}")
+    assert not d_k[0, :, last_valid:].any()
+    assert not d_v[0, :, last_valid:].any()
+    assert not d_q[2].any() and not d_k[2].any()
+    d_out = args[4]
+    mean = d_out[2].mean(dim=1, keepdim=True).expand_as(d_v[2])
+    np.testing.assert_allclose(d_v[2].cpu().numpy(), mean.cpu().numpy(),
+                               atol=1e-5, rtol=1e-5)
+    poison_allocator(cuda)
+    only_q = A.flash_attn_bwd_cuda(*args, scale, want_dkv=False)
+    only_kv = A.flash_attn_bwd_cuda(*args, scale, want_dq=False)
+    assert only_q[1] is None and only_q[2] is None and only_kv[0] is None
+    assert torch.equal(only_q[0], d_q)
+    assert torch.equal(only_kv[1], d_k) and torch.equal(only_kv[2], d_v)
+
+
+@pytest.mark.needs_cuda
+def test_backward_reads_strided_views_and_copies_what_it_must(cuda):
+    """Head-split views are read in place; a tensor whose rows are not
+    adjacent along D is copied and gives the same bits; the wrapper refuses
+    what the kernel does not take."""
+    shape = (2, 2, 70, 32)
+    args, scale = backward_case(shape, [70, 33], cuda, seed=3)
+    q, k, v, valid, d_out, out, m, l = args
+    assert not q.is_contiguous() and A._rows_in_place(q) is q
+    got = A.flash_attn_bwd_cuda(*args, scale)
+    contiguous = A.flash_attn_bwd_cuda(
+        *(t.contiguous() for t in (q, k, v)), valid, d_out.contiguous(),
+        out.contiguous(), m, l, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, contiguous))
+    d_moved = d_out.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert A._rows_in_place(d_moved) is not d_moved
+    copied = A.flash_attn_bwd_cuda(q, k, v, valid, d_moved, out, m, l, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, copied))
+    with pytest.raises(ValueError, match="want_dq or want_dkv"):
+        A.flash_attn_bwd_cuda(*args, scale, want_dq=False, want_dkv=False)
+    with pytest.raises(ValueError, match="contiguous float32 m"):
+        A.flash_attn_bwd_cuda(q, k, v, valid, d_out, out, m.transpose(1, 2)
+                              .contiguous().transpose(1, 2), l, scale)
+    with pytest.raises(ValueError, match="CUDA device"):
+        A.flash_attn_bwd_cuda(*(t.cpu() for t in args), scale)
