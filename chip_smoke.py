@@ -19,18 +19,22 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    equal to K1a's bit for bit, gradients (K1b: dS/da, K1c: dS/db) within
    1e-4 * max(1, max|g|), zero statistic and gradient for the all-masked
    protein, the same bits on a second call.
-   Sidechain build (K2a, K2b) at (B, L) = (8, 256), (16, 256), (8, 500),
-   (3, 37), (1, 1), all 20 amino acids and padding in the batch, on
-   full-range and on physical angles: dead slots exactly zero; everything
-   finite, padded rows and their gradients included; the kernel's
+   Sidechain build (K2a, K2b: backbone, angles and sequence in, each block
+   looking up the packed force-field table itself) at (B, L) = (8, 256),
+   (16, 256), (8, 500), (3, 37), (1, 1), (5, 1) with int64 ids, all 20
+   amino acids and padding in the batch, and at (3, 45) with int32 ids
+   holding every type of the table and ids outside it, on full-range and
+   on physical angles, the outputs handed out NaN-filled by the allocator:
+   dead slots exactly zero; everything finite, padded rows and their
+   gradients included; the kernel's
    distance from a float64 plain build at most twice the fp32 plain
    build's plus 1e-5 A (on full-range angles nearly collinear frames
    amplify any rounding); on physical angles the kernel within 1e-4 A of
    the float64 build, and of the fp32 plain build up to that one's own
    distance from it;
-   the gradients of sum(sin(0.3 crd)) with respect to backbone, anchor and
-   torsions within 1e-4 * max(1, max|g|) of autograd through plain; the
-   same bits on a second call.
+   the gradients of sum(sin(0.3 crd)) with respect to backbone and angles
+   within 1e-4 * max(1, max|g|) of autograd through plain; the same bits
+   on a second call.
    Median times of kernel and plain over 25 runs (CUDA events), and each
    kernel's bound: the largest of its bytes (inputs read once, outputs
    written once) over 3.35 TB/s, its operations on this run's data over
@@ -74,7 +78,8 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    relative) and every parameter's gradient (within 1e-3 of its largest
    entry) of the all-kernels path against the all-plain path. Phases 5
    and 6 also count each arm's device operations and device time per step
-   with torch.profiler;
+   with torch.profiler, and the stream synchronisations of one step with
+   torch.cuda.set_sync_debug_mode("warn");
 7. the training CLI at the same width: a synthetic dataset (train, two
    validation splits, test; lengths 255-256) written with torch.save, then
    ``training.cli.main`` for two epochs into a temporary run directory:
@@ -168,7 +173,8 @@ from protein_transformer_tpu_torch.config import TrainConfig
 from protein_transformer_tpu_torch.data.dataset import collate
 from protein_transformer_tpu_torch.data.dataset import DataModule
 from protein_transformer_tpu_torch.data.synthetic import (
-    atom_mask_case, make_dataset, sidechain_case)
+    OUT_OF_TABLE_IDS, atom_mask_case, make_dataset, sidechain_case,
+    with_every_type)
 from protein_transformer_tpu_torch.device import cuda_device
 from protein_transformer_tpu_torch.models.conv_encoder import (
     ConvEncoderOnlyTransformer)
@@ -184,6 +190,7 @@ from protein_transformer_tpu_torch.protein.geometry import (
     build_coords_batch, inverse_trig_transform)
 from protein_transformer_tpu_torch.protein.pdb import parse_pdb_atoms
 from protein_transformer_tpu_torch.tools import bench_drmsd_kernel
+from protein_transformer_tpu_torch.tools.bench_geometry import sync_count
 from protein_transformer_tpu_torch.training import cli
 from protein_transformer_tpu_torch.training.checkpoint import (
     CheckpointManager)
@@ -202,9 +209,13 @@ TRAIN_CASE = (16, 3584)  # the train step's full-atom sweep
 # device-only times of K1 at the table's shapes and at the longest proteins
 K1_DEVICE_CASES = (EVAL_CASE, TRAIN_CASE, (8, 7000))
 # (B, L) of the sidechain kernels: the eval and train steps' batches, the
-# longest proteins, and the small sizes of the TPU kernel's tests
-SIDECHAIN_CASES = ((8, 256), (16, 256), (8, 500), (3, 37), (1, 1))
+# longest proteins, the small sizes of the TPU kernel's tests and rows of
+# one residue; rows of L = 37 and 500 start inside the kernels' blocks of 32
+# and 30 residues. Then a batch with every type of the table and ids outside
+# it.
+SIDECHAIN_CASES = ((8, 256), (16, 256), (8, 500), (3, 37), (1, 1), (5, 1))
 SIDECHAIN_TRAIN_CASE = (16, 256)
+SIDECHAIN_TYPES_CASE = (3, 45)
 # (B, H, L, D) of the attention kernels: predict's batches, the training
 # step's, the longest proteins, and two small sizes
 ATTENTION_CASES = ((8, 8, 256, 64), (16, 8, 256, 64), (8, 8, 500, 64),
@@ -258,17 +269,20 @@ SPECIAL_PER_PAIR = {"drmsd_fwd": 2, "drmsd_fwd_grad": 2, "drmsd_grad_b": 2,
 VARIANT_FLOPS_PER_PAIR = {"drmsd_fwd_sqrt1": (24, 0),
                           "drmsd_fwd_mxu": (14, 12),
                           "drmsd_grad_a_mxu": (15, 24)}
-# fp32 operations per live sidechain slot. K2a: two differences (6), three
-# normalisations (11 each), two cross products (18), two sincos and four
-# products (8), the placement (18). K2b recomputes the frame and the offsets
-# (65) and adds three normalisation cotangents (24 each), four cross
-# products (36), the torsion cotangent (13) and the accumulations (~30).
-FLOPS_PER_SLOT = {"sidechain_fwd": 83, "sidechain_bwd": 216}
-# bytes per residue: K2a reads bb 48, anchor 12, torsions, lengths and angles
-# 120, n_sc 4, frame indices 120 and writes 168; K2b reads the built points
-# and their cotangent (336) with the same tables and anchor (256), and writes
-# 48 + 12 + 40.
-SIDECHAIN_BYTES = {"sidechain_fwd": 304 + 168, "sidechain_bwd": 592 + 100}
+# fp32 operations per live sidechain slot. K2a: the torsion's offset (1),
+# two differences (6), three normalisations (11 each), two cross products
+# (18), two sincos and four products (8), the placement (18). K2b recomputes
+# the frame and the offsets (66) and adds three normalisation cotangents (24
+# each), four cross products (36), the torsion cotangent (13), the
+# accumulations (~30) and the sum into the angle's column (1).
+FLOPS_PER_SLOT = {"sidechain_fwd": 84, "sidechain_bwd": 218}
+# bytes per residue besides its id, each input read once and each output
+# written once: K2a reads bb 48 and angles 48 (the anchor is a neighbour's
+# bb) and writes 168; K2b reads the built points and their cotangent (336)
+# and the angles (48), and writes the cotangents of bb and angles (96). Both
+# read the packed force-field table once (``sidechain_bytes``).
+SIDECHAIN_BYTES = {"sidechain_fwd": 48 + 48 + 168,
+                   "sidechain_bwd": 336 + 48 + 96}
 # operations per (query, key) pair that carries weight, in units of the head
 # dimension D: (fp32 on the CUDA cores, products on the tensor cores as
 # mathematics has them, not the split ones). K3a: S = Q K^T and P V in fp32
@@ -601,34 +615,53 @@ def phase_variants(dev, card):
 
 
 def sidechain_grads(inputs, impl):
-    """The build through ``impl`` from fresh leaves of bb, anchor and
-    torsions; returns (coordinates, their gradients of sum(sin(0.3 crd)))."""
-    leaves = [t.detach().clone().requires_grad_() for t in inputs[:3]]
-    crd = S.build_sidechain_points(*leaves, *inputs[3:], impl=impl)
+    """The build through ``impl`` from fresh leaves of the backbone and the
+    angles; returns (coordinates, their gradients of sum(sin(0.3 crd)))."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs[:2]]
+    crd = S.build_sidechains(*leaves, inputs[2], impl=impl)
     grads = torch.autograd.grad(torch.sin(0.3 * crd).sum(), leaves)
     return crd.detach(), grads
 
 
-def sidechain_case_check(dev, rng, bsz, length, physical):
+def poison_allocator(dev):
+    """Leave NaNs where the caching allocator hands out the next blocks, so
+    that an output entry a kernel fails to write shows."""
+    torch.full((64 << 20,), float("nan"), device=dev)
+    torch.cuda.synchronize()
+
+
+def sidechain_case_check(dev, rng, bsz, length, physical, every_type=False):
     """K2a and K2b against the plain version on one (B, L) case; returns
-    (the inputs, max forward error, max gradient error)."""
+    (the inputs, max forward error, max gradient error). The ids are int64
+    as the training batches hold them, int32 in the case of every type."""
     ang, ids = sidechain_case(rng, bsz, length, physical)
     where = (f"B={bsz} L={length} "
              f"{'physical' if physical else 'full-range'} angles")
     if bsz * length >= 60:
         require(set(range(21)) <= set(ids.ravel().tolist()),
                 f"all 20 amino acids and padding in the batch, {where}")
-    ang, ids = torch.from_numpy(ang).to(dev), torch.from_numpy(ids).to(dev)
+    if every_type:
+        ids = with_every_type(rng, ids)
+        where += ", every type of the table and ids outside it"
+        require(set(range(S.N_TYPES)) | set(OUT_OF_TABLE_IDS)
+                <= set(ids.ravel().tolist()), f"every id, {where}")
+    ang = torch.from_numpy(ang).to(dev)
+    ids = torch.from_numpy(ids).to(dev)
+    if not every_type:
+        ids = ids.long()
     with torch.no_grad():
         bb = G.build_backbone(ang)
-        inputs = [bb, *G.sidechain_inputs(bb, ang, ids)]
-    got, k_grads = sidechain_grads(inputs, "cuda")
+    inputs = (bb, ang, ids)
     want, p_grads = sidechain_grads(inputs, "torch")
+    poison_allocator(dev)
+    got, k_grads = sidechain_grads(inputs, "cuda")
     torch.cuda.synchronize()
     require(torch.isfinite(got).all().item()
             and all(torch.isfinite(g).all().item() for g in k_grads),
-            f"values and gradients finite, padded rows included, {where}")
-    dead = torch.arange(S.MAX_SC_ATOMS, device=dev) >= inputs[5][..., None]
+            f"values and gradients finite, padded rows included, every entry "
+            f"written, {where}")
+    n_sc = S.sidechain_inputs(bb, ang, ids)[4]
+    dead = torch.arange(S.MAX_SC_ATOMS, device=dev) >= n_sc[..., None]
     require(not got[:, :, 4:][dead].any().item()
             and torch.equal(got[:, :, :4], bb),
             f"dead slots exactly zero and the backbone passed through, "
@@ -638,8 +671,7 @@ def sidechain_case_check(dev, rng, bsz, length, physical):
     # plain build itself strays by several of them over its ten slots.
     err = float((got - want).abs().max())
     with torch.no_grad():
-        exact = S.build_sidechain_points_torch(
-            *(t.double() for t in inputs[:5]), *inputs[5:])
+        exact = S.build_sidechains_torch(bb.double(), ang.double(), ids)
     k_far = float((got - exact).abs().max())
     p_far = float((want - exact).abs().max())
     require(k_far <= 2 * p_far + 1e-5,
@@ -651,7 +683,8 @@ def sidechain_case_check(dev, rng, bsz, length, physical):
                 f"and of the fp32 plain build up to that one's own distance "
                 f"({err:.3e} <= 1e-4 + {p_far:.3e}), {where}")
     g_err = max(grad_err(k, p, f"K2b d/d{name}, {where}") for name, k, p in
-                zip(("bb", "anchor", "torsions"), k_grads, p_grads))
+                zip(("bb", "angles"), k_grads, p_grads))
+    poison_allocator(dev)
     got2, k_grads2 = sidechain_grads(inputs, "cuda")
     require(torch.equal(got2, got)
             and all(torch.equal(a, b) for a, b in zip(k_grads2, k_grads)),
@@ -664,42 +697,49 @@ def sidechain_case_check(dev, rng, bsz, length, physical):
     return inputs, err, g_err
 
 
+def sidechain_bytes(name, ids):
+    """What K2a or K2b must move for these ids: ``SIDECHAIN_BYTES`` and the
+    id a residue, and the packed table once."""
+    table = S.ff_table(ids.device)
+    return ((SIDECHAIN_BYTES[name] + ids.element_size()) * ids.numel()
+            + table.numel() * table.element_size())
+
+
 def sidechain_times(inputs, card):
     """{kernel: (kernel ms, plain ms, bound ms, what bounds it, device ms or
     None)} on one case's inputs, and the forward + backward pair through
     autograd."""
-    ints = [t.to(torch.int32).contiguous() for t in inputs[5:]]
-    leaves = [t.detach().clone().requires_grad_() for t in inputs[:3]]
+    bb, ang, ids = inputs
+    leaves = [t.detach().clone().requires_grad_() for t in (bb, ang)]
 
     def fwd(impl):
         with torch.no_grad():
-            return S.build_sidechain_points(*inputs, impl=impl)
+            return S.build_sidechains(bb, ang, ids, impl=impl)
 
     def fwd_bwd(impl):
-        crd = S.build_sidechain_points(*leaves, *inputs[3:], impl=impl)
+        crd = S.build_sidechains(*leaves, ids, impl=impl)
         return torch.autograd.grad(crd, leaves, g_out)
 
     built = fwd("cuda")
     g_out = torch.randn_like(built)
-    plain_graph = S.build_sidechain_points(*leaves, *inputs[3:],
-                                           impl="torch")
-    n_res = inputs[5].numel()
-    live = int(inputs[5].clamp(max=S.MAX_SC_ATOMS).sum())
+    plain_graph = S.build_sidechains(*leaves, ids, impl="torch")
+    n_res = ids.numel()
+    live = int(S.sidechain_inputs(bb, ang, ids)[4].clamp(
+        max=S.MAX_SC_ATOMS).sum())
     times = {
         "sidechain_fwd": (cuda_ms(lambda: fwd("cuda")),
                           cuda_ms(lambda: fwd("torch"))),
         "sidechain_bwd": (
-            cuda_ms(lambda: S.sidechain_bwd_cuda(built, *inputs[1:5], *ints,
-                                                 g_out)),
+            cuda_ms(lambda: S.sidechain_bwd_cuda(built, ang, ids, g_out)),
             cuda_ms(lambda: torch.autograd.grad(plain_graph, leaves, g_out,
                                                 retain_graph=True)))}
-    shape = tuple(inputs[5].shape)
+    shape = tuple(ids.shape)
     dev_ms = dict.fromkeys(times)
     if shape == SIDECHAIN_TRAIN_CASE:
         dev_ms = {"sidechain_fwd": device_ms(lambda: fwd("cuda")),
                   "sidechain_bwd": device_ms(lambda: S.sidechain_bwd_cuda(
-                      built, *inputs[1:5], *ints, g_out))}
-    out = {k: (*v, *bound(SIDECHAIN_BYTES[k] * n_res,
+                      built, ang, ids, g_out))}
+    out = {k: (*v, *bound(sidechain_bytes(k, ids),
                           FLOPS_PER_SLOT[k] * live), dev_ms[k])
            for k, v in times.items()}
     pair = (cuda_ms(lambda: fwd_bwd("cuda")), cuda_ms(lambda: fwd_bwd("torch")))
@@ -721,17 +761,23 @@ def phase_sidechain_kernel(dev, card):
     forward error is that on physical angles."""
     rng = np.random.default_rng(1)
     table, errs = {}, {"sidechain_fwd": 0.0, "sidechain_bwd": 0.0}
-    for case in SIDECHAIN_CASES:
-        _, _, g_full = sidechain_case_check(dev, rng, *case, physical=False)
-        inputs, err, g_phys = sidechain_case_check(dev, rng, *case,
-                                                   physical=True)
+    for case in (*((c, False) for c in SIDECHAIN_CASES),
+                 (SIDECHAIN_TYPES_CASE, True)):
+        (bsz, length), every_type = case
+        _, _, g_full = sidechain_case_check(dev, rng, bsz, length,
+                                            physical=False,
+                                            every_type=every_type)
+        inputs, err, g_phys = sidechain_case_check(dev, rng, bsz, length,
+                                                   physical=True,
+                                                   every_type=every_type)
         errs["sidechain_fwd"] = max(errs["sidechain_fwd"], err)
         # a lone residue is anchored on its own C: a degenerate frame whose
         # gradients are ~1e23, held to the relative gate above only
-        if case[1] > 1:
+        if length > 1:
             errs["sidechain_bwd"] = max(errs["sidechain_bwd"], g_full,
                                         g_phys)
-        table[case] = sidechain_times(inputs, card)
+        if not every_type:
+            table[(bsz, length)] = sidechain_times(inputs, card)
     return table, errs
 
 
@@ -871,7 +917,9 @@ def phase_slice(dev, card, out_dir):
     batch = next(trainers["all"].dm.eval_batches(split))
     for arm, tr in trainers.items():
         n_ops, dev_ms = profile_steps(lambda: tr.eval_step(params, batch))
-        print(f"[profile] eval step, {arm}: {n_ops:.0f} device operations "
+        syncs = sync_count(lambda: tr.eval_step(params, batch))
+        print(f"[profile] eval step, {arm}: {n_ops:.0f} device operations, "
+              f"{syncs} stream synchronisations "
               f"and {dev_ms:.2f} ms of device time per step; idle share "
               f"{1 - dev_ms / steps[arm]:.2f} of the {steps[arm]:.2f} ms "
               f"step timed above ({card})")
@@ -1066,8 +1114,10 @@ def phase_train(dev, card, out_dir):
         def step(arm=arm, tr=tr):
             states[arm] = tr.train_step(states[arm], batch)[0]
         n_ops, dev_ms = profile_steps(step)
+        syncs = sync_count(step)
         ms = 1e3 * statistics.median(times[arm])
-        print(f"[profile] train step, {arm}: {n_ops:.0f} device operations "
+        print(f"[profile] train step, {arm}: {n_ops:.0f} device operations, "
+              f"{syncs} stream synchronisations "
               f"and {dev_ms:.2f} ms of device time per step; idle share "
               f"{1 - dev_ms / ms:.2f} of the {ms:.2f} ms step timed above "
               f"({card})")

@@ -57,6 +57,23 @@ def sidechain_case(rng: np.random.Generator, bsz: int, length: int,
     return ang, ids
 
 
+# ids outside the force-field table's 24 rows, which the build clamps
+OUT_OF_TABLE_IDS = (-1, 24, 99)
+
+
+def with_every_type(rng: np.random.Generator, ids: np.ndarray) -> np.ndarray:
+    """A copy of ``ids`` in which random real (not padding) positions hold
+    every row of the force-field table (0..23: the 20 amino acids, pad,
+    unk, sos, eos) and ``OUT_OF_TABLE_IDS``; needs 27 real positions.
+    Padding keeps its zero angles, whose collinear frames no amino acid
+    should get."""
+    extra = np.r_[np.arange(ff.SC_NUM_ATOMS.shape[0]), OUT_OF_TABLE_IDS]
+    out = ids.copy()
+    real = np.flatnonzero(ids != VOCAB.pad_id)
+    out.flat[rng.choice(real, extra.size, replace=False)] = extra
+    return out
+
+
 def atom_mask_case(rng: np.random.Generator, bsz: int, n: int,
                    missing_atoms: float = 0.02) -> np.ndarray:
     """(B, n) bool atom masks as the training step builds them for its

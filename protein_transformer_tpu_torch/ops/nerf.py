@@ -13,10 +13,31 @@ setting can reach them (the JAX code pins Precision.HIGHEST for the same
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # Matches torch.nn.functional.normalize's zero-norm guard.
 NORM_EPS = 1e-12
+
+
+@functools.cache
+def device_constant(values, device: torch.device,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """``torch.tensor(values)`` on ``device``, made once per (values,
+    device, dtype): made per call on a GPU it is a host-to-device copy that
+    waits on the stream. Made outside inference mode, so that a later call
+    may save it for a backward; callers never write into it."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
+def as_operand(x, like: torch.Tensor) -> torch.Tensor:
+    """x as a tensor of ``like``'s dtype and device; a Python number comes
+    from ``device_constant``, never from a copy per call."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=like.dtype, device=like.device)
+    return device_constant(float(x), like.device, like.dtype)
 
 
 def normalize(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -36,9 +57,9 @@ def nerf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     x_hat = normalize(c - b)
     z_hat = normalize(torch.linalg.cross(w_hat, x_hat, dim=-1))
     y_hat = torch.linalg.cross(z_hat, x_hat, dim=-1)
-    length = torch.as_tensor(length, dtype=a.dtype, device=a.device)[..., None]
-    theta = torch.as_tensor(theta, dtype=a.dtype, device=a.device)[..., None]
-    chi = torch.as_tensor(chi, dtype=a.dtype, device=a.device)[..., None]
+    length = as_operand(length, a)[..., None]
+    theta = as_operand(theta, a)[..., None]
+    chi = as_operand(chi, a)[..., None]
     d = (-length * torch.cos(theta) * x_hat
          + length * torch.sin(theta) * torch.cos(chi) * y_hat
          + length * torch.sin(theta) * torch.sin(chi) * z_hat)

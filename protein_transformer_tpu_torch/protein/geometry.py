@@ -20,16 +20,14 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from protein_transformer_tpu_torch.protein import _ff14sb as ff
 from protein_transformer_tpu_torch.protein.constants import (
-    NUM_PREDICTED_ANGLES, NUM_PREDICTED_COORDS, SC_ANGLES_START_POS)
+    NUM_PREDICTED_ANGLES)
+from protein_transformer_tpu_torch.ops import sidechain
 from protein_transformer_tpu_torch.ops.nerf import (
-    chain_positions_grouped, frame_from_points, nerf)
-from protein_transformer_tpu_torch.ops.sidechain import (
-    build_sidechain_points, build_sidechain_points_torch)
+    chain_positions_grouped, device_constant, frame_from_points, nerf)
 
 _L_CN = ff.BB_CONST["c-n"]
 _L_NCA = ff.BB_CONST["n-ca"]
@@ -43,10 +41,10 @@ def build_backbone(angles: torch.Tensor) -> torch.Tensor:
     bsz, length = angles.shape[:2]
     dtype, device = angles.dtype, angles.device
 
-    # Seed residue 0 in the z=.001 plane.
-    n0 = torch.tensor([0.0, 0.0, 0.001], dtype=dtype,
-                      device=device).expand(bsz, 3)
-    ca0 = n0 + torch.tensor([_L_NCA, 0.0, 0.0], dtype=dtype, device=device)
+    # Seed residue 0 in the z=.001 plane. The constants are made once per
+    # (device, dtype): a copy per call would wait on the stream.
+    n0 = device_constant((0.0, 0.0, 0.001), device, dtype).expand(bsz, 3)
+    ca0 = n0 + device_constant((_L_NCA, 0.0, 0.0), device, dtype)
     t13 = math.pi - angles[:, 0, 3]
     c0 = ca0 + _L_CAC * torch.stack(
         [torch.cos(t13), torch.sin(t13), torch.zeros_like(t13)], dim=-1)
@@ -58,8 +56,8 @@ def build_backbone(angles: torch.Tensor) -> torch.Tensor:
     prev, cur = angles[:, :-1], angles[:, 1:]
     thetas = torch.stack([prev[..., 4], prev[..., 5], cur[..., 3]], dim=-1)
     chis = torch.stack([prev[..., 1], prev[..., 2], cur[..., 0]], dim=-1)
-    lengths = torch.tensor([_L_CN, _L_NCA, _L_CAC], dtype=dtype,
-                           device=device).expand(bsz, length - 1, 3)
+    lengths = device_constant((_L_CN, _L_NCA, _L_CAC), device,
+                              dtype).expand(bsz, length - 1, 3)
 
     r0 = frame_from_points(n0, ca0, c0)
     ext = chain_positions_grouped(r0, c0, lengths, thetas, chis)
@@ -72,64 +70,18 @@ def build_backbone(angles: torch.Tensor) -> torch.Tensor:
     return torch.cat([mainchain, o[:, :, None]], dim=2)
 
 
-def _table(arr: np.ndarray, aa: torch.Tensor, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(arr, dtype=dtype, device=aa.device)[aa]
-
-
-def sidechain_inputs(bb: torch.Tensor, angles: torch.Tensor,
-                     seq: torch.Tensor) -> tuple:
-    """What the slot chain takes besides the backbone, from the force-field
-    tables: (anchor (B, L, 3), torsions, bond lengths, bond angles (B, L, 10),
-    n_sc (B, L), frame indices (B, L, 10, 3))."""
-    length = bb.shape[1]
-    dtype = bb.dtype
-    aa = torch.clamp(seq.long(), 0, ff.SC_NUM_ATOMS.shape[0] - 1)
-
-    n_sc = _table(ff.SC_NUM_ATOMS, aa)                     # (B, L)
-    blen = _table(ff.SC_BOND_LEN, aa, dtype)               # (B, L, 10)
-    bang = _table(ff.SC_BOND_ANG, aa, dtype)
-    ttype = _table(ff.SC_TORSION_TYPE, aa)
-    tconst = _table(ff.SC_TORSION_CONST, aa, dtype)
-    tsrc = _table(ff.SC_TORSION_SRC, aa).long()
-    toff = _table(ff.SC_TORSION_PI_OFFSET, aa, dtype)
-    frame = _table(ff.SC_FRAME_IDX, aa).long()             # (B, L, 10, 3)
-
-    # Residue 0's first sidechain atom is framed by (next-N, C, CA) instead
-    # of (prev-C, N, CA); both use buffer slot 14 as the anchor.
-    frame[:, 0, 0] = torch.tensor([ff.ANCHOR_IDX, 2, 1], device=frame.device)
-
-    # Anchor: N of residue 1 for residue 0, else C of residue i-1. A lone
-    # residue (L=1) falls back to its own C so the build is defined.
-    if length == 1:
-        anchor = bb[:, :, 2]
-    else:
-        anchor = torch.cat([bb[:, 1:2, 0], bb[:, :-1, 2]], dim=1)
-
-    # Torsions: predicted chi (indexed by source slot) or the chemical
-    # constant, minus the pi offset of 'inferred' planar atoms.
-    chi_idx = torch.clamp(SC_ANGLES_START_POS + tsrc, 0,
-                          NUM_PREDICTED_ANGLES - 1)
-    chi_vals = torch.gather(angles, -1, chi_idx)
-    torsions = torch.where(ttype == ff.TORSION_PRED, chi_vals, tconst) - toff
-    return anchor, torsions, blen, bang, n_sc, frame
-
-
 def build_sidechains(bb: torch.Tensor, angles: torch.Tensor,
                      seq: torch.Tensor,
                      sidechain_impl: str = "auto") -> torch.Tensor:
     """Sidechain atoms given the backbone.
 
     bb: (B, L, 4, 3); angles: (B, L, 12); seq: (B, L) amino-acid ids.
-    sidechain_impl: "cuda" (the kernels), "torch" (plain) or "auto" (by
-    device), see ``ops.sidechain.build_sidechain_points``; the JAX package
-    selects the same through PTT_SIDECHAIN_IMPL. Returns (B, L, 14, 3),
-    unused slots zero."""
-    return build_sidechain_points(bb, *sidechain_inputs(bb, angles, seq),
-                                  impl=sidechain_impl)
-
-
-# The slot chain in plain tensor ops, under the name it has had here.
-build_sidechain_slots = build_sidechain_points_torch
+    sidechain_impl: "cuda" (the kernels: one K2a launch, which looks up the
+    force-field tables itself), "torch" (plain tensor ops) or "auto" (by
+    device), see ``ops.sidechain.build_sidechains``; the JAX package selects
+    the same through PTT_SIDECHAIN_IMPL. Returns (B, L, 14, 3), unused slots
+    zero."""
+    return sidechain.build_sidechains(bb, angles, seq, impl=sidechain_impl)
 
 
 def build_coords_batch(angles: torch.Tensor, seq: torch.Tensor,
