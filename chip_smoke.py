@@ -285,12 +285,12 @@ SIDECHAIN_BYTES = {"sidechain_fwd": 48 + 48 + 168,
                    "sidechain_bwd": 336 + 48 + 96}
 # operations per (query, key) pair that carries weight, in units of the head
 # dimension D: (fp32 on the CUDA cores, products on the tensor cores as
-# mathematics has them, not the split ones). K3a: S = Q K^T and P V in fp32
-# FMAs (2 D each). The backward: S, dP = dO V^T, dV, dK and dQ on the tensor
-# cores (2 D each), counted once though each of its two roles recomputes S
-# and dP. The exp, the maxima and the sums per pair are left out (~10
-# against 256 at D=64).
-ATTENTION_FLOPS_PER_PAIR = {"flash_attn_fwd": (4, 0),
+# mathematics has them, not the split ones). K3a: S = Q K^T and P V on the
+# tensor cores (2 D each). The backward: S, dP = dO V^T, dV, dK and dQ on
+# the tensor cores (2 D each), counted once though each of its two roles
+# recomputes S and dP. The exp, the maxima and the sums per pair are left
+# out (~10 against 256 at D=64).
+ATTENTION_FLOPS_PER_PAIR = {"flash_attn_fwd": (0, 4),
                             "flash_attn_bwd": (0, 10)}
 
 
@@ -321,6 +321,25 @@ def bound(n_bytes: float, flops: float, tensor_flops: float = 0.0,
 # profiler's device-side records of some calls
 device_ms = bench_drmsd_kernel.device_ms
 device_records = bench_drmsd_kernel.device_records
+
+
+def attention_bound(name: str, shape, pairs: int,
+                    with_stats: bool = False) -> tuple[float, str]:
+    """``bound`` of a flash kernel at (B, H, L, D) = ``shape`` for
+    ``pairs`` weighted (query, key) pairs. Bytes: each (B, H, L, D) tensor
+    and each (B, H, L) statistic read or written once, and the mask. K3a
+    reads q, k, v and writes O, and m and l ``with_stats``; the backward
+    reads q, k, v, dO, O, m and l and writes dQ, dK and dV."""
+    bsz, heads, length, dim = shape
+    tensor = 4 * bsz * heads * length * dim
+    stats = 4 * bsz * heads * length
+    n_bytes = {"flash_attn_fwd": 4 * tensor + (2 * stats if with_stats
+                                               else 0),
+               "flash_attn_bwd": 8 * tensor + 2 * stats}[name] \
+        + bsz * length
+    fp32_d, tensor_d = ATTENTION_FLOPS_PER_PAIR[name]
+    return bound(n_bytes, fp32_d * dim * pairs, tensor_d * dim * pairs,
+                 special=SPECIAL_PER_PAIR[name] * pairs)
 
 
 def profile_steps(fn, steps: int = 3) -> tuple[float, float]:
@@ -1339,9 +1358,17 @@ def attention_case(dev, card, rng, shape):
         return lambda: torch.autograd.grad(out, leaves, d_out,
                                            retain_graph=True)
 
+    # the forward as its main path calls it: with the row statistics where
+    # a gradient follows (the training step's shape), else without
+    with_stats = shape == ATTENTION_TRAIN_CASE
+
+    def forward():
+        return A.flash_attn_fwd_cuda(q, k, v, valid, scale,
+                                     with_stats=with_stats)
+
     times = {
         "flash_attn_fwd": (
-            cuda_ms(lambda: A.flash_attn_fwd_cuda(q, k, v, valid, scale)),
+            cuda_ms(forward),
             cuda_ms(no_grad(lambda: A.flash_self_attention_torch(
                 q, k, v, valid, sm_scale=scale))),
             cuda_ms(no_grad(lambda: sdpa(q, k, v, attn_mask=key_mask,
@@ -1357,18 +1384,11 @@ def attention_case(dev, card, rng, shape):
     # valid keys, or all L keys where there is none
     keys = np.where(n_valid > 0, n_valid, length)
     pairs = heads * length * int(keys.sum())
-    tensor = 4 * bsz * heads * length * dim   # bytes of one (B, H, L, D)
-    stats = 4 * bsz * heads * length          # bytes of one (B, H, L)
-    # the forward reads q, k, v and writes O; the backward reads q, k, v,
-    # dO, O, m and l and writes dQ, dK and dV; both read the mask
-    n_bytes = {"flash_attn_fwd": 4 * tensor + bsz * length,
-               "flash_attn_bwd": 8 * tensor + 2 * stats + bsz * length}
     errs = {"flash_attn_fwd": err, "flash_attn_bwd": max(b_errs)}
     dev_ms = lib_dev_ms = dict.fromkeys(times)
     if shape in (ATTENTION_PREDICT_CASE, ATTENTION_TRAIN_CASE):
         dev_ms = {
-            "flash_attn_fwd": device_ms(lambda: A.flash_attn_fwd_cuda(
-                q, k, v, valid, scale)),
+            "flash_attn_fwd": device_ms(forward),
             "flash_attn_bwd": device_ms(
                 lambda: A.flash_attn_bwd_cuda(*bwd_args))}
         # the library call's device time: its forward, and autograd's one
@@ -1379,11 +1399,8 @@ def attention_case(dev, card, rng, shape):
             "flash_attn_bwd": device_ms(backward(lib_out))}
     out = {}
     for name, t in times.items():
-        fp32_d, tensor_d = ATTENTION_FLOPS_PER_PAIR[name]
         out[name] = (errs[name], t[0], t[1],
-                     *bound(n_bytes[name], fp32_d * dim * pairs,
-                            tensor_d * dim * pairs,
-                            special=SPECIAL_PER_PAIR[name] * pairs),
+                     *attention_bound(name, shape, pairs, with_stats),
                      t[2], dev_ms[name], lib_dev_ms[name])
     print(f"[kernel] attention {where}: |d O| {err:.3e}, |d dQ| "
           f"{g_errs[0]:.3e}, |d dK| {g_errs[1]:.3e}, |d dV| {g_errs[2]:.3e} "

@@ -32,24 +32,58 @@
 // V^T, delta_i = sum_d dO[i][d] O[i][d], dV = P^T dO, dK = scale * dS^T Q,
 // dQ = scale * dS K.
 //
-// The forward (K3a): fp32 FMAs on the CUDA cores, 4 L^2 D operations a (b, h)
-// (1.07 GFLOP at B=8, H=8, L=256, D=64: 16 us at 67 TFLOP/s, 5 us by bytes).
-// exp is expf (never __expf: ~2 ulp more error on every probability, over
-// six layers).
-//   * one block of 256 threads (16 x 16) owns 64 query rows of one (b, h)
-//     and loops over 64-row key tiles, where the TPU grid ran sequentially
-//     over key blocks; no atomics, the same bits on every call.
-//   * tiles sit row-major in shared memory with a row stride of D + 4
-//     floats. For C[r][c] = A[r] . B[c] thread (ty, tx) holds rows 4 ty ..
-//     4 ty + 3 and the strided columns tx, tx + 16, tx + 32, tx + 48: the A
-//     rows are broadcasts within a half-warp, the B rows of neighbouring
-//     threads D + 4 floats apart, so their 16-byte loads fall in distinct
-//     banks: 8 vector loads for 64 FMAs.
-//   * the 64 x 64 tile of P goes through shared memory once (stride 68) for
-//     O += P V; row maxima and sums are reduced over the 16 threads of a row
-//     group by shuffles, in a fixed tree.
+// Both kernels take their products on the tensor cores: mma.sync m16n8k8 in
+// TF32 with every operand split into a TF32 head and remainder, three
+// products a tile (mma_tf32.cuh). The sums keep ~21 bits, fp32-grade (64-deep
+// scores within ~2e-7 of the largest from float64, where one TF32 product
+// misses by ~3e-4), which holds the forward's 2e-5 gate and the gradients'
+// 1e-4. exp is expf (never __expf: ~2 ulp more error on every probability,
+// over six layers). No atomics: the same bits on every call.
 //
-// The backward: one launch, two roles, products on the tensor cores.
+// The forward (K3a): 4 D operations a weighted (query, key) pair on the
+// tensor cores (0.78 GFLOP at B=8, H=8, L=256, D=64 on ragged rows: 1.6 us
+// at 495 TFLOP/s); what bounds it is bytes (q, k, v and O once, m and l when
+// written, the mask: 16.8 MB, 5.0 us at 3.35 TB/s). The design:
+//   * grid (ceil(L / 64), B * H) of 128-thread blocks, four warps; a warp
+//     owns 16 of the block's 64 query rows and walks the key tiles, where
+//     the TPU grid ran sequentially over key blocks.
+//   * Q in registers: a warp splits its rows once into TF32 head and rest
+//     fragments (left operands of S = Q K^T) and keeps them for the whole
+//     key loop (D <= 64; at D = 128 Q stays in shared memory as fp32 and is
+//     split as it is read, so that the accumulators fit).
+//   * K and V pipelined: the next tile's raw rows are in flight (cp.async,
+//     16 bytes, .cg; rows beyond L filled with zeros) while the warps take
+//     this tile's products. A tile is split once as it lands, by a loop
+//     unrolled so that a thread's reads are in flight together, into one
+//     16-byte word per (row, k-step, lane) that holds a lane's two TF32
+//     heads and two rests of a right operand: one conflict-free 128-bit
+//     shared load feeds three mma.sync.
+//   * P in registers: S leaves its accumulators straight into O += P V as
+//     the left operand, column 2t as k = t and 2t + 1 as k = t + 4
+//     (acc_as_left), and V's split follows that row order: no shared-memory
+//     round trip for P, two barriers a key tile.
+//   * online softmax by quad shuffles: each row's maximum is reduced over
+//     its four lanes (xor 1, then 2) every tile; each lane keeps its share
+//     of the row sum, rescaled by the same factor, and the four shares are
+//     added in that fixed order once, at the end.
+//   * key tiles without a valid key are skipped in every batch row that has
+//     one (they weigh exactly 0 there, before or after the first valid
+//     tile); a row with no valid key walks every tile at 1/L. The block
+//     reads its batch row's mask once, into bits in shared memory (a ballot
+//     a warp per 32 keys, while Q is in flight): no tile waits on the mask.
+//   * shared memory: the raw K and V tiles [keys][D + 4], their split (4
+//     keys D words) and L / 8 bytes of mask bits: 26, 51 and 100 KB at
+//     D = 16, 32 and 64 (64 keys a tile, two blocks an SM at D = 64); 133 KB
+//     at D = 128 (32 keys a tile, Q kept in shared memory).
+//   * what holds it back (PERF.md, section 6): 2 x 3 mma.sync a 16 x 8
+//     block of pairs, 384 a warp and key tile, which at the rate the card
+//     gives mma.sync (tools/bench_mma.py) take about a third of its time at
+//     (16, 8, 256, 64); at two blocks an SM (eight warps, 230 registers)
+//     each warp runs a tile's split, products and softmax in series. The
+//     next form takes the products as wgmma, with a warp group that loads
+//     and splits beside the ones that multiply.
+
+// The backward: one launch, two roles.
 //   * grid (kv_blocks + q_blocks, B * H) of 128-thread blocks (four warps, a
 //     warp owning 16 rows of 64). A dK/dV block owns 64 key rows, loops over
 //     every query tile and keeps dK and dV in registers; a dQ block owns 64
@@ -57,19 +91,12 @@
 //     wanted has no blocks. Each role recomputes S and dP (2 x 2D operations
 //     a pair each): 14 D a pair in all, against 10 D for one pass that would
 //     need dQ partials summed by a second pass. Every output element is
-//     written by one block, its sums taken in a fixed order: no atomics, the
-//     same bits on every call. delta is taken inside, from O and dO as a tile
-//     is staged, by the same code in both roles: no pre-pass, no (B, H, L)
-//     buffer.
+//     written by one block, its sums taken in a fixed order. delta is taken
+//     inside, from O and dO as a tile is staged, by the same code in both
+//     roles: no pre-pass, no (B, H, L) buffer.
 //   * the five products (S = Q K^T, dP = dO V^T, dV = P^T dO, dK = dS^T Q,
-//     dQ = dS K) are mma.sync m16n8k8 in TF32 with every operand split into a
-//     TF32 head and remainder, three products a tile (mma_tf32.cuh): the
-//     sums keep ~21 bits, fp32-grade (64-deep scores within ~2e-7 of the
-//     largest from float64, where one TF32 product misses by ~3e-4), which
-//     holds the gradients' 1e-4 gate. That is 3 x 2 operations a
-//     multiply-add on the tensor cores where an FMA was 2 on the CUDA cores
-//     (67 TFLOP/s). K3a keeps its FMAs: it is 4 D a pair, already ahead of
-//     the library's forward, and its 2e-5 gate is the model's.
+//     dQ = dS K) are split-TF32 mma.sync, 3 x 2 operations a multiply-add on
+//     the tensor cores.
 //   * what bounds it: bytes, by the count (q, k, v, dO, O read once, dQ, dK,
 //     dV written once, m, l and the mask: 20 us at (16, 8, 256, 64)); what
 //     holds it back is the 14 D a pair times three mma.sync, fed by 32-bit
@@ -79,11 +106,9 @@
 //     as head and rest (the right operands, read by all four warps); the
 //     block's own two tiles stay fp32 and are split as a warp loads its left
 //     operand, once a k-step for 8 products. S and dP leave the accumulators
-//     straight into the next product: their 8 columns are the contraction,
-//     so column 2t is taken as k = t and 2t + 1 as k = t + 4, which is the
-//     register mma.sync reads, and the right operand's rows follow that order
-//     (no shared-memory round trip for P or dS). Row stride D + 4 = 4 mod 32
-//     words: every fragment load of a warp hits 32 banks.
+//     straight into the next product (acc_as_left and right_perm). Row
+//     stride D + 4 = 4 mod 32 words: every fragment load of a warp hits 32
+//     banks.
 //   * key tiles without a valid key are skipped. A dQ block skips them in
 //     every batch row (dS is zero on masked keys). A dK/dV block whose tile
 //     has none, in a row that has a valid key, writes zeros to its rows (the
@@ -98,8 +123,7 @@
 //
 // q, k, v, o and the gradients are addressed by strides (batch, head, row;
 // elements of a row adjacent), so the (B, L, H, D) memory of the model's
-// head split is read and written in place. D is one of 16, 32, 64, 128; the
-// forward's shared memory is 70 KB at D=64 and 119 KB at D=128.
+// head split is read and written in place. D is one of 16, 32, 64, 128.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -113,11 +137,7 @@ using namespace tf32;
 
 namespace {
 
-constexpr int kTile = 64;             // query rows and key rows per tile
-constexpr int kGroup = 16;            // threads per row group
-constexpr int kThreads = kGroup * kGroup;
-constexpr int kRows = kTile / kGroup;  // rows (and strided columns) a thread
-constexpr int kPStride = kTile + 4;   // row stride of the forward's P tile
+constexpr int kTile = 64;  // query rows of a block; key rows of a tile
 
 constexpr unsigned char kKeyMasked = 0;
 constexpr unsigned char kKeyValid = 1;
@@ -134,159 +154,6 @@ __device__ inline float masked_score(float dot, float scale, unsigned char f) {
   return f == kKeyMasked ? -FLT_MAX : -CUDART_INF_F;
 }
 
-__device__ inline float group_max(float v) {
-#pragma unroll
-  for (int o = kGroup / 2; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ inline float group_sum(float v) {
-#pragma unroll
-  for (int o = kGroup / 2; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Rows row0 .. row0 + 63 of a (L, D) matrix with row stride `stride` into a
-// shared tile [64][D + 4]; rows beyond n_rows become zeros.
-template <int D>
-__device__ inline void load_tile(float* dst, const float* src,
-                                 long long stride, int row0, int n_rows,
-                                 int tid) {
-  constexpr int kVecs = D / 4;
-  for (int idx = tid; idx < kTile * kVecs; idx += kThreads) {
-    const int r = idx / kVecs, c = (idx % kVecs) * 4;
-    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (row0 + r < n_rows)
-      val = *reinterpret_cast<const float4*>(src + (row0 + r) * stride + c);
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + c) = val;
-  }
-}
-
-// acc[i][j] = A[4 ty + i] . B[tx + 16 j] over the D columns of two shared
-// tiles [64][D + 4].
-template <int D>
-__device__ inline void tile_dot(const float* a_tile, const float* b_tile,
-                                int ty, int tx, float (&acc)[kRows][kRows]) {
-  constexpr int DP = D + 4;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[kRows], b[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      a[i] = *reinterpret_cast<const float4*>(a_tile + (ty * kRows + i) * DP
-                                              + d);
-#pragma unroll
-    for (int j = 0; j < kRows; ++j)
-      b[j] = *reinterpret_cast<const float4*>(b_tile + (tx + kGroup * j) * DP
-                                              + d);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        float s = acc[i][j];
-        s = fmaf(a[i].x, b[j].x, s);
-        s = fmaf(a[i].y, b[j].y, s);
-        s = fmaf(a[i].z, b[j].z, s);
-        s = fmaf(a[i].w, b[j].w, s);
-        acc[i][j] = s;
-      }
-  }
-}
-
-// The columns of a D-wide row that thread tx holds: D / 16 of them, in
-// chunks of kVec = min(D / 16, 4) adjacent ones; chunk m starts at
-// m * 16 * kVec + tx * kVec.
-template <int D>
-struct Cols {
-  static constexpr int kCount = D / kGroup;
-  static constexpr int kVec = kCount < 4 ? kCount : 4;
-  static constexpr int kChunks = kCount / kVec;
-  __device__ static inline int start(int chunk, int tx) {
-    return chunk * kGroup * kVec + tx * kVec;
-  }
-};
-
-template <int V>
-__device__ inline void load_vec(const float* p, float* out) {
-  if constexpr (V == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    out[0] = t.x, out[1] = t.y, out[2] = t.z, out[3] = t.w;
-  } else if constexpr (V == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    out[0] = t.x, out[1] = t.y;
-  } else {
-    out[0] = p[0];
-  }
-}
-
-template <int V>
-__device__ inline void store_vec(float* p, const float* in) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  } else if constexpr (V == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(in[0], in[1]);
-  } else {
-    p[0] = in[0];
-  }
-}
-
-// out[i][c] += sum_j P[4 ty + i][j] * V[j][col c of thread tx], over the 64
-// rows j of the shared tiles P [64][68] and V [64][D + 4].
-template <int D>
-__device__ inline void tile_accum(const float* p_tile, const float* v_tile,
-                                  int ty, int tx,
-                                  float (&out)[kRows][D / kGroup]) {
-  using C = Cols<D>;
-  constexpr int DP = D + 4;
-  for (int j = 0; j < kTile; j += 4) {
-    float p[kRows][4];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      load_vec<4>(p_tile + (ty * kRows + i) * kPStride + j, p[i]);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      float v[C::kCount];
-#pragma unroll
-      for (int m = 0; m < C::kChunks; ++m)
-        load_vec<C::kVec>(v_tile + (j + jj) * DP + C::start(m, tx),
-                          v + m * C::kVec);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int c = 0; c < C::kCount; ++c)
-          out[i][c] = fmaf(p[i][jj], v[c], out[i][c]);
-    }
-  }
-}
-
-// Rows 4 ty + i of a thread's register tile, times `factor`, to the rows
-// row0 + 4 ty + i < n_rows of a strided (L, D) matrix.
-template <int D>
-__device__ inline void store_rows(float* dst, long long stride, int row0,
-                                  int n_rows, int ty, int tx,
-                                  const float (&acc)[kRows][D / kGroup],
-                                  const float (&factor)[kRows]) {
-  using C = Cols<D>;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = row0 + ty * kRows + i;
-    if (row >= n_rows) continue;
-    float scaled[C::kCount];
-#pragma unroll
-    for (int c = 0; c < C::kCount; ++c) scaled[c] = acc[i][c] * factor[i];
-#pragma unroll
-    for (int m = 0; m < C::kChunks; ++m)
-      store_vec<C::kVec>(dst + row * stride + C::start(m, tx),
-                         scaled + m * C::kVec);
-  }
-}
-
 // Flags of the keys k0 .. k0 + 63 of batch row b.
 __device__ inline unsigned char key_flag(const unsigned char* valid, int b,
                                          int length, int key) {
@@ -295,13 +162,169 @@ __device__ inline unsigned char key_flag(const unsigned char* valid, int b,
                                                          : kKeyMasked;
 }
 
-template <int D>
-constexpr int fwd_smem_bytes() {
-  return (3 * kTile * (D + 4) + kTile * kPStride) * 4 + kTile;
+// ------------------------------------------------- split-TF32 operands
+
+// The left operand (16 x 8 at row0, col0) of an fp32 tile [64][S], split.
+template <int S>
+__device__ __forceinline__ SplitFrag<4> left_split(const float* tile,
+                                                   int row0, int col0, int g,
+                                                   int t) {
+  const float* p = tile + (row0 + g) * S + col0 + t;
+  SplitFrag<4> a;
+  split_tf32(p[0], &a.head[0], &a.rest[0]);
+  split_tf32(p[8 * S], &a.head[1], &a.rest[1]);
+  split_tf32(p[4], &a.head[2], &a.rest[2]);
+  split_tf32(p[8 * S + 4], &a.head[3], &a.rest[3]);
+  return a;
 }
+
+// The right operand of A B^T from a staged tile [64][S] that holds B's
+// columns as rows: (k, n) = (t, g) and (t + 4, g) at tile row n0 + g, column
+// k0 + t. With S = D + 4 = 4 mod 32, a warp's 32 loads hit 32 banks.
+template <int S>
+__device__ __forceinline__ SplitFrag<2> right_t(const uint32_t* head,
+                                                const uint32_t* rest, int n0,
+                                                int k0, int g, int t) {
+  const int i = (n0 + g) * S + k0 + t;
+  return {{head[i], head[i + 4]}, {rest[i], rest[i + 4]}};
+}
+
+// The right operand of A B from a staged tile [64][S] that holds B's rows,
+// in the column order of acc_as_left: k = t is tile row k0 + 2t, k = t + 4
+// is row k0 + 2t + 1 (banks 8t + g: again all 32).
+template <int S>
+__device__ __forceinline__ SplitFrag<2> right_perm(const uint32_t* head,
+                                                   const uint32_t* rest,
+                                                   int k0, int n0, int g,
+                                                   int t) {
+  const int i = (k0 + 2 * t) * S + n0 + g;
+  return {{head[i], head[i + S]}, {rest[i], rest[i + S]}};
+}
+
+// ----------------------------------------------------------- the forward
+
+constexpr int kFwdWarps = 4;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+
+// Key rows of a staged tile, and whether a warp keeps its Q fragments in
+// registers: at D = 128 they would take 128 registers beside 64 of O, so Q
+// stays in shared memory and the tile is halved to fit it.
+template <int D>
+constexpr int kFwdKeys = D <= 64 ? kTile : kTile / 2;
+template <int D>
+constexpr bool kQInRegisters = D <= 64;
+
+// In 4-byte words: the raw K and V tiles [keys][D + 4], their split (2 keys
+// D words each), Q [64][D + 4] where it stays in shared memory (else staged
+// once in the split space, before the first tile is split), and the batch
+// row's valid-key bits, ceil(L / 32) words.
+template <int D>
+int fwd_smem_bytes(int length) {
+  constexpr int keys = kFwdKeys<D>;
+  constexpr int q_words = kQInRegisters<D> ? 0 : kTile * (D + 4);
+  return (2 * keys * (D + 4) + 4 * keys * D + q_words + (length + 31) / 32)
+         * 4;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool inside) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  // a source size of 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(inside ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Rows row0 .. row0 + kRows - 1 of a strided (L, D) matrix into a tile
+// [kRows][D + 4] by cp.async; rows beyond n_rows become zeros.
+template <int D, int kRows>
+__device__ __forceinline__ void stage_async(float* dst, const float* src,
+                                            long long stride, int row0,
+                                            int n_rows) {
+  constexpr int kVecs = D / 4;
+  for (int idx = threadIdx.x; idx < kRows * kVecs; idx += kFwdThreads) {
+    const int r = idx / kVecs, c = (idx % kVecs) * 4;
+    const bool inside = row0 + r < n_rows;
+    cp_async16(dst + r * (D + 4) + c,
+               inside ? src + (row0 + r) * stride + c : src, inside);
+  }
+}
+
+// x0 and x1 split: {head x0, head x1, rest x0, rest x1}, the two registers
+// of a right operand, head and rest, in one 16-byte word.
+__device__ __forceinline__ uint4 split_pair(float x0, float x1) {
+  uint4 w;
+  split_tf32(x0, &w.x, &w.z);
+  split_tf32(x1, &w.y, &w.w);
+  return w;
+}
+
+// A landed tile, split. K as the right operand of S = Q K^T:
+// ks[(kk keys + key) 4 + t] holds K[key][8 kk + t] and K[key][8 kk + t + 4].
+// V as the right operand of O += P V, rows in acc_as_left's order:
+// vs[(j D + d) 4 + t] holds V[8 j + 2 t][d] and V[8 j + 2 t + 1][d]. Row
+// stride D + 4 = 4 (20 at D = 16) mod 32 words: a warp's 32 reads of either
+// hit 32 banks, and its 16-byte writes are adjacent. Unrolled by four, so
+// that a thread has eight reads in flight (every warp waits on the split of
+// a landed tile before its products) without spilling Q's registers.
+template <int D>
+__device__ __forceinline__ void split_kv(uint4* ks, uint4* vs,
+                                         const float* k_raw,
+                                         const float* v_raw) {
+  constexpr int keys = kFwdKeys<D>, S = D + 4;
+  constexpr int kPerThread = keys * D / 2 / kFwdThreads;
+  static_assert(keys * D / 2 % kFwdThreads == 0, "whole rounds");
+#pragma unroll 4
+  for (int i = 0; i < kPerThread; ++i) {
+    const int idx = threadIdx.x + i * kFwdThreads;
+    const int t = idx % 4;
+    const int key = idx / 4 % keys, kk = idx / (4 * keys);
+    const float* pk = k_raw + key * S + 8 * kk + t;
+    ks[idx] = split_pair(pk[0], pk[4]);
+    const int d = idx / 4 % D, j = idx / (4 * D);
+    const float* pv = v_raw + (8 * j + 2 * t) * S + d;
+    vs[idx] = split_pair(pv[0], pv[S]);
+  }
+}
+
+// The valid-key bits of key tile `tile` from the batch row's words (bit j:
+// key tile * keys + j).
+template <int D>
+__device__ __forceinline__ unsigned long long tile_bits(const unsigned* bits,
+                                                        int tile,
+                                                        int n_words) {
+  constexpr int words = kFwdKeys<D> / 32;
+  const int w0 = tile * words;
+  unsigned long long out = bits[w0];
+  if (words > 1 && w0 + 1 < n_words)
+    out |= static_cast<unsigned long long>(bits[w0 + 1]) << 32;
+  return out;
+}
+
+// The first key tile at or after `from` that holds a valid key of the batch
+// row, or n_tiles; every tile from `from` on where the row has none. Read
+// from shared memory, the same for every thread.
+template <int D>
+__device__ __forceinline__ int next_live_tile(int from, int n_tiles,
+                                              bool row_valid,
+                                              const unsigned* bits,
+                                              int n_words) {
+  if (!row_valid) return from;
+  for (int tile = from; tile < n_tiles; ++tile)
+    if (tile_bits<D>(bits, tile, n_words) != 0) return tile;
+  return n_tiles;
+}
+
 // K3a. Grid (ceil(L / 64), B * H). m_out and l_out may be null.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFwdThreads)
 flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
                       const unsigned char* __restrict__ valid,
@@ -309,84 +332,162 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       float* __restrict__ l_out, int n_heads, int length,
                       float scale, Strides sq, Strides sk, Strides sv,
                       Strides so) {
+  constexpr int keys = kFwdKeys<D>, S = D + 4;
+  constexpr int NT = keys / 8, DT = D / 8;
+  constexpr bool kQRegs = kQInRegisters<D>;
   extern __shared__ __align__(16) float smem[];
-  constexpr int DP = D + 4;
-  constexpr int DC = D / kGroup;
-  float* q_s = smem;
-  float* k_s = q_s + kTile * DP;
-  float* v_s = k_s + kTile * DP;
-  float* p_s = v_s + kTile * DP;
-  unsigned char* flag_s = reinterpret_cast<unsigned char*>(p_s
-                                                           + kTile * kPStride);
-  const int tid = threadIdx.x, ty = tid / kGroup, tx = tid % kGroup;
+  float* k_raw = smem;
+  float* v_raw = k_raw + keys * S;
+  uint4* ks = reinterpret_cast<uint4*>(v_raw + keys * S);
+  uint4* vs = ks + keys * D / 2;
+  float* q_s = kQRegs ? reinterpret_cast<float*>(ks)
+                      : reinterpret_cast<float*>(vs + keys * D / 2);
+  unsigned* row_bits = kQRegs
+      ? reinterpret_cast<unsigned*>(vs + keys * D / 2)
+      : reinterpret_cast<unsigned*>(q_s + kTile * S);
+
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wrow = tid / 32 * 16;  // the warp's first row in the tile
   const int b = blockIdx.y / n_heads, h = blockIdx.y % n_heads;
   const int q0 = blockIdx.x * kTile;
-  const float* q_bh = q + b * sq.b + h * sq.h;
+  const bool rows_inside = q0 + wrow < length;
   const float* k_bh = k + b * sk.b + h * sk.h;
   const float* v_bh = v + b * sv.b + h * sv.h;
+  const unsigned char* valid_b = valid + static_cast<long long>(b) * length;
+  const int n_tiles = (length + keys - 1) / keys;
+  const int n_words = (length + 31) / 32;
 
-  load_tile<D>(q_s, q_bh, sq.l, q0, length, tid);
-  float acc[kRows][DC];
-  float m_run[kRows], l_run[kRows];
+  // Q in flight while the batch row's mask becomes bits in shared memory,
+  // one ballot a warp per 32 keys: no tile waits on the mask again
+  stage_async<D, kTile>(q_s, q + b * sq.b + h * sq.h, sq.l, q0, length);
+  bool any = false;
+  for (int c = tid / 32; c < n_words; c += kFwdWarps) {
+    const int key = 32 * c + lane;
+    const unsigned bits =
+        __ballot_sync(0xffffffffu, key < length && valid_b[key] != 0);
+    if (lane == 0) row_bits[c] = bits;
+    any |= bits != 0;
+  }
+  const bool row_valid = __syncthreads_or(any);
+  int tile = next_live_tile<D>(0, n_tiles, row_valid, row_bits, n_words);
+  if (tile < n_tiles) {
+    stage_async<D, keys>(k_raw, k_bh, sk.l, tile * keys, length);
+    stage_async<D, keys>(v_raw, v_bh, sv.l, tile * keys, length);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  SplitFrag<4> qf[kQRegs ? DT : 1];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m_run[i] = -FLT_MAX;
-    l_run[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.0f;
+    for (int kk = 0; kk < DT; ++kk)
+      qf[kk] = left_split<S>(q_s, wrow, 8 * kk, g, t);
+    __syncthreads();  // Q's space is the split tiles'
   }
 
-  for (int k0 = 0; k0 < length; k0 += kTile) {
-    load_tile<D>(k_s, k_bh, sk.l, k0, length, tid);
-    load_tile<D>(v_s, v_bh, sv.l, k0, length, tid);
-    if (tid < kTile) flag_s[tid] = key_flag(valid, b, length, k0 + tid);
+  float acc[DT][4] = {};
+  float m_run[2] = {-FLT_MAX, -FLT_MAX};
+  float l_part[2] = {0.f, 0.f};  // this lane's share of each row's sum
+  while (tile < n_tiles) {
+    const int k0 = tile * keys;
+    split_kv<D>(ks, vs, k_raw, v_raw);
     __syncthreads();
+    const int next = next_live_tile<D>(tile + 1, n_tiles, row_valid, row_bits,
+                                       n_words);
+    if (next < n_tiles) {
+      stage_async<D, keys>(k_raw, k_bh, sk.l, next * keys, length);
+      stage_async<D, keys>(v_raw, v_bh, sv.l, next * keys, length);
+    }
+    cp_async_commit();
 
-    float s[kRows][kRows];
-    tile_dot<D>(q_s, k_s, ty, tx, s);
+    if (rows_inside) {
+      float s[NT][4] = {};
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const unsigned char f = flag_s[tx + kGroup * j];
+      for (int kk = 0; kk < DT; ++kk) {
+        SplitFrag<4> a;
+        if constexpr (kQRegs)
+          a = qf[kk];
+        else
+          a = left_split<S>(q_s, wrow, 8 * kk, g, t);
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) s[i][j] = masked_score(s[i][j], scale, f);
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      float top = s[i][0];
-#pragma unroll
-      for (int j = 1; j < kRows; ++j) top = fmaxf(top, s[i][j]);
-      const float m_new = fmaxf(m_run[i], group_max(top));
-      const float alpha = expf(m_run[i] - m_new);
-      float row_sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        row_sum += p;
-        p_s[(ty * kRows + i) * kPStride + tx + kGroup * j] = p;
+        for (int j = 0; j < NT; ++j) {
+          const uint4 w = ks[(kk * keys + 8 * j + g) * 4 + t];
+          mma_split(s[j], a, SplitFrag<2>{{w.x, w.y}, {w.z, w.w}});
+        }
       }
-      l_run[i] = l_run[i] * alpha + group_sum(row_sum);
-      m_run[i] = m_new;
+      const unsigned long long bits = tile_bits<D>(row_bits, tile, n_words);
+      const int n_inside = length - k0;  // keys of the tile inside L
+      float top[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const float x = (bits >> col) & 1ull ? s[j][e] * scale
+                          : col < n_inside    ? -FLT_MAX
+                                              : -CUDART_INF_F;
+          s[j][e] = x;
+          top[e >> 1] = fmaxf(top[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        top[i] = fmaxf(top[i], __shfl_xor_sync(0xffffffffu, top[i], 1));
+        top[i] = fmaxf(top[i], __shfl_xor_sync(0xffffffffu, top[i], 2));
+        const float m_new = fmaxf(m_run[i], top[i]);
+        alpha[i] = expf(m_run[i] - m_new);
+        m_run[i] = m_new;
+        l_part[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = expf(s[j][e] - m_run[e >> 1]);
+          l_part[e >> 1] += p[e];
+        }
+        const SplitFrag<4> ap = acc_as_left(p);
+#pragma unroll
+        for (int n = 0; n < DT; ++n) {
+          const uint4 w = vs[(j * D + 8 * n + g) * 4 + t];
+          mma_split(acc[n], ap, SplitFrag<2>{{w.x, w.y}, {w.z, w.w}});
+        }
+      }
     }
+    cp_async_wait_all();
     __syncthreads();
-    tile_accum<D>(p_s, v_s, ty, tx, acc);
-    __syncthreads();
+    tile = next;
   }
 
-  float inv_l[kRows];
+  if (!rows_inside) return;
+  float l_row[2], inv_l[2];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) inv_l[i] = 1.0f / l_run[i];
-  store_rows<D>(o + b * so.b + h * so.h, so.l, q0, length, ty, tx, acc, inv_l);
-  if (m_out != nullptr && tx == 0) {
-    const long long row0 = static_cast<long long>(blockIdx.y) * length;
+  for (int i = 0; i < 2; ++i) {
+    float l = l_part[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_row[i] = l;
+    inv_l[i] = 1.0f / l;
+  }
+  float* o_bh = o + b * so.b + h * so.h;
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + ty * kRows + i;
-      if (row < length) {
-        m_out[row0 + row] = m_run[i];
-        l_out[row0 + row] = l_run[i];
-      }
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + wrow + g + 8 * i;
+    if (row >= length) continue;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      *reinterpret_cast<float2*>(o_bh + row * so.l + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * i] * inv_l[i],
+                      acc[n][2 * i + 1] * inv_l[i]);
+    if (m_out != nullptr && t == 0) {
+      const long long at = static_cast<long long>(blockIdx.y) * length + row;
+      m_out[at] = m_run[i];
+      l_out[at] = l_row[i];
     }
   }
 }
@@ -472,57 +573,6 @@ __device__ __forceinline__ void stage_bwd_tile(
       if (c == 0) delta[r] = part;
     }
   }
-}
-
-// The left operand (16 x 8 at row0, col0) of an fp32 tile [64][S], split.
-template <int S>
-__device__ __forceinline__ SplitFrag<4> left_split(const float* tile,
-                                                   int row0, int col0, int g,
-                                                   int t) {
-  const float* p = tile + (row0 + g) * S + col0 + t;
-  SplitFrag<4> a;
-  split_tf32(p[0], &a.head[0], &a.rest[0]);
-  split_tf32(p[8 * S], &a.head[1], &a.rest[1]);
-  split_tf32(p[4], &a.head[2], &a.rest[2]);
-  split_tf32(p[8 * S + 4], &a.head[3], &a.rest[3]);
-  return a;
-}
-
-// The right operand of A B^T from a staged tile [64][S] that holds B's
-// columns as rows: (k, n) = (t, g) and (t + 4, g) at tile row n0 + g, column
-// k0 + t. With S = D + 4 = 4 mod 32, a warp's 32 loads hit 32 banks.
-template <int S>
-__device__ __forceinline__ SplitFrag<2> right_t(const uint32_t* head,
-                                                const uint32_t* rest, int n0,
-                                                int k0, int g, int t) {
-  const int i = (n0 + g) * S + k0 + t;
-  return {{head[i], head[i + 4]}, {rest[i], rest[i + 4]}};
-}
-
-// The right operand of A B from a staged tile [64][S] that holds B's rows,
-// in the column order of acc_as_left: k = t is tile row k0 + 2t, k = t + 4
-// is row k0 + 2t + 1 (banks 8t + g: again all 32).
-template <int S>
-__device__ __forceinline__ SplitFrag<2> right_perm(const uint32_t* head,
-                                                   const uint32_t* rest,
-                                                   int k0, int n0, int g,
-                                                   int t) {
-  const int i = (k0 + 2 * t) * S + n0 + g;
-  return {{head[i], head[i + S]}, {rest[i], rest[i + S]}};
-}
-
-// An accumulator tile (16 x 8; a thread holds (g, 2t), (g, 2t + 1),
-// (g + 8, 2t), (g + 8, 2t + 1)) as the left operand of the next product,
-// split. The contraction runs over its 8 columns, so their order is free:
-// column 2t becomes k = t and column 2t + 1 becomes k = t + 4, which puts
-// every value in the register of its own thread that mma.sync reads.
-__device__ __forceinline__ SplitFrag<4> acc_as_left(const float (&c)[4]) {
-  SplitFrag<4> a;
-  split_tf32(c[0], &a.head[0], &a.rest[0]);
-  split_tf32(c[2], &a.head[1], &a.rest[1]);
-  split_tf32(c[1], &a.head[2], &a.rest[2]);
-  split_tf32(c[3], &a.head[3], &a.rest[3]);
-  return a;
 }
 
 // The dQ role: 64 query rows of one (b, h); loops over the key tiles that
@@ -790,11 +840,12 @@ int launch_fwd(const float* q, const float* k, const float* v,
                float* l_out, int batch, int n_heads, int length, float scale,
                const long long* st, cudaStream_t stream) {
   auto kernel = flash_attn_fwd_kernel<D>;
+  const int smem = fwd_smem_bytes<D>(length);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem_bytes<D>());
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((length + kTile - 1) / kTile, batch * n_heads);
-  kernel<<<grid, kThreads, fwd_smem_bytes<D>(), stream>>>(
+  kernel<<<grid, kFwdThreads, smem, stream>>>(
       q, k, v, valid, o, m_out, l_out, n_heads, length, scale,
       strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
       strides_at(st, 3));

@@ -10,9 +10,10 @@
 // contracts or reorders those, so the same inputs give the same bits in
 // every kernel that includes this file, whatever code surrounds them.
 //
-// The bench's variants K4a, K4b and K4c (drmsd_variants.cu) build on the
-// constants, unrank_pair, block_stat_partial, stat_reduce_kernel
-// and grad_gather_kernel of the first part.
+// The bench's variants K4a and K4b (drmsd_variants.cu) build on the
+// constants, unrank_pair, block_stat_partial and stat_reduce_kernel of the
+// first part; K4c on K1's compaction (compact), partial layout and
+// epilogue (k1_epilogue_kernel).
 
 #pragma once
 
@@ -135,36 +136,6 @@ stat_reduce_kernel(const float* __restrict__ part_s,
   }
 }
 
-// The gradient of every atom from the tile pairs' (3, kTile) row and column
-// partials, which hold what each tile pair adds to its row atoms and to its
-// column atoms. Grid (atom tiles, proteins), one thread per atom: the atom's
-// row partials (pairs (t, tj), tj = t .. T-1), then its column partials
-// (pairs (ti, t), ti = 0 .. t), each in ascending order.
-__global__ void __launch_bounds__(kTile)
-grad_gather_kernel(const float* __restrict__ part_row,
-                   const float* __restrict__ part_col, int n, int n_tiles,
-                   int n_pairs, float* __restrict__ out_g) {
-  const int t = blockIdx.x;
-  const int prot = blockIdx.y;
-  const int k = threadIdx.x;
-  const int atom = t * kTile + k;
-  const size_t base = static_cast<size_t>(prot) * n_pairs;
-  for (int c = 0; c < 3; ++c) {
-    float acc = 0.f;
-    for (int tj = t; tj < n_tiles; ++tj) {
-      const size_t slot = base + pair_index(t, tj, n_tiles);
-      acc += part_row[(slot * 3 + c) * kTile + k];
-    }
-    for (int ti = 0; ti <= t; ++ti) {
-      const size_t slot = base + pair_index(ti, t, n_tiles);
-      acc += part_col[(slot * 3 + c) * kTile + k];
-    }
-    if (atom < n) {
-      out_g[(static_cast<size_t>(prot) * n + atom) * 3 + c] = acc;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K1: the statistic (K1a), with dS/da (K1b) or dS/db alone (K1c).
 //
@@ -222,6 +193,39 @@ struct CompactTile {
   float2 xb[kTile];    // b_y, b_z
   short idx[kTile];    // compacted index of each tile position, -1: masked
 };
+
+// Compaction of a block's two tiles, in tile order: threads [0, kTile) hold
+// the column tile's atoms, the others the row tile's (none on a diagonal
+// tile pair, whose rows are its columns); `ok`: this thread's atom is valid.
+// Gives the atom's index among its tile's valid atoms (a warp ballot, then
+// a popcount prefix over the lanes and the warps before it) and both
+// counts. warp_count: kWarps shared ints. Every thread must call it; it
+// passes one barrier.
+struct Compacted {
+  int k;   // this atom's compacted index, where ok
+  int nr;  // valid atoms of the row tile (of the column tile on a diagonal)
+  int nc;  // valid atoms of the column tile
+};
+
+__device__ __forceinline__ Compacted compact(bool ok, bool diag,
+                                             int* warp_count) {
+  constexpr int kTileWarps = kTile / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned valid = __ballot_sync(0xffffffffu, ok);
+  if (lane == 0) warp_count[warp] = __popc(valid);
+  __syncthreads();
+  Compacted out{__popc(valid & ((1u << lane) - 1u)), 0, 0};
+  for (int w = warp / kTileWarps * kTileWarps; w < warp; ++w) {
+    out.k += warp_count[w];
+  }
+  for (int w = 0; w < kTileWarps; ++w) {
+    out.nc += warp_count[w];
+    out.nr += warp_count[kTileWarps + w];
+  }
+  if (diag) out.nr = out.nc;
+  return out;
+}
 
 // Sum of s over the block in a fixed order (warp shuffles, then the warps
 // in order); the result is thread 0's. red_s: kWarps shared slots. Every
@@ -359,7 +363,6 @@ k1_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
                int* __restrict__ part_c, float* __restrict__ part_row,
                float* __restrict__ part_col) {
   constexpr bool kStats = !kGrad || kWrtA;
-  constexpr int kTileWarps = kTile / 32;
   const int pair = blockIdx.x;
   const int prot = blockIdx.y;
   int ti, tj;
@@ -377,8 +380,6 @@ k1_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
   // row tile (none on a diagonal tile pair, whose rows are its columns).
   // The mask and the coordinates are read together: one round trip.
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int group = tid / kTile;
   const int pos = tid % kTile;
   const bool stages = group == 0 || !diag;
@@ -395,23 +396,14 @@ k1_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
     vb = make_float2(pb[1], pb[2]);
     ok = m != 0;
   }
-  const unsigned valid = __ballot_sync(0xffffffffu, ok);
-  if (lane == 0) warp_count[warp] = __popc(valid);
-  __syncthreads();
-  int k = __popc(valid & ((1u << lane) - 1u));
-  for (int w = group * kTileWarps; w < warp; ++w) k += warp_count[w];
+  const Compacted cp = compact(ok, diag, warp_count);
+  const int k = cp.k, nr = cp.nr, nc = cp.nc;
   CompactTile& mine = tiles[group];
   if (ok) {
     mine.xa[k] = va;
     mine.xb[k] = vb;
   }
   if (kGrad && stages) mine.idx[pos] = ok ? k : -1;
-  int nc = 0, nr = 0;
-  for (int w = 0; w < kTileWarps; ++w) {
-    nc += warp_count[w];
-    nr += warp_count[kTileWarps + w];
-  }
-  if (diag) nr = nc;
   __syncthreads();
 
   const size_t slot = static_cast<size_t>(prot) * n_pairs + pair;

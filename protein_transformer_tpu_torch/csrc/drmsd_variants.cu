@@ -16,43 +16,75 @@
 //     coef^T a_i as matrix products.
 // Every squared distance is clamped at 1e-30, as in the production kernels.
 //
-// What bounds them on Hopper: arithmetic on the CUDA cores. The matrix
-// products are 3 deep (K4b, and the cross terms of K4c) or 3 wide (K4c's
-// coef . x), so the tensor cores run at 3/8 of a tile at best, and what is
-// left per pair on the CUDA cores (the norms' sum, the clamp, the square
-// root, the mask, and for the split two conversions an operand) is of the
-// order of the production kernel's work. Device time on an NVIDIA H100 80GB
-// HBM3 at 700 W, B=8 x 3584 atoms (chip_smoke.py): K4a 0.085 ms beside
-// K1a's 0.081, K4b 0.114, K4c 0.261 beside K1b's 0.188 (which also gives S
-// and C): one root ties two rsqrt, and the tensor-core form loses.
+// What bounds them on Hopper: arithmetic a pair. K4a's one sqrtf ties
+// K1a's two rsqrt; K4b and K4c take two special functions a pair (19.8 us
+// for the bench's 41,475,020 pairs at B=8 x 3584). Their matrix products
+// are 3 deep (the cross terms) or 3 wide (K4c's coef . x), so the tensor
+// cores run at 3/8 of a tile at best, and what is left per pair on the CUDA
+// cores (the norms' sum, the clamp, the roots, the mask, and for the split
+// two conversions an operand) is of the order of K1's work.
 //
-// Design:
-//   * the grid, the partial sums and the final sums are the production
-//     kernels': grid = (upper-triangular tile pairs, proteins), an integer
-//     pair count, per-block (S, C) partials summed per protein in a fixed
-//     order (drmsd_common.cuh), and for K4c per-tile-pair row and column
-//     partials gathered in a fixed order. No float atomics: the same bits on
+// K4a and K4b: grid = (upper-triangular tile pairs,
+// proteins), 128 x 128 tile pairs staged with their masks, an integer pair
+// count, per-block (S, C) partials summed per protein in a fixed order
+// (drmsd_common.cuh). K4b's products run on the tensor cores with
+// mma.sync.aligned.m16n8k8 in TF32, the contraction padded from 3 to 8
+// with zeros. Plain TF32 keeps ~3 digits, and with coordinates of tens of
+// A the cross term is ~10^3 A^2 while a pair's term is ~1 A^2. So every
+// operand is split into a TF32 head and a TF32 remainder, and a product is
+// three TF32 products, remainder x head, head x remainder and head x head,
+// summed in fp32 in that order: what Precision.HIGHEST does on the TPU with
+// bf16 passes (mma_tf32.cuh). A warp owns 16 rows of the tile pair and
+// walks its 16 column groups of 8.
+//
+// K4c is built on K1's body (drmsd_common.cuh), so that beside K1b it
+// differs only in the form of the term:
+//   * K1's grid, its compaction of each tile's valid atoms as they are
+//     staged (compact: warp ballot + popcount prefix, tile order kept; a
+//     diagonal tile pair counts compacted row < column), K1's (3, 128) row
+//     and column partials per tile pair in tile positions (every block
+//     writes its partials, zeros included) and K1's epilogue
+//     (k1_epilogue_kernel: per atom its row partials, then its column
+//     partials, in ascending order). No float atomics: the same bits on
 //     every call.
-//   * the matrix products run on the tensor cores with
-//     mma.sync.aligned.m16n8k8 in TF32, the contraction padded from 3 to 8
-//     with zeros. Plain TF32 keeps ~3 digits, and with coordinates of tens
-//     of A the cross term is ~10^3 A^2 while a pair's term is ~1 A^2. So
-//     every operand is split into a TF32 head and a TF32 remainder, and a
-//     product is three TF32 products, remainder x head, head x remainder and
-//     head x head, summed in fp32 in that order: what Precision.HIGHEST does
-//     on the TPU with bf16 passes.
-//   * a warp owns 16 rows of the 128 x 128 tile pair and walks its 16
-//     column groups of 8. Its cross-term accumulators hold (row g, g + 8;
-//     columns 2t, 2t + 1) per thread (g = lane / 4, t = lane % 4). K4c
-//     feeds coef from those registers straight back as the left operand of
-//     coef . x: the contraction runs over the columns, so the column order
-//     inside a group of 8 is free as long as the right operand's rows follow
-//     it (k = t is column 2t, k = t + 4 is column 2t + 1).
-//   * K4c sweeps a tile pair twice, as drmsd_train.cu does: once with the
-//     row tile's atoms as the rows of coef (the row partial) and once with
-//     the column tile's (the column partial, coef^T), so that no transpose
-//     across threads is needed. The row sums of coef are fp32 sums on the
-//     CUDA cores, reduced over the four threads of a row by shuffles.
+//   * a compacted tile is staged in the layouts its products read: per atom
+//     and component one 16-byte word of the split a and b (the cross term's
+//     operands), per pair of atoms and component the split a of both (the
+//     right operand of coef . a_j in acc_as_left's row order), the fp32 a
+//     and both squared norms. Slots past the count are zeros.
+//   * one sweep: warp w owns compacted rows 16 w .. 16 w + 15 and walks the
+//     valid columns in blocks of 16; each pair's two cross terms, squared
+//     distances and coef (sqrt.approx and rsqrt.approx: two special
+//     functions) are computed once. The row partial a_i rowsum(coef) -
+//     coef a_j accumulates over the blocks: coef leaves its accumulators
+//     straight in as the left operand (acc_as_left).
+//   * the column partial a_j colsum(coef) - coef^T a_i needs coef
+//     transposed: a product's contraction runs over the index its
+//     accumulator spreads across a quad (the columns), never over the one
+//     it spreads across quads (the rows). Of the two ways, quad shuffles
+//     into the left-operand layout (two shuffles and a select a register)
+//     or coef as the right operand of a second product (which needs the
+//     same transpose), the block of 16 x 16 goes through the warp's own
+//     scratch in shared memory instead: two 8-byte writes and four 4-byte
+//     reads a lane for each 8 rows, conflict-free with a row stride of 24
+//     words, then coef^T is the left operand with 16 columns as its rows:
+//     6 TF32 products for 256 pairs, where coef as a right operand would
+//     fill 3 of its 16 rows and take twice as many.
+//   * the row and column sums come from the same products: the right
+//     operands carry ones in their fourth column (head 1, rest 0).
+//   * the column partials of a block's eight warps are summed in warp
+//     order when the block writes its partials.
+// Device time on an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/bench_drmsd_kernel.py, PERF.md section 6): K4c 0.139-0.140 ms at
+// B=8 x 3584 atoms (a loop of two sweeps a tile pair without compaction:
+// 0.261-0.263 in the same call), 1.45x K1b's 0.096, which also gives S
+// and C; K4a 0.085, K4b 0.111 beside K1a's 0.058. What holds K4c back is
+// not its products: 24 TF32 products a block of 16 x 16 pairs, 3.9
+// million for the bench's 41,475,020 pairs, take 25 us at the rate
+// mma.sync reaches on the card (tools/bench_mma.py), a fifth of its time,
+// at 24 warps an SM (66 registers, 54 KB of shared memory a block); each
+// warp's row partial accumulates through the products of every column
+// block, and the transpose adds two warp barriers a block.
 
 #include "drmsd_common.cuh"
 #include "mma_tf32.cuh"
@@ -138,11 +170,10 @@ sqrt1_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 // to_tf32, mma_tf32, SplitFrag, split_tf32 and mma_split: mma_tf32.cuh.
 
-// One staged tile of kTile atoms: fp32 coordinates of a, their split, the
-// split of b's, the squared norms and the mask. Atoms beyond n are zeros
-// with the mask off.
+// One staged tile of kTile atoms (K4b): the split coordinates of a and b,
+// the squared norms and the mask. Atoms beyond n are zeros with the mask
+// off.
 struct Tile {
-  float xa[3][kTile];
   uint32_t a_head[3][kTile];
   uint32_t a_rest[3][kTile];
   uint32_t b_head[3][kTile];
@@ -165,7 +196,6 @@ __device__ __forceinline__ void stage_atom(Tile& tile, int k, int t,
   for (int c = 0; c < 3; ++c) {
     xa[c] = ok ? a[o + c] : 0.f;
     xb[c] = ok ? b[o + c] : 0.f;
-    tile.xa[c][k] = xa[c];
     split_tf32(xa[c], &tile.a_head[c][k], &tile.a_rest[c][k]);
     split_tf32(xb[c], &tile.b_head[c][k], &tile.b_rest[c][k]);
   }
@@ -302,91 +332,277 @@ mxu_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 // ---------------------------------------------------------------- K4c
 
-// One sweep of a tile pair: the atoms of `rows` as the rows of coef, those
-// of `cols` as its columns. Writes x_r rowsum(coef) - coef x_c for the 16
-// rows of every warp into part (3, kTile). A pair counts where both atoms
-// are unmasked and the atom of the row tile (ti) comes before the atom of
-// the column tile (tj) in the protein: kRowsFirst says whether `rows` is the
-// row tile.
-template <bool kRowsFirst>
-__device__ __forceinline__ void grad_sweep(const Tile& rows, const Tile& cols,
-                                           int row_base, int col_base,
-                                           float* __restrict__ part) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const WarpRows w = warp_rows(rows, (threadIdx.x >> 5) * 16, g, t);
+// One tile's valid atoms, compacted in tile order as K1 compacts them, in
+// the layouts that K4c's products read. Slots past the count hold zeros.
+constexpr int kPairStride = kTile / 2 + 4;  // 4 mod 8 words of 16 bytes
+struct MxuTile {
+  // per component c (c = 3: zeros): {head a_c, rest a_c, head b_c, rest b_c}
+  uint4 x[kTile][4];
+  // per component c < 3 and pair p of atoms 2p, 2p + 1:
+  // {head a_c(2p), head a_c(2p + 1), rest a_c(2p), rest a_c(2p + 1)}
+  uint4 a2[3][kPairStride];
+  float4 a[kTile];     // a_x, a_y, a_z, 0
+  float2 norm[kTile];  // |a|^2, |b|^2
+  short idx[kTile];    // compacted index of each tile position, -1: masked
+};
 
-  // coef x_c, entry e at (row g + 8 (e / 2), component 2 t + e % 2)
-  float m[4] = {0.f, 0.f, 0.f, 0.f};
-  // this thread's share of the sums of rows g and g + 8
-  float sum_lo = 0.f, sum_hi = 0.f;
-  for (int c0 = 0; c0 < kTile; c0 += 8) {
-    float d2a[4], d2b[4];
-    d2_block(rows, cols, w, c0, g, t, d2a, d2b);
-    float coef[4];
-    for (int e = 0; e < 4; ++e) {
-      const int row = w.r0 + g + 8 * (e >> 1);
-      const int col = c0 + 2 * t + (e & 1);
-      const int gr = row_base + row;
-      const int gc = col_base + col;
-      const bool counts = rows.m[row] && cols.m[col] &&
-                          (kRowsFirst ? gr < gc : gc < gr);
-      coef[e] = counts ? 2.f * (1.f - sqrtf(d2b[e]) * rsqrtf(d2a[e])) : 0.f;
+// Row stride of a warp's coef scratch [16][kCoefStride]: 8 mod 32 words, so
+// that its 8-byte writes and its transposed 4-byte reads hit 32 banks.
+constexpr int kCoefStride = 24;
+
+struct MxuShared {
+  MxuTile tiles[2];  // [0] the column tile tj, [1] the rows
+  float coef[kWarps][16 * kCoefStride];
+  float red_row[3][kTile];          // row partials by compacted row
+  float red_col[kWarps][3][kTile];  // each warp's column partials
+  int warp_count[kWarps];
+};
+
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float r;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float rsqrt_approx(float x) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// Compacted slot k of `tile` from one atom's coordinates; zeros for
+// coordinates of zero (the slots past the count).
+__device__ __forceinline__ void put_atom(MxuTile& tile, int k,
+                                         const float (&xa)[3],
+                                         const float (&xb)[3]) {
+  uint32_t* a2 = reinterpret_cast<uint32_t*>(&tile.a2[0][k >> 1]);
+  for (int c = 0; c < 3; ++c) {
+    uint4 w;
+    split_tf32(xa[c], &w.x, &w.y);
+    split_tf32(xb[c], &w.z, &w.w);
+    tile.x[k][c] = w;
+    a2[c * kPairStride * 4 + (k & 1)] = w.x;
+    a2[c * kPairStride * 4 + 2 + (k & 1)] = w.y;
+  }
+  tile.x[k][3] = make_uint4(0u, 0u, 0u, 0u);
+  tile.a[k] = make_float4(xa[0], xa[1], xa[2], 0.f);
+  tile.norm[k] = make_float2(
+      fmaf(xa[2], xa[2], fmaf(xa[1], xa[1], xa[0] * xa[0])),
+      fmaf(xb[2], xb[2], fmaf(xb[1], xb[1], xb[0] * xb[0])));
+}
+
+// Warp w's share of one sweep: compacted rows 16 w .. 16 w + 15 against
+// every column, each pair's coef computed once. Writes the rows' partials
+// a_i rowsum(coef) - coef a_j into red_row and, per block of 16 columns,
+// a_j colsum(coef) - coef^T a_i into red_col[w]. kDiag: rows and columns
+// are one tile, and only compacted row < column counts.
+template <bool kDiag>
+__device__ __forceinline__ void mxu_grad_sweep(MxuShared& sh,
+                                               const MxuTile& rows,
+                                               const MxuTile& cols, int nr,
+                                               int nc) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * w;
+  const uint32_t one = __float_as_uint(1.f);
+  // the cross terms' left operands: rows r0 + g, r0 + g + 8, component t
+  const uint4 lo = rows.x[r0 + g][t], hi = rows.x[r0 + g + 8][t];
+  const SplitFrag<4> ra{{lo.x, hi.x, 0u, 0u}, {lo.y, hi.y, 0u, 0u}};
+  const SplitFrag<4> rb{{lo.z, hi.z, 0u, 0u}, {lo.w, hi.w, 0u, 0u}};
+  const float2 n_lo = rows.norm[r0 + g], n_hi = rows.norm[r0 + g + 8];
+  // coef^T a_i's right operand: component g of rows r0 + 8 kk + t and
+  // + t + 4; for g = 3 ones, which make column 3 the column sums
+  SplitFrag<2> ai[2];
+  for (int kk = 0; kk < 2; ++kk)
+    for (int q = 0; q < 2; ++q) {
+      const uint4 x = rows.x[r0 + 8 * kk + t + 4 * q][g < 3 ? g : 0];
+      ai[kk].head[q] = g < 3 ? x.x : g == 3 ? one : 0u;
+      ai[kk].rest[q] = g < 3 ? x.y : 0u;
     }
-    sum_lo += coef[0] + coef[1];
-    sum_hi += coef[2] + coef[3];
-    // coef as the left operand: k = t is column 2t, k = t + 4 is column
-    // 2t + 1; the right operand's rows follow that order
-    SplitFrag<4> left;
-    split_tf32(coef[0], &left.head[0], &left.rest[0]);
-    split_tf32(coef[2], &left.head[1], &left.rest[1]);
-    split_tf32(coef[1], &left.head[2], &left.rest[2]);
-    split_tf32(coef[3], &left.head[3], &left.rest[3]);
-    SplitFrag<2> right;
-    const bool live = g < 3;
-    const int c = live ? g : 0;
-    const int col = c0 + 2 * t;
-    right.head[0] = live ? cols.a_head[c][col] : 0u;
-    right.rest[0] = live ? cols.a_rest[c][col] : 0u;
-    right.head[1] = live ? cols.a_head[c][col + 1] : 0u;
-    right.rest[1] = live ? cols.a_rest[c][col + 1] : 0u;
-    mma_split(m, left, right);
+  float* scratch = sh.coef[w];
+  // coef a_j: (row g, components 2t, 2t + 1), (row g + 8, ...); column 3
+  // is the row sums
+  float m_row[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int cb = kDiag ? w : 0; 16 * cb < nc; ++cb) {
+    float coef[2][4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c0 = 16 * cb + 8 * hh;
+      const uint4 xc = cols.x[c0 + g][t];
+      float cross_a[4] = {0.f, 0.f, 0.f, 0.f};
+      float cross_b[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_split(cross_a, ra, SplitFrag<2>{{xc.x, 0u}, {xc.y, 0u}});
+      mma_split(cross_b, rb, SplitFrag<2>{{xc.z, 0u}, {xc.w, 0u}});
+      // |a|^2, |b|^2 of columns c0 + 2t and c0 + 2t + 1
+      const float4 nc2 =
+          *reinterpret_cast<const float4*>(&cols.norm[c0 + 2 * t]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + g + 8 * (e >> 1);
+        const int col = c0 + 2 * t + (e & 1);
+        const float2 nr2 = (e >> 1) ? n_hi : n_lo;
+        const float d2a = fmaxf(
+            (nr2.x + ((e & 1) ? nc2.z : nc2.x)) - 2.f * cross_a[e],
+            kDistClamp);
+        const float d2b = fmaxf(
+            (nr2.y + ((e & 1) ? nc2.w : nc2.y)) - 2.f * cross_b[e],
+            kDistClamp);
+        const bool counts = row < nr && col < nc && (!kDiag || row < col);
+        coef[hh][e] =
+            counts ? 2.f * (1.f - sqrt_approx(d2b) * rsqrt_approx(d2a))
+                   : 0.f;
+      }
+      // coef a_j: coef from its accumulators as the left operand (column
+      // 2t as k = t, 2t + 1 as k = t + 4), a_j's rows in that order
+      SplitFrag<2> aj{{0u, 0u}, {0u, 0u}};
+      if (g < 3) {
+        const uint4 x = cols.a2[g][c0 / 2 + t];
+        aj = SplitFrag<2>{{x.x, x.y}, {x.z, x.w}};
+      } else if (g == 3) {
+        aj.head[0] = aj.head[1] = one;
+      }
+      mma_split(m_row, acc_as_left(coef[hh]), aj);
+    }
+    // coef^T a_i: the 16 x 16 coef block through the warp's scratch, read
+    // back transposed as the left operand (columns as its rows)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<float2*>(scratch + (g + 8 * i) * kCoefStride +
+                                   8 * hh + 2 * t) =
+            make_float2(coef[hh][2 * i], coef[hh][2 * i + 1]);
+    __syncwarp();
+    float m_col[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const float* p = scratch + (8 * kk + t) * kCoefStride + g;
+      SplitFrag<4> a;
+      split_tf32(p[0], &a.head[0], &a.rest[0]);
+      split_tf32(p[8], &a.head[1], &a.rest[1]);
+      split_tf32(p[4 * kCoefStride], &a.head[2], &a.rest[2]);
+      split_tf32(p[4 * kCoefStride + 8], &a.head[3], &a.rest[3]);
+      mma_split(m_col, a, ai[kk]);
+    }
+    __syncwarp();
+    // (column g, components 2t, 2t + 1), (column g + 8, ...): lane t = 1
+    // holds component 2 and the column sums
+    const int src = (lane & ~3) | 1;
+    const float sum_lo = __shfl_sync(0xffffffffu, m_col[1], src);
+    const float sum_hi = __shfl_sync(0xffffffffu, m_col[3], src);
+    if (t < 2) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int col = 16 * cb + g + 8 * i;
+        if (col >= nc) continue;
+        const float4 x = cols.a[col];
+        const float sum = i ? sum_hi : sum_lo;
+        if (t == 0) {
+          sh.red_col[w][0][col] = x.x * sum - m_col[2 * i];
+          sh.red_col[w][1][col] = x.y * sum - m_col[2 * i + 1];
+        } else {
+          sh.red_col[w][2][col] = x.z * sum - m_col[2 * i];
+        }
+      }
+    }
   }
-  for (int off = 1; off < 4; off <<= 1) {
-    sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, off);
-    sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, off);
-  }
-  for (int e = 0; e < 4; ++e) {
-    const int c = 2 * t + (e & 1);
-    const int row = w.r0 + g + 8 * (e >> 1);
-    if (c < 3) {
-      part[c * kTile + row] =
-          rows.xa[c][row] * ((e >> 1) ? sum_hi : sum_lo) - m[e];
+  const int src = (lane & ~3) | 1;
+  const float sum_lo = __shfl_sync(0xffffffffu, m_row[1], src);
+  const float sum_hi = __shfl_sync(0xffffffffu, m_row[3], src);
+  if (t < 2) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + g + 8 * i;
+      if (row >= nr) continue;
+      const float4 x = rows.a[row];
+      const float sum = i ? sum_hi : sum_lo;
+      if (t == 0) {
+        sh.red_row[0][row] = x.x * sum - m_row[2 * i];
+        sh.red_row[1][row] = x.y * sum - m_row[2 * i + 1];
+      } else {
+        sh.red_row[2][row] = x.z * sum - m_row[2 * i];
+      }
     }
   }
 }
 
+// K4c's tile kernel: grid (upper-triangular tile pairs, proteins), K1's
+// staging with compaction, one sweep, and K1's (3, kTile) row and column
+// partials per tile pair (zeros for masked positions and for a block
+// without a pair). sizeof(MxuShared) of dynamic shared memory.
 __global__ void __launch_bounds__(kThreads)
 mxu_grad_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
                      const uint8_t* __restrict__ mask, int n, int n_tiles,
                      int n_pairs, float* __restrict__ part_row,
                      float* __restrict__ part_col) {
+  extern __shared__ float4 mxu_dynamic[];
+  MxuShared& sh = *reinterpret_cast<MxuShared*>(mxu_dynamic);
   const int pair = blockIdx.x;
   const int prot = blockIdx.y;
   int ti, tj;
   unrank_pair(pair, n_tiles, &ti, &tj);
+  const bool diag = ti == tj;
 
-  __shared__ Tile row_tile;
-  __shared__ Tile col_tile;
+  const int tid = threadIdx.x;
+  const int group = tid / kTile;
+  const int pos = tid % kTile;
+  const bool stages = group == 0 || !diag;
+  const int atom = (group == 0 ? tj : ti) * kTile + pos;
+  const size_t base = static_cast<size_t>(prot) * n;
+  float xa[3] = {0.f, 0.f, 0.f}, xb[3] = {0.f, 0.f, 0.f};
+  bool ok = false;
+  if (stages && atom < n) {
+    ok = mask[base + atom] != 0;
+    for (int c = 0; c < 3; ++c) {
+      xa[c] = a[(base + atom) * 3 + c];
+      xb[c] = b[(base + atom) * 3 + c];
+    }
+  }
+  float* red_col = &sh.red_col[0][0][0];
+  for (int e = tid; e < kWarps * 3 * kTile; e += kThreads) red_col[e] = 0.f;
+  const Compacted cp = compact(ok, diag, sh.warp_count);
+  MxuTile& mine = sh.tiles[group];
+  if (stages) {
+    const int count = group == 0 ? cp.nc : cp.nr;
+    if (ok) put_atom(mine, cp.k, xa, xb);
+    if (pos >= count) {
+      const float zero[3] = {0.f, 0.f, 0.f};
+      put_atom(mine, pos, zero, zero);
+    }
+    mine.idx[pos] = ok ? cp.k : -1;
+  }
+  __syncthreads();
 
-  stage_pair(row_tile, col_tile, ti, tj, a, b, mask,
-             static_cast<size_t>(prot) * n, n);
   const size_t slot = static_cast<size_t>(prot) * n_pairs + pair;
-  grad_sweep<true>(row_tile, col_tile, ti * kTile, tj * kTile,
-                   part_row + slot * 3 * kTile);
-  grad_sweep<false>(col_tile, row_tile, tj * kTile, ti * kTile,
-                    part_col + slot * 3 * kTile);
+  float* row_out = part_row + slot * 3 * kTile;
+  float* col_out = part_col + slot * 3 * kTile;
+  if (cp.nr == 0 || cp.nc == 0) {
+    for (int e = tid; e < 3 * kTile; e += kThreads) {
+      row_out[e] = 0.f;
+      col_out[e] = 0.f;
+    }
+    return;
+  }
+  const MxuTile& rows = sh.tiles[diag ? 0 : 1];
+  const MxuTile& cols = sh.tiles[0];
+  if (16 * (tid >> 5) < cp.nr) {
+    if (diag)
+      mxu_grad_sweep<true>(sh, rows, cols, cp.nr, cp.nc);
+    else
+      mxu_grad_sweep<false>(sh, rows, cols, cp.nr, cp.nc);
+  }
+  __syncthreads();
+  // tile positions: each warp's column partials summed in warp order
+  for (int e = tid; e < 3 * kTile; e += kThreads) {
+    const int c = e / kTile, p = e % kTile;
+    const int kr = rows.idx[p], kc = cols.idx[p];
+    row_out[e] = kr >= 0 ? sh.red_row[c][kr] : 0.f;
+    float v = 0.f;
+    if (kc >= 0) {
+      for (int w = 0; w < kWarps; ++w) v += sh.red_col[w][c][kc];
+    }
+    col_out[e] = v;
+  }
 }
 
 bool bad_shape(int batch, int n) {
@@ -453,12 +669,19 @@ int drmsd_grad_a_mxu(const float* a, const float* b, const uint8_t* mask,
   const int n_tiles = (n + kTile - 1) / kTile;
   const int n_pairs = n_tiles * (n_tiles + 1) / 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mxu_grad_tile_kernel<<<dim3(n_pairs, batch), kThreads, 0, s>>>(
-      a, b, mask, n, n_tiles, n_pairs, part_row, part_col);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaFuncSetAttribute(
+      mxu_grad_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sizeof(MxuShared));
   if (err != cudaSuccess) return static_cast<int>(err);
-  grad_gather_kernel<<<dim3(n_tiles, batch), kTile, 0, s>>>(
-      part_row, part_col, n, n_tiles, n_pairs, out_g);
+  mxu_grad_tile_kernel<<<dim3(n_pairs, batch), kThreads, sizeof(MxuShared),
+                         s>>>(a, b, mask, n, n_tiles, n_pairs, part_row,
+                              part_col);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k1_epilogue_kernel<false, true><<<dim3(n_tiles, batch), kEpilogueThreads,
+                                    0, s>>>(nullptr, nullptr, part_row,
+                                            part_col, n, n_tiles, n_pairs,
+                                            nullptr, nullptr, out_g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,7 @@
 // product a b is taken as three TF32 products, rest x head, head x rest and
 // head x head, summed in fp32 in that order (the small terms first; rest x
 // rest is below fp32's own rounding). Used by drmsd_variants.cu (K4b, K4c)
-// and attention.cu (the flash backward).
+// and attention.cu (K3a and the flash backward).
 #pragma once
 
 #include <cstdint>
@@ -56,6 +56,20 @@ __device__ __forceinline__ void mma_split(float (&d)[4],
   mma_tf32(d, a.rest, b.head);
   mma_tf32(d, a.head, b.rest);
   mma_tf32(d, a.head, b.head);
+}
+
+// An accumulator tile (16 x 8; a thread holds (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1)) as the left operand of the next product,
+// split. The contraction runs over its 8 columns, so their order is free:
+// column 2t becomes k = t and column 2t + 1 becomes k = t + 4, which puts
+// every value in the register of its own thread that mma.sync reads.
+__device__ __forceinline__ SplitFrag<4> acc_as_left(const float (&c)[4]) {
+  SplitFrag<4> a;
+  split_tf32(c[0], &a.head[0], &a.rest[0]);
+  split_tf32(c[2], &a.head[1], &a.rest[1]);
+  split_tf32(c[1], &a.head[2], &a.rest[2]);
+  split_tf32(c[3], &a.head[3], &a.rest[3]);
+  return a;
 }
 
 }  // namespace tf32

@@ -36,18 +36,16 @@ LIBRARY = "drmsd_variants"
 
 
 def _scratch(name: str, bsz: int, n: int, device, grad: bool):
-    """Per-block partials: (S, C) per tile pair, and with grad the (3, tile)
+    """Per-block partials: (S, C) per tile pair, or with grad the (3, tile)
     row and column partials of each tile pair."""
     tile = getattr(_lib(name), f"{name}_tile")()
     n_tiles = -(-n // tile)
     n_pairs = n_tiles * (n_tiles + 1) // 2
-    f32 = dict(dtype=torch.float32, device=device)
-    out = [torch.empty((bsz, n_pairs), **f32),
-           torch.empty((bsz, n_pairs), dtype=torch.int32, device=device)]
     if grad:
-        out += [torch.empty((bsz, n_pairs, 3, tile), **f32),   # rows
-                torch.empty((bsz, n_pairs, 3, tile), **f32)]   # columns
-    return out
+        return [torch.empty((bsz, n_pairs, 3, tile), dtype=torch.float32,
+                            device=device) for _ in range(2)]
+    return [torch.empty((bsz, n_pairs), dtype=torch.float32, device=device),
+            torch.empty((bsz, n_pairs), dtype=torch.int32, device=device)]
 
 
 @contextlib.contextmanager
@@ -190,10 +188,10 @@ def drmsd_grad_a_mxu_cuda(a: torch.Tensor, b: torch.Tensor,
     _check_cuda("drmsd_grad_a_mxu_cuda", a, b, mask)
     n = a.shape[-2]
     bsz = mask.numel() // max(n, 1)
-    out_g = torch.zeros_like(a)
     if bsz == 0 or n == 0:
-        return out_g
-    _, _, part_row, part_col = _scratch(LIBRARY, bsz, n, a.device, grad=True)
+        return torch.zeros_like(a)
+    out_g = torch.empty_like(a)  # the epilogue writes every atom
+    part_row, part_col = _scratch(LIBRARY, bsz, n, a.device, grad=True)
     _launch(LIBRARY, "drmsd_grad_a_mxu", a, b, mask, part_row.data_ptr(),
             part_col.data_ptr(), out_g.data_ptr())
     drmsd_grad_a_mxu_cuda.launches += 1

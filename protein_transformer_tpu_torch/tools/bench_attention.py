@@ -6,16 +6,19 @@ a script with another checkout's root first on ``PYTHONPATH`` it times that
 checkout's kernels instead, so that two versions can be compared in one
 session on one card:
 
-* at (B, H, L, D) = (16, 8, 256, 64), the flash training step's, and (8, 8,
-  500, 64), the longest proteins, on the inputs of phase 8 of
-  ``chip_smoke.py`` (head-split views, q three times wider than k, ragged
-  valid lengths, one batch row with no valid key), and at (16, 8, 256, 64)
-  with the training batches' mask (15 full rows and one with no valid
-  key): the device time of K3a, of the backward that autograd runs through
+* at (B, H, L, D) = (8, 8, 256, 64), the eval and predict batches',
+  (16, 8, 256, 64), the flash training step's, and (8, 8, 500, 64), the
+  longest proteins, on the inputs of phase 8 of ``chip_smoke.py``
+  (head-split views, q three times wider than k, ragged valid lengths, one
+  batch row with no valid key), and at (16, 8, 256, 64) with the training
+  batches' mask (15 full rows and one with no valid key): the device time
+  of K3a without and with the row statistics m and l (as eval and predict,
+  and as training call it), of the library's forward
+  (``scaled_dot_product_attention`` with the same mask, a yardstick that
+  the port never calls), of the backward that autograd runs through
   ``FlashSelfAttention`` (every kernel it puts on the device) and of
-  autograd's backward through ``scaled_dot_product_attention`` with the
-  same mask, a yardstick that the port never calls; where the port has the
-  one backward kernel, also that kernel asked for dQ alone and for dK, dV
+  autograd's backward through the library call; where the port has the one
+  backward kernel, also that kernel asked for dQ alone and for dK, dV
   alone; each from a ``torch.profiler`` trace of five calls;
 * the flagship conv-enc training step at dropout 0 with flash attention
   (d_model 512, 8 heads, 6 layers, batches of 15 proteins of length 255-256
@@ -49,8 +52,8 @@ from protein_transformer_tpu_torch.training.trainer import Trainer
 
 # (B, H, L, D), mask: "ragged" as phase 8 of chip_smoke.py draws it, or
 # "train", the training batches' (15 full rows, one with no valid key)
-CASES = (((16, 8, 256, 64), "ragged"), ((8, 8, 500, 64), "ragged"),
-         ((16, 8, 256, 64), "train"))
+CASES = (((8, 8, 256, 64), "ragged"), ((16, 8, 256, 64), "ragged"),
+         ((8, 8, 500, 64), "ragged"), ((16, 8, 256, 64), "train"))
 MODEL = "conv-enc|21,11,3|1,1,1"
 
 
@@ -80,10 +83,11 @@ def kernel_name(key: str) -> str:
 
 
 def attention_times(device, shape, mask, seed=0) -> dict:
-    """Device ms of K3a, of the backward through ``FlashSelfAttention`` and
-    of the library's backward at one (B, H, L, D) and mask, the device
-    operations of one backward and, with the one backward kernel, the
-    device ms of each of its roles alone."""
+    """Device ms of K3a (without and with m and l), of the library's
+    forward, of the backward through ``FlashSelfAttention`` and of the
+    library's backward at one (B, H, L, D) and mask, the device operations
+    of one backward and, with the one backward kernel, the device ms of each
+    of its roles alone."""
     q, k, v, d_out, valid = attention_inputs(device, shape, seed, mask)
     scale = 1.0 / math.sqrt(shape[-1])
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -97,9 +101,19 @@ def attention_times(device, shape, mask, seed=0) -> dict:
 
     calls = 5
     records = device_records(backward(out), calls)
+
+    def library_forward():
+        with torch.no_grad():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=valid[:, None, None, :], scale=scale)
+
     times = {
         "forward_device_ms": device_ms(
             lambda: A.flash_attn_fwd_cuda(q, k, v, valid, scale)),
+        "forward_stats_device_ms": device_ms(
+            lambda: A.flash_attn_fwd_cuda(q, k, v, valid, scale,
+                                          with_stats=True)),
+        "library_forward_device_ms": device_ms(library_forward),
         "backward_device_ms": device_ms(backward(out)),
         "backward_device_ops": sum(e.count for e in records) / calls,
         "backward_kernels": sorted({kernel_name(e.key) for e in records}),
@@ -165,7 +179,9 @@ def main(argv=None) -> dict:
                  f"role alone {t['dkv_role_device_ms']:.4f} ms"
                  if "dq_role_device_ms" in t else "")
         print(f"attention {shape}, {mask} mask: K3a "
-              f"{t['forward_device_ms']:.4f} ms, backward "
+              f"{t['forward_device_ms']:.4f} ms ("
+              f"{t['forward_stats_device_ms']:.4f} with m and l), library "
+              f"forward {t['library_forward_device_ms']:.4f} ms, backward "
               f"{t['backward_device_ms']:.4f} ms "
               f"({t['backward_device_ops']:.0f} device operations: "
               f"{', '.join(t['backward_kernels'])}){roles}, library backward "

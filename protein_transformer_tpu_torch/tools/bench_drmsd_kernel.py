@@ -21,9 +21,15 @@ wrapper's host work and moves with the host, and the device's own time for
 one call, from a ``torch.profiler`` trace, which is what ranks the kernels.
 The card's name and power limit stand on every line.
 
+It times the port whose ``protein_transformer_tpu_torch`` it imports. Run
+as a script with another checkout's root first on ``PYTHONPATH`` it times
+that checkout's kernels instead, so that two versions can be compared in one
+run on one card; on the GPU it ends with the times as one JSON object.
+
     python -m protein_transformer_tpu_torch.tools.bench_drmsd_kernel
     python -m protein_transformer_tpu_torch.tools.bench_drmsd_kernel \
         --device cpu
+    PYTHONPATH=<other checkout> python <this file>
 
 The default device is the GPU, and the run raises without one. ``--device
 cpu`` runs ``parity`` on the plain PyTorch versions only, which checks their
@@ -32,6 +38,7 @@ arithmetic and gives no time.
 from __future__ import annotations
 
 import argparse
+import json
 import statistics
 import subprocess
 
@@ -204,10 +211,14 @@ def main(argv=None) -> dict:
     if args.device == "cpu":
         return {"parity": parity(torch.device("cpu"))}
     device = cuda_device()
+    print(f"# port at {V.__file__}")
     out = {}
     if args.parity:
         out["parity"] = parity(device)
     out["bench"] = bench(device)
+    print(json.dumps({"card": card_label(), "bench": {
+        f"L={length} B={bsz}": times
+        for (length, bsz), times in out["bench"].items()}}))
     return out
 
 

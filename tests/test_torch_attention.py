@@ -294,6 +294,38 @@ def test_split_tf32_products_hold_fp32_accuracy():
     assert np.abs(one - exact).max() >= 1e-4 * top
 
 
+def test_bound_of_k3a_is_bytes():
+    """chip_smoke's bound of K3a since its products moved to the tensor
+    cores: q, k, v and O (and m and l where they are written) and the mask
+    over 3.35 TB/s take longer than the two 2 D-deep products a pair over
+    495 TFLOP/s TF32 and one exp a pair, at (8, 8, 256, 64) (16.78 MB, 5.0
+    us) and at (16, 8, 256, 64) with m and l (33.8 MB, 10.1 us), whatever
+    the share of valid keys; with the products counted as fp32 FMAs on the
+    CUDA cores (4 D operations a pair over 67 TFLOP/s) the ragged rows of
+    phase 8 at (8, 8, 256, 64), 3,063,808 weighted pairs, would be bound at
+    11.7 us."""
+    import chip_smoke
+    full = 8 * 8 * 256 * 256
+    n_bytes = 4 * 4 * 8 * 8 * 256 * 64 + 8 * 256
+    ms, by = chip_smoke.attention_bound("flash_attn_fwd", (8, 8, 256, 64),
+                                        full)
+    assert by == "bytes" and n_bytes == 16_779_264
+    assert ms == pytest.approx(1e3 * n_bytes / 3.35e12)
+    assert round(ms, 4) == 0.0050
+    tensor_ms = 1e3 * 4 * 64 * full / 495e12
+    assert tensor_ms == pytest.approx(0.00217, rel=1e-2) and tensor_ms < ms
+    ms16, by16 = chip_smoke.attention_bound(
+        "flash_attn_fwd", (16, 8, 256, 64), 2 * full, with_stats=True)
+    n_bytes16 = 4 * 4 * 16 * 8 * 256 * 64 + 2 * 4 * 16 * 8 * 256 + 16 * 256
+    assert by16 == "bytes" and n_bytes16 == 33_820_672
+    assert ms16 == pytest.approx(1e3 * n_bytes16 / 3.35e12)
+    assert round(ms16, 4) == 0.0101
+    assert chip_smoke.attention_bound("flash_attn_fwd", (16, 8, 256, 64),
+                                      2 * full)[0] < ms16
+    old_ms, old_by = chip_smoke.bound(n_bytes, 4 * 64 * 3_063_808)
+    assert old_by == "operations" and round(old_ms, 5) == 0.01171
+
+
 @pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "no_leaf"])
 def test_nothing_is_saved_without_a_gradient(plain_launchers, mode):
     """The decision is made outside the Function: a no-grad call on tensors
@@ -343,6 +375,17 @@ def test_bench_tool_inputs_and_refusal_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench_attention.main([])
+
+
+def test_mma_probe_tool_refuses_without_a_card(monkeypatch):
+    """The probe of the tensor-core product (``tools/bench_mma.py``) times
+    a CUDA kernel and raises where there is no card, without building."""
+    from protein_transformer_tpu_torch.tools import bench_mma
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(bench_mma, "_lib", lambda: pytest.fail("built"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_mma.main([])
+    assert bench_mma.FLOPS_PER_MMA == 2 * 16 * 8 * 8
 
 
 def test_head_layout_makes_the_merge_a_view():
@@ -674,3 +717,81 @@ def test_backward_reads_strided_views_and_copies_what_it_must(cuda):
                               .contiguous().transpose(1, 2), l, scale)
     with pytest.raises(ValueError, match="CUDA device"):
         A.flash_attn_bwd_cuda(*(t.cpu() for t in args), scale)
+
+
+def forward_case(length, dim, last_valid, cuda, seed):
+    """Head-split q, k, v (q three times wider) of shape (5, 3, length,
+    dim) and a mask of five batch rows: valid keys up to ``last_valid``, a
+    row whose valid keys all lie in its last key tile (the tiles before
+    that one hold none), a full row, a row with no valid key and one with a
+    single valid key in the middle."""
+    bsz, heads = 5, 3
+    rng = np.random.default_rng(seed)
+    q, k, v = (
+        torch.from_numpy(rng.normal(0, gain, (bsz, length, heads * dim))
+                         .astype(np.float32)).to(cuda)
+        .reshape(bsz, length, heads, dim).transpose(1, 2)
+        for gain in (3.0, 1.0, 1.0))
+    valid = np.zeros((bsz, length), bool)
+    valid[0, :last_valid + 1] = True
+    valid[1, (length - 1) // 64 * 64:] = True
+    valid[2] = True
+    valid[4, length // 2] = True
+    return q, k, v, torch.from_numpy(valid).to(cuda)
+
+
+def plain_row_statistics(q, k, valid, scale):
+    """m and l of the plain masked softmax: each row's largest score
+    (masked keys at finfo(float32).min) and sum of exp(score - m)."""
+    scores = torch.matmul(q, k.transpose(-2, -1)) * scale
+    scores = scores.masked_fill(~valid[:, None, None, :],
+                                torch.finfo(torch.float32).min)
+    m = scores.max(-1).values
+    return m, torch.exp(scores - m[..., None]).sum(-1)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("length,dim,last_valid",
+                         [(256, 64, 63), (256, 64, 64), (256, 64, 127),
+                          (256, 64, 255), (256, 128, 127), (1, 16, 0),
+                          (37, 32, 20), (500, 64, 499), (500, 64, 130)],
+                         ids=lambda x: str(x))
+def test_forward_skips_key_tiles_without_a_valid_key(cuda, length, dim,
+                                                     last_valid):
+    """K3a against the plain version on every row with outputs NaN-poisoned:
+    valid keys ending at and around the edges of the 64-key tiles, a row
+    whose first tiles hold no valid key (skipped), a full row, a row with
+    no valid key (uniform 1/L) and one with a single valid key. m and l
+    against the plain row statistics (exactly -FLT_MAX and L in the row
+    without a valid key); the same O without them; the same bits on a
+    second call and from contiguous copies of the head-split views."""
+    q, k, v, valid = forward_case(length, dim, last_valid, cuda,
+                                  seed=length + dim + last_valid)
+    scale = 1.0 / math.sqrt(dim)
+    assert A._rows_in_place(q) is q and q.is_contiguous() == (length == 1)
+    poison_allocator(cuda)
+    before = A.flash_attn_fwd_cuda.launches
+    out, m, l = A.flash_attn_fwd_cuda(q, k, v, valid, scale, with_stats=True)
+    poison_allocator(cuda)
+    bare, no_m, no_l = A.flash_attn_fwd_cuda(q, k, v, valid, scale)
+    torch.cuda.synchronize()
+    assert A.flash_attn_fwd_cuda.launches - before == 2
+    assert no_m is None and no_l is None
+    want = A.flash_self_attention_torch(q, k, v, valid, sm_scale=scale)
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               atol=ATOL, rtol=ATOL)
+    assert torch.equal(bare, out)
+    want_m, want_l = plain_row_statistics(q, k, valid, scale)
+    np.testing.assert_allclose(m.cpu().numpy(), want_m.cpu().numpy(),
+                               atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(l.cpu().numpy(), want_l.cpu().numpy(),
+                               rtol=ATOL)
+    assert (m[3] == torch.finfo(torch.float32).min).all()
+    assert (l[3] == length).all()
+    again = A.flash_attn_fwd_cuda(q, k, v, valid, scale, with_stats=True)
+    copies = A.flash_attn_fwd_cuda(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), valid, scale,
+                                   with_stats=True)
+    for other in (again, copies):
+        assert all(torch.equal(a, b) for a, b in zip(other, (out, m, l)))

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from protein_transformer_tpu_torch.data.synthetic import atom_mask_case
 from protein_transformer_tpu_torch.ops import drmsd as D
 from protein_transformer_tpu_torch.ops import drmsd_variants as V
 from protein_transformer_tpu_torch.tools import bench_drmsd_kernel as tool
@@ -215,3 +216,51 @@ def test_kernels_match_plain_on_the_card(cuda, bsz, n):
 def test_tool_parity_on_the_card(cuda):
     out = tool.parity(cuda)
     assert out["sqrt1"] < 1e-5 and out["mxu"] < 1e-5
+
+
+def structured_batch(n, seed):
+    """The training step's masks at n atoms, as the K1 card tests take
+    them: two proteins with each residue's real slots, 2% missing and a
+    padded tail, an all-masked one, then one protein with exactly one valid
+    atom and one with exactly two; a, b ~ N(0, 10)."""
+    rng = np.random.default_rng(seed)
+    a, b = (rng.normal(0, 10, (5, n, 3)).astype(np.float32)
+            for _ in range(2))
+    m = np.zeros((5, n), bool)
+    m[:3] = atom_mask_case(rng, 3, n)
+    m[3, rng.integers(n)] = True
+    m[4, rng.choice(n, 2, replace=False)] = True
+    return a, b, m
+
+
+def poison_allocator(cuda):
+    """Leave NaNs where the caching allocator hands out the next blocks, so
+    that an atom the kernel fails to write shows."""
+    torch.full((64 << 20,), float("nan"), device=cuda)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("n", [127, 128, 129, 255, 257, 3584])
+def test_grad_kernel_on_structured_masks_on_card(cuda, n):
+    """K4c on the training step's masks around the 128-atom tile edge, its
+    output NaN-poisoned: within 1e-4 * max(1, max|g|) of its plain version
+    and of K1b's dS/da, exact zeros for the all-masked protein and the one
+    with a single valid atom, and the same bits on a second (poisoned)
+    call."""
+    a, b, m = tensors(*structured_batch(n, n + 11), device=cuda)
+    poison_allocator(cuda)
+    before = V.drmsd_grad_a_mxu_cuda.launches
+    g = V.drmsd_grad_a_mxu_cuda(a, b, m)
+    torch.cuda.synchronize()
+    assert V.drmsd_grad_a_mxu_cuda.launches - before == 1
+    pg = V.drmsd_grad_a_mxu_torch(a, b, m)
+    kg = D.drmsd_stats_grad_cuda(a, b, m)[2]
+    assert torch.isfinite(g).all()
+    gate = 1e-4 * max(1.0, float(pg.abs().max()))
+    assert float((g - pg).abs().max()) <= gate
+    assert float((g - kg).abs().max()) <= gate
+    assert not g[2].any() and not g[3].any()
+    assert g[4].any()
+    poison_allocator(cuda)
+    assert torch.equal(V.drmsd_grad_a_mxu_cuda(a, b, m), g)
