@@ -47,9 +47,11 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    structured masks).
    Then the kernel variants of the bench tool (K4a one square root a pair,
    K4b and K4c the norm + cross-term form on the tensor cores, TF32 split
-   in two) at the same (B, N) cases against their plain versions and
-   against K1a / K1b: pair counts equal, exact zeros for the all-masked
-   protein, the same bits on a second call, |d dRMSD| <= 1e-4 A, K4c's
+   in two) at the same (B, N) cases and on the structured masks at B=16
+   and 8 x N = 3584 (with a protein of one valid atom), each call after a
+   NaN-poisoning of the allocator, against their plain versions and
+   against K1a / K1b: pair counts equal, exact zeros for the proteins
+   without a pair, the same bits on a second call, |d dRMSD| <= 1e-4 A, K4c's
    dS/da within 1e-4 * max(1, max|g|); on the tool's own inputs
    (a ~ N(0, 30), b = a + N(0, 1)) S of K1a, K4a and K4b against a float64
    run of the plain version, within 1e-5 relative at n = 700 and 1e-4 at
@@ -248,11 +250,11 @@ PEAK_SPECIAL_PER_S = 132 * 16 * 1.98e9
 # and their difference (23), then the same 11 on b's differences.
 FLOPS_PER_PAIR = {"drmsd_fwd": 25, "drmsd_fwd_grad": 36, "drmsd_grad_b": 34}
 # special-function operations per valid pair (K3: per weighted (query, key)
-# pair): K1's two rsqrt; K4a one sqrtf, K4b two rsqrt, K4c a sqrtf and an
-# rsqrt; one expf per pair in the forward (P) and in the backward (the
-# recomputed P).
+# pair): K1's two rsqrt; K4a and K4b one square root (the pair term's), K4c
+# a square root and an rsqrt; one expf per pair in the forward (P) and in
+# the backward (the recomputed P).
 SPECIAL_PER_PAIR = {"drmsd_fwd": 2, "drmsd_fwd_grad": 2, "drmsd_grad_b": 2,
-                    "drmsd_fwd_sqrt1": 1, "drmsd_fwd_mxu": 2,
+                    "drmsd_fwd_sqrt1": 1, "drmsd_fwd_mxu": 1,
                     "drmsd_grad_a_mxu": 2, "flash_attn_fwd": 1,
                     "flash_attn_bwd": 1}
 # The variants, per valid pair: (fp32 operations outside the tensor cores,
@@ -478,26 +480,38 @@ VARIANT_STATS = {
     "drmsd_fwd_mxu": (V.drmsd_stats_mxu_cuda, V.drmsd_stats_mxu_torch)}
 
 
-def variant_case(dev, rng, bsz, n):
-    """K4a, K4b and K4c on one (B, N) case of KERNEL_CASES, against their
-    plain versions and against K1a / K1b; returns {kernel: max abs error}
+def variant_case(dev, rng, bsz, n, structured=False):
+    """K4a, K4b and K4c on one (B, N) case, against their plain versions
+    and against K1a / K1b: ~70% of atoms valid at random, or with
+    ``structured`` the training step's masks (``atom_mask_case``) with one
+    protein of a single valid atom; the last protein all masked either way.
+    Each kernel call follows a NaN-poisoning of the allocator, so that a
+    partial a block fails to write shows. Returns {kernel: max abs error}
     (dRMSD in A for the statistics, the gradient's entries for K4c)."""
     a, b = (torch.from_numpy(rng.normal(0, 10, (bsz, n, 3)).astype(
         np.float32)).to(dev) for _ in range(2))
-    m = torch.from_numpy(rng.random((bsz, n)) < 0.7).to(dev)
-    m[-1] = False  # an all-masked protein
-    where = f"B={bsz} N={n}"
+    if structured:
+        m = torch.from_numpy(atom_mask_case(rng, bsz, n)).to(dev)
+        m[0] = False
+        m[0, n // 2] = True  # one valid atom: no pair
+    else:
+        m = torch.from_numpy(rng.random((bsz, n)) < 0.7).to(dev)
+        m[-1] = False  # an all-masked protein
+    where = f"B={bsz} N={n}" + (" structured masks" if structured else "")
     cur_s, cur_c = D.drmsd_stats_cuda(a, b, m)
     cur_g = D.drmsd_stats_grad_cuda(a, b, m)[2]
+    empty = [-1, 0] if structured else [-1]
     errs = {}
     for name, (kernel, plain) in VARIANT_STATS.items():
+        poison_allocator(dev)
         s, c = kernel(a, b, m)
         ps, pc = plain(a, b, m)
         torch.cuda.synchronize()
         require(torch.equal(c, pc) and torch.equal(c, cur_c),
                 f"{name}: pair counts equal to plain's and K1a's, {where}")
-        require(int(c[-1]) == 0 and float(s[-1]) == 0.0,
-                f"{name}: all-masked protein gives exact zeros, {where}")
+        require(not c[empty].any() and not s[empty].any(),
+                f"{name}: proteins without a pair give exact zeros, {where}")
+        poison_allocator(dev)
         require(torch.equal(kernel(a, b, m)[0], s),
                 f"{name}: a second call gives the same bits, {where}")
         errs[name] = max(
@@ -505,18 +519,19 @@ def variant_case(dev, rng, bsz, n):
             for ref in (ps, cur_s))
         require(errs[name] <= 1e-4, f"{name}: |d dRMSD| {errs[name]:.3e} <= "
                                     f"1e-4 A of plain and of K1a, {where}")
+    poison_allocator(dev)
     g = V.drmsd_grad_a_mxu_cuda(a, b, m)
     pg = V.drmsd_grad_a_mxu_torch(a, b, m)
     torch.cuda.synchronize()
-    require(not g[-1].any().item(),
-            f"K4c: all-masked protein gives a zero gradient, {where}")
+    require(not g[empty].any().item(),
+            f"K4c: proteins without a pair give a zero gradient, {where}")
     require(torch.equal(V.drmsd_grad_a_mxu_cuda(a, b, m), g),
             f"K4c: a second call gives the same bits, {where}")
     errs["drmsd_grad_a_mxu"] = max(
         grad_err(g, pg, f"K4c dS/da against plain, {where}"),
         grad_err(g, cur_g, f"K4c dS/da against K1b, {where}"))
-    print(f"[variants] {where}: counts equal, zeros for the all-masked "
-          f"protein, same bits twice; |d dRMSD| K4a "
+    print(f"[variants] {where}: counts equal, zeros without a pair, same "
+          f"bits twice; |d dRMSD| K4a "
           f"{errs['drmsd_fwd_sqrt1']:.3e} A, K4b {errs['drmsd_fwd_mxu']:.3e} "
           f"A; |d dS/da| K4c {errs['drmsd_grad_a_mxu']:.3e} (max|g| "
           f"{float(pg.abs().max()):.3e}), each against plain and K1")
@@ -579,7 +594,8 @@ def variant_times(dev, card, shape):
     print(f"[variants] B={bsz} N={n}, {pairs} valid pairs: kernel ms (device "
           f"only) vs plain ms, bound: "
           + ", ".join(f"{name} {v[0]:.4f} ({v[4]:.4f}) vs {v[1]:.4f}, "
-                      f"{v[2]:.5f} by {v[3]}" for name, v in out.items())
+                      f"{v[2]:.5f} by {v[3]} ({v[2] / v[4]:.0%} of it on "
+                      f"the device)" for name, v in out.items())
           + "; beside them "
           + ", ".join(f"{name} {v[0]:.4f} ({v[1]:.4f})"
                       for name, v in cur.items())
@@ -594,8 +610,10 @@ def phase_variants(dev, card):
     tool's run)."""
     rng = np.random.default_rng(3)
     errs = {}
-    for case in KERNEL_CASES:
-        for name, err in variant_case(dev, rng, *case).items():
+    for case, structured in ([(case, False) for case in KERNEL_CASES]
+                             + [(TRAIN_CASE, True), (EVAL_CASE, True)]):
+        for name, err in variant_case(dev, rng, *case,
+                                      structured=structured).items():
             errs[name] = max(errs.get(name, 0.0), err)
     variant_accuracy(dev)
     table = variant_times(dev, card, VARIANT_CASE)
@@ -604,17 +622,25 @@ def phase_variants(dev, card):
     reset_launches()
     out = bench_drmsd_kernel.main(["--parity"])
     launches = read_launches()
-    # per shape 3 warm-up and TIMED_RUNS timed calls, then 1 + 5 traced ones
-    per_kernel = 1 + len(bench_drmsd_kernel.SHAPES) * (
+    # per shape 3 warm-up and TIMED_RUNS timed calls, then 1 + 5 traced ones,
+    # and 5 more for each trace the profiler returned without device records
+    nominal = len(bench_drmsd_kernel.SHAPES) * (
         3 + bench_drmsd_kernel.TIMED_RUNS + 6)
-    expected = launched(**dict.fromkeys(
-        ("drmsd_fwd", "drmsd_fwd_grad", "drmsd_fwd_sqrt1", "drmsd_fwd_mxu",
-         "drmsd_grad_a_mxu"), per_kernel))
+    calls = {counter: bench_drmsd_kernel.CALLS[name] for counter, name in (
+        ("drmsd_fwd", "cur"), ("drmsd_fwd_grad", "grad cur"),
+        ("drmsd_fwd_sqrt1", "sqrt1"), ("drmsd_fwd_mxu", "mxu"),
+        ("drmsd_grad_a_mxu", "grad mxu"))}
+    require(all(n >= nominal and (n - nominal) % 5 == 0
+                for n in calls.values()),
+            f"the bench tool called each kernel {nominal} times, or 5 more "
+            f"for each trace taken again: {calls}")
+    expected = launched(**{counter: 1 + n for counter, n in calls.items()})
     require(launches == expected,
             f"bench tool launches {launches}: expected {expected} (parity "
             f"once, then 3 warm-up, {bench_drmsd_kernel.TIMED_RUNS} timed "
             f"and 6 traced calls at each of "
-            f"{len(bench_drmsd_kernel.SHAPES)} shapes)")
+            f"{len(bench_drmsd_kernel.SHAPES)} shapes, and 5 for each trace "
+            f"taken again: {calls})")
     require(set(out) == {"parity", "bench"}
             and set(out["bench"]) == set(bench_drmsd_kernel.SHAPES),
             "the bench tool ran its parity check and both shapes")

@@ -10,10 +10,11 @@
 // contracts or reorders those, so the same inputs give the same bits in
 // every kernel that includes this file, whatever code surrounds them.
 //
-// The bench's variants K4a and K4b (drmsd_variants.cu) build on the
-// constants, unrank_pair, block_stat_partial and stat_reduce_kernel of the
-// first part; K4c on K1's compaction (compact), partial layout and
-// epilogue (k1_epilogue_kernel).
+// The bench's variants (drmsd_variants.cu) build on K1 too: K4a is a
+// fourth instance of k1_tile_kernel, with the one-root pair term
+// (kOneRoot) in place of K1's two rsqrt; K4b and K4c take K1's compaction
+// (compact), partial layout and epilogue (k1_epilogue_kernel) with sweeps
+// of their own on the tensor cores.
 
 #pragma once
 
@@ -25,13 +26,16 @@ namespace drmsd {
 
 constexpr int kTile = 128;
 constexpr int kThreads = 256;
-constexpr int kColGroups = kThreads / kTile;
 constexpr int kWarps = kThreads / 32;
-constexpr int kReduceThreads = 256;
 constexpr float kDistClamp = 1e-30f;
 
-// Squared distance of a difference vector, clamped at kDistClamp, and its
-// rsqrt. The distance is d2 * r.
+// Squared distance of a difference vector, clamped at kDistClamp.
+__device__ __forceinline__ float clamped_d2(float dx, float dy, float dz) {
+  return fmaxf(__fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx))),
+               kDistClamp);
+}
+
+// The clamped squared distance and its rsqrt. The distance is d2 * r.
 struct Dist {
   float d2;
   float r;
@@ -41,11 +45,18 @@ struct Dist {
 // subnormals changes nothing, and the special-function unit's rsqrt needs
 // no rescaling around it.
 __device__ __forceinline__ Dist clamped_dist(float dx, float dy, float dz) {
-  float d2 = __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
-  d2 = fmaxf(d2, kDistClamp);
+  const float d2 = clamped_d2(dx, dy, dz);
   float r;
   asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d2));
   return {d2, r};
+}
+
+// K4a's pair term (Da - Db)^2 = d2a + d2b - 2 sqrt(d2a d2b): one IEEE
+// square root, no rsqrt. 2 sqrt is exact, so the fma rounds once, as the
+// plain version's subtraction does.
+__device__ __forceinline__ float one_root_term(float d2a, float d2b) {
+  return __fmaf_rn(-2.f, __fsqrt_rn(__fmul_rn(d2a, d2b)),
+                   __fadd_rn(d2a, d2b));
 }
 
 // Da - Db of one pair; the statistic adds its square with __fmaf_rn.
@@ -71,69 +82,6 @@ __device__ __forceinline__ void unrank_pair(int pair, int n_tiles, int* ti,
 __host__ __device__ __forceinline__ int pair_index(int ti, int tj,
                                                   int n_tiles) {
   return ti * n_tiles - ti * (ti - 1) / 2 + (tj - ti);
-}
-
-// The block's (S, C) partial: warp shuffle, then the warps' sums in a fixed
-// order by thread 0. red_s / red_c are kWarps shared slots. Ends with every
-// thread past a barrier.
-__device__ __forceinline__ void block_stat_partial(float s, int cnt,
-                                                   float* red_s, int* red_c,
-                                                   float* part_s, int* part_c,
-                                                   size_t slot) {
-  const int tid = threadIdx.x;
-  for (int off = 16; off > 0; off >>= 1) {
-    s += __shfl_down_sync(0xffffffffu, s, off);
-    cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-  }
-  if ((tid & 31) == 0) {
-    red_s[tid >> 5] = s;
-    red_c[tid >> 5] = cnt;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float ts = 0.f;
-    int tc = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      ts += red_s[w];
-      tc += red_c[w];
-    }
-    part_s[slot] = ts;
-    part_c[slot] = tc;
-  }
-}
-
-// One block per protein: strided per-thread sums, then a fixed-shape tree.
-// Partials are summed in double: there are at most a few thousand of them,
-// and the order is fixed, so the result is deterministic.
-__global__ void __launch_bounds__(kReduceThreads)
-stat_reduce_kernel(const float* __restrict__ part_s,
-                   const int* __restrict__ part_c, int n_pairs,
-                   float* __restrict__ out_s, long long* __restrict__ out_c) {
-  __shared__ double ss[kReduceThreads];
-  __shared__ long long sc[kReduceThreads];
-  const int prot = blockIdx.x;
-  const int tid = threadIdx.x;
-  const size_t base = static_cast<size_t>(prot) * n_pairs;
-  double s = 0.0;
-  long long c = 0;
-  for (int p = tid; p < n_pairs; p += kReduceThreads) {
-    s += part_s[base + p];
-    c += part_c[base + p];
-  }
-  ss[tid] = s;
-  sc[tid] = c;
-  __syncthreads();
-  for (int stride = kReduceThreads / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-      ss[tid] += ss[tid + stride];
-      sc[tid] += sc[tid + stride];
-    }
-    __syncthreads();
-  }
-  if (tid == 0) {
-    out_s[prot] = static_cast<float>(ss[0]);
-    out_c[prot] = sc[0];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -174,6 +122,10 @@ stat_reduce_kernel(const float* __restrict__ part_s,
 // No float atomics: the same inputs give the same bits on every call.
 // Each thread's fp32 chain of S is at most 64 pairs long; sums across tile
 // pairs are in double.
+//
+// K4a (kOneRoot, without the gradient) is the same body with the pair term
+// d2a + d2b - 2 sqrt(d2a d2b) of the bench's variant: one IEEE square root
+// a pair and no rsqrt, its S summed with __fadd_rn.
 
 constexpr int kSide = 16;                // the block's threads, kSide x kSide
 constexpr int kPer = kTile / kSide;      // rows or columns of one thread
@@ -262,8 +214,9 @@ __device__ __forceinline__ void write_partial(const float* red,
 // The sweep of one tile pair: returns this thread's share of S and, with
 // kGrad, writes the pair's row and column partials. red_row, red_col:
 // kSide x kRedStride floats each. kDiag: rows and columns are one tile,
-// and only compacted row < column counts. Every thread must call it.
-template <bool kGrad, bool kWrtA, bool kDiag>
+// and only compacted row < column counts. kOneRoot: K4a's pair term (no
+// gradient). Every thread must call it.
+template <bool kGrad, bool kWrtA, bool kDiag, bool kOneRoot>
 __device__ __forceinline__ float k1_sweep(const CompactTile& rows,
                                           const CompactTile& cols, int nr,
                                           int nc, float* red_row,
@@ -303,6 +256,11 @@ __device__ __forceinline__ float k1_sweep(const CompactTile& rows,
           const float dbx = __fsub_rn(ra.w, ca[j].w);
           const float dby = __fsub_rn(rb.x, cb[j].x);
           const float dbz = __fsub_rn(rb.y, cb[j].y);
+          if (kOneRoot) {
+            s = __fadd_rn(s, one_root_term(clamped_d2(dax, day, daz),
+                                           clamped_d2(dbx, dby, dbz)));
+            continue;
+          }
           const Dist da = clamped_dist(dax, day, daz);
           const Dist db = clamped_dist(dbx, dby, dbz);
           const float d = pair_delta(da, db);
@@ -352,16 +310,17 @@ __device__ __forceinline__ float k1_sweep(const CompactTile& rows,
 
 // K1's tile kernel. K1a: kGrad false (S and C only). K1b: kGrad, kWrtA
 // (S, C and the partials of dS/da). K1c: kGrad, !kWrtA (the partials of
-// dS/db; no S or C). Per tile pair `slot`: part_s, part_c (S and C) and
-// part_row, part_col (3, kTile) each. With kGrad it takes kRedBytes of
-// dynamic shared memory.
-template <bool kGrad, bool kWrtA>
+// dS/db; no S or C). K4a: kOneRoot, kGrad false. Per tile pair `slot`:
+// part_s, part_c (S and C) and part_row, part_col (3, kTile) each. With
+// kGrad it takes kRedBytes of dynamic shared memory.
+template <bool kGrad, bool kWrtA, bool kOneRoot = false>
 __global__ void __launch_bounds__(kThreads, kGrad ? 3 : 4)
 k1_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
                const uint8_t* __restrict__ mask, int n, int n_tiles,
                int n_pairs, float* __restrict__ part_s,
                int* __restrict__ part_c, float* __restrict__ part_row,
                float* __restrict__ part_col) {
+  static_assert(!(kOneRoot && kGrad), "K4a has no gradient");
   constexpr bool kStats = !kGrad || kWrtA;
   const int pair = blockIdx.x;
   const int prot = blockIdx.y;
@@ -423,11 +382,12 @@ k1_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
     return;
   }
   const float s =
-      diag ? k1_sweep<kGrad, kWrtA, true>(tiles[0], tiles[0], nr, nc, red_row,
-                                          red_col, row_out, col_out)
-           : k1_sweep<kGrad, kWrtA, false>(tiles[1], tiles[0], nr, nc,
-                                           red_row, red_col, row_out,
-                                           col_out);
+      diag ? k1_sweep<kGrad, kWrtA, true, kOneRoot>(
+                 tiles[0], tiles[0], nr, nc, red_row, red_col, row_out,
+                 col_out)
+           : k1_sweep<kGrad, kWrtA, false, kOneRoot>(
+                 tiles[1], tiles[0], nr, nc, red_row, red_col, row_out,
+                 col_out);
   if (kStats) {
     const float total = block_sum(s, red_s);
     if (tid == 0) {

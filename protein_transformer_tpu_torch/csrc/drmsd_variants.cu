@@ -16,48 +16,63 @@
 //     coef^T a_i as matrix products.
 // Every squared distance is clamped at 1e-30, as in the production kernels.
 //
-// What bounds them on Hopper: arithmetic a pair. K4a's one sqrtf ties
-// K1a's two rsqrt; K4b and K4c take two special functions a pair (19.8 us
-// for the bench's 41,475,020 pairs at B=8 x 3584). Their matrix products
-// are 3 deep (the cross terms) or 3 wide (K4c's coef . x), so the tensor
-// cores run at 3/8 of a tile at best, and what is left per pair on the CUDA
-// cores (the norms' sum, the clamp, the roots, the mask, and for the split
+// What bounds them on Hopper: arithmetic a pair. K4a and K4b take one
+// square root a pair (9.92 us for the bench's 41,475,020 pairs at B=8 x
+// 3584), K4c a square root and an rsqrt (19.8 us). K4a's 24 fp32
+// operations a pair take longer (14.9 us): it is bound by operations, K4b
+// (14 a pair, 8.67 us) and K4c by the special-function unit. Their matrix
+// products are 3 deep (the cross terms) or 3 wide (K4c's coef . x), so the
+// tensor cores run at 3/8 of a tile at best, and what is left per pair on
+// the CUDA cores (the norms' sum, the clamp, the roots, and for the split
 // two conversions an operand) is of the order of K1's work.
 //
-// K4a and K4b: grid = (upper-triangular tile pairs,
-// proteins), 128 x 128 tile pairs staged with their masks, an integer pair
-// count, per-block (S, C) partials summed per protein in a fixed order
-// (drmsd_common.cuh). K4b's products run on the tensor cores with
-// mma.sync.aligned.m16n8k8 in TF32, the contraction padded from 3 to 8
-// with zeros. Plain TF32 keeps ~3 digits, and with coordinates of tens of
-// A the cross term is ~10^3 A^2 while a pair's term is ~1 A^2. So every
-// operand is split into a TF32 head and a TF32 remainder, and a product is
-// three TF32 products, remainder x head, head x remainder and head x head,
-// summed in fp32 in that order: what Precision.HIGHEST does on the TPU with
-// bf16 passes (mma_tf32.cuh). A warp owns 16 rows of the tile pair and
-// walks its 16 column groups of 8.
-//
-// K4c is built on K1's body (drmsd_common.cuh), so that beside K1b it
-// differs only in the form of the term:
-//   * K1's grid, its compaction of each tile's valid atoms as they are
-//     staged (compact: warp ballot + popcount prefix, tile order kept; a
-//     diagonal tile pair counts compacted row < column), K1's (3, 128) row
-//     and column partials per tile pair in tile positions (every block
-//     writes its partials, zeros included) and K1's epilogue
-//     (k1_epilogue_kernel: per atom its row partials, then its column
-//     partials, in ascending order). No float atomics: the same bits on
-//     every call.
-//   * a compacted tile is staged in the layouts its products read: per atom
-//     and component one 16-byte word of the split a and b (the cross term's
-//     operands), per pair of atoms and component the split a of both (the
-//     right operand of coef . a_j in acc_as_left's row order), the fp32 a
-//     and both squared norms. Slots past the count are zeros.
-//   * one sweep: warp w owns compacted rows 16 w .. 16 w + 15 and walks the
-//     valid columns in blocks of 16; each pair's two cross terms, squared
-//     distances and coef (sqrt.approx and rsqrt.approx: two special
-//     functions) are computed once. The row partial a_i rowsum(coef) -
-//     coef a_j accumulates over the blocks: coef leaves its accumulators
-//     straight in as the left operand (acc_as_left).
+// All three are built on K1's body (drmsd_common.cuh), so that beside K1
+// each differs only in the form of the term:
+//   * K1's grid (upper-triangular 128 x 128 tile pairs, proteins), its
+//     compaction of each tile's valid atoms as they are staged (compact:
+//     warp ballot + popcount prefix, tile order kept; a diagonal tile pair
+//     counts compacted row < column), the integer pair count nr nc, or
+//     nr (nr - 1) / 2 on the diagonal, and K1's epilogue
+//     (k1_epilogue_kernel: the (S, C) partials of a protein summed in
+//     double in a fixed order; for K4c per atom its row partials, then its
+//     column partials, in ascending order). Every block writes its
+//     partials, zeros included. No float atomics: the same bits on every
+//     call.
+//   * K4a is a fourth instance of K1's kernel, k1_tile_kernel<false, true,
+//     true>: 16 x 16 threads each own up to 8 compacted rows and 8 columns,
+//     swept in two passes of 4 columns held in registers, loop bounds from
+//     the counts, and per pair the two squared distances in difference form
+//     and the one-root term, all with explicitly rounded intrinsics. K1's
+//     own instances compile as before: the term is a template choice.
+//   * K4b and K4c stage a compacted tile in the layouts their products
+//     read: per atom and component one 16-byte word of the split a and b
+//     (the cross term's operands) and both squared norms; K4c also per pair
+//     of atoms and component the split a of both (the right operand of
+//     coef . a_j in acc_as_left's row order) and the fp32 a. Slots past the
+//     count are zeros.
+//   * The products run on the tensor cores with mma.sync.aligned.m16n8k8
+//     in TF32, the contraction padded from 3 to 8 with zeros. Plain TF32
+//     keeps ~3 digits, and with coordinates of tens of A the cross term is
+//     ~10^3 A^2 while a pair's term is ~1 A^2. So every operand is split
+//     into a TF32 head and a TF32 remainder, and a product is three TF32
+//     products, remainder x head, head x remainder and head x head, summed
+//     in fp32 in that order: what Precision.HIGHEST does on the TPU with
+//     bf16 passes (mma_tf32.cuh).
+//   * one sweep: warp w owns compacted rows 16 w .. 16 w + 15 (warps with
+//     no valid row do nothing) and walks the valid columns in blocks of 16,
+//     on a diagonal tile pair from its own block on; each pair's term is
+//     computed once.
+//   * K4b: the row norms stay in registers, the column norms are one float4
+//     load and the right operands one uint4 load per 8 columns, and the
+//     four cross-term products of a block of 16 columns (a and b, two
+//     halves: four independent chains of three mma.sync) are issued term by
+//     term before their epilogue. An entry counts where its column is
+//     below nc (off the diagonal, and its row below nr), on the diagonal
+//     where row < column < nc: no mask is read in the sweep.
+//   * K4c: coef (sqrt.approx and rsqrt.approx: two special functions). The
+//     row partial a_i rowsum(coef) - coef a_j accumulates over the blocks:
+//     coef leaves its accumulators straight in as the left operand
+//     (acc_as_left).
 //   * the column partial a_j colsum(coef) - coef^T a_i needs coef
 //     transposed: a product's contraction runs over the index its
 //     accumulator spreads across a quad (the columns), never over the one
@@ -75,16 +90,22 @@
 //   * the column partials of a block's eight warps are summed in warp
 //     order when the block writes its partials.
 // Device time on an NVIDIA H100 80GB HBM3 at 700 W
-// (tools/bench_drmsd_kernel.py, PERF.md section 6): K4c 0.139-0.140 ms at
-// B=8 x 3584 atoms (a loop of two sweeps a tile pair without compaction:
+// (tools/bench_drmsd_kernel.py, PERF.md section 6), at B=8 x 3584 atoms:
+// K4a 0.072-0.073 ms and K4b 0.079 beside K1a's 0.058 (the loops of one
+// thread a row, or of a warp over every entry of the tile pair with its
+// mask, before them: 0.085 and 0.112 in the same call). Both pay for the
+// IEEE root's fix-up over K1a's two rsqrt.approx; K4b with sqrt.approx
+// instead took 0.063 but missed the 1e-5 gate on S (6.7e-5: the root's
+// error, ~10^3 times the term that the form cancels down to). K4c
+// 0.139-0.140 ms (a loop of two sweeps a tile pair without compaction:
 // 0.261-0.263 in the same call), 1.45x K1b's 0.096, which also gives S
-// and C; K4a 0.085, K4b 0.111 beside K1a's 0.058. What holds K4c back is
-// not its products: 24 TF32 products a block of 16 x 16 pairs, 3.9
-// million for the bench's 41,475,020 pairs, take 25 us at the rate
-// mma.sync reaches on the card (tools/bench_mma.py), a fifth of its time,
-// at 24 warps an SM (66 registers, 54 KB of shared memory a block); each
-// warp's row partial accumulates through the products of every column
-// block, and the transpose adds two warp barriers a block.
+// and C. What holds K4c back is not its products: 24 TF32 products a block
+// of 16 x 16 pairs, 3.9 million for the bench's 41,475,020 pairs, take 25
+// us at the rate mma.sync reaches on the card (tools/bench_mma.py), a
+// fifth of its time, at 24 warps an SM (66 registers, 54 KB of shared
+// memory a block); each warp's row partial accumulates through the
+// products of every column block, and the transpose adds two warp barriers
+// a block.
 
 #include "drmsd_common.cuh"
 #include "mma_tf32.cuh"
@@ -94,246 +115,13 @@ using namespace tf32;
 
 namespace {
 
-__device__ __forceinline__ float clamped_d2(float dx, float dy, float dz) {
-  return fmaxf(fmaf(dz, dz, fmaf(dy, dy, dx * dx)), kDistClamp);
-}
-
-// (Da - Db)^2 of one pair from its squared distances: one square root.
-__device__ __forceinline__ float pair_term(float d2a, float d2b) {
-  return (d2a + d2b) - 2.f * sqrtf(d2a * d2b);
-}
-
-// ---------------------------------------------------------------- K4a
-
-__global__ void __launch_bounds__(kThreads)
-sqrt1_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  const uint8_t* __restrict__ mask, int n, int n_tiles,
-                  int n_pairs, float* __restrict__ part_s,
-                  int* __restrict__ part_c) {
-  const int pair = blockIdx.x;
-  const int prot = blockIdx.y;
-  int ti, tj;
-  unrank_pair(pair, n_tiles, &ti, &tj);
-
-  __shared__ float sa[3][kTile];
-  __shared__ float sb[3][kTile];
-  __shared__ uint8_t sm[kTile];
-  __shared__ float red_s[kWarps];
-  __shared__ int red_c[kWarps];
-
-  const int tid = threadIdx.x;
-  const size_t base = static_cast<size_t>(prot) * n;
-  if (tid < kTile) {
-    const int j = tj * kTile + tid;
-    const bool ok = j < n;
-    const size_t o = (base + (ok ? j : 0)) * 3;
-    for (int c = 0; c < 3; ++c) {
-      sa[c][tid] = ok ? a[o + c] : 0.f;
-      sb[c][tid] = ok ? b[o + c] : 0.f;
-    }
-    sm[tid] = ok ? mask[base + j] : 0;
-  }
-
-  const int i = ti * kTile + tid % kTile;
-  const bool row_ok = i < n && mask[base + i] != 0;
-  float ax = 0.f, ay = 0.f, az = 0.f, bx = 0.f, by = 0.f, bz = 0.f;
-  if (row_ok) {
-    const size_t o = (base + i) * 3;
-    ax = a[o];
-    ay = a[o + 1];
-    az = a[o + 2];
-    bx = b[o];
-    by = b[o + 1];
-    bz = b[o + 2];
-  }
-  __syncthreads();
-
-  float s = 0.f;
-  int cnt = 0;
-  if (row_ok) {
-    for (int col = tid / kTile; col < kTile; col += kColGroups) {
-      if (sm[col] && i < tj * kTile + col) {
-        const float d2a =
-            clamped_d2(ax - sa[0][col], ay - sa[1][col], az - sa[2][col]);
-        const float d2b =
-            clamped_d2(bx - sb[0][col], by - sb[1][col], bz - sb[2][col]);
-        s += pair_term(d2a, d2b);
-        cnt += 1;
-      }
-    }
-  }
-  block_stat_partial(s, cnt, red_s, red_c, part_s, part_c,
-                     static_cast<size_t>(prot) * n_pairs + pair);
-}
+// to_tf32, mma_tf32, SplitFrag, split_tf32 and mma_split: mma_tf32.cuh.
 
 // ------------------------------------------------- the matrix-unit form
 
-// to_tf32, mma_tf32, SplitFrag, split_tf32 and mma_split: mma_tf32.cuh.
-
-// One staged tile of kTile atoms (K4b): the split coordinates of a and b,
-// the squared norms and the mask. Atoms beyond n are zeros with the mask
-// off.
-struct Tile {
-  uint32_t a_head[3][kTile];
-  uint32_t a_rest[3][kTile];
-  uint32_t b_head[3][kTile];
-  uint32_t b_rest[3][kTile];
-  float na[kTile];
-  float nb[kTile];
-  uint8_t m[kTile];
-};
-
-// Thread k of a group of kTile threads stages atom k of tile t.
-__device__ __forceinline__ void stage_atom(Tile& tile, int k, int t,
-                                           const float* __restrict__ a,
-                                           const float* __restrict__ b,
-                                           const uint8_t* __restrict__ mask,
-                                           size_t base, int n) {
-  const int atom = t * kTile + k;
-  const bool ok = atom < n;
-  const size_t o = (base + (ok ? atom : 0)) * 3;
-  float xa[3], xb[3];
-  for (int c = 0; c < 3; ++c) {
-    xa[c] = ok ? a[o + c] : 0.f;
-    xb[c] = ok ? b[o + c] : 0.f;
-    split_tf32(xa[c], &tile.a_head[c][k], &tile.a_rest[c][k]);
-    split_tf32(xb[c], &tile.b_head[c][k], &tile.b_rest[c][k]);
-  }
-  tile.na[k] = fmaf(xa[2], xa[2], fmaf(xa[1], xa[1], xa[0] * xa[0]));
-  tile.nb[k] = fmaf(xb[2], xb[2], fmaf(xb[1], xb[1], xb[0] * xb[0]));
-  tile.m[k] = ok ? mask[base + atom] : 0;
-}
-
-// The left operand of the cross term: rows r0 + g and r0 + g + 8 of a tile's
-// coordinates, component t along the contraction (zero for t = 3 and for
-// the padding k = 4 .. 7).
-__device__ __forceinline__ SplitFrag<4> row_operand(
-    const uint32_t (&head)[3][kTile], const uint32_t (&rest)[3][kTile],
-    int r0, int g, int t) {
-  SplitFrag<4> f;
-  const bool live = t < 3;
-  const int c = live ? t : 0;
-  f.head[0] = live ? head[c][r0 + g] : 0u;
-  f.head[1] = live ? head[c][r0 + g + 8] : 0u;
-  f.rest[0] = live ? rest[c][r0 + g] : 0u;
-  f.rest[1] = live ? rest[c][r0 + g + 8] : 0u;
-  f.head[2] = f.head[3] = f.rest[2] = f.rest[3] = 0u;
-  return f;
-}
-
-// The right operand of the cross term: column c0 + g of a tile's
-// coordinates, component t along the contraction.
-__device__ __forceinline__ SplitFrag<2> col_operand(
-    const uint32_t (&head)[3][kTile], const uint32_t (&rest)[3][kTile],
-    int c0, int g, int t) {
-  SplitFrag<2> f;
-  const bool live = t < 3;
-  const int c = live ? t : 0;
-  f.head[0] = live ? head[c][c0 + g] : 0u;
-  f.rest[0] = live ? rest[c][c0 + g] : 0u;
-  f.head[1] = f.rest[1] = 0u;
-  return f;
-}
-
-// What a warp keeps of its 16 rows while it walks the columns.
-struct WarpRows {
-  SplitFrag<4> a;
-  SplitFrag<4> b;
-  int r0;
-};
-
-__device__ __forceinline__ WarpRows warp_rows(const Tile& rows, int r0, int g,
-                                              int t) {
-  return {row_operand(rows.a_head, rows.a_rest, r0, g, t),
-          row_operand(rows.b_head, rows.b_rest, r0, g, t), r0};
-}
-
-// Clamped squared distances of a and b for the thread's four entries
-// e = 0 .. 3 of the 16 x 8 block at rows w.r0 .., columns c0 ..: entry e is
-// (row w.r0 + g + 8 (e / 2), column c0 + 2 t + e % 2).
-__device__ __forceinline__ void d2_block(const Tile& rows, const Tile& cols,
-                                         const WarpRows& w, int c0, int g,
-                                         int t, float (&d2a)[4],
-                                         float (&d2b)[4]) {
-  float cross_a[4] = {0.f, 0.f, 0.f, 0.f};
-  float cross_b[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_split(cross_a, w.a, col_operand(cols.a_head, cols.a_rest, c0, g, t));
-  mma_split(cross_b, w.b, col_operand(cols.b_head, cols.b_rest, c0, g, t));
-  for (int e = 0; e < 4; ++e) {
-    const int row = w.r0 + g + 8 * (e >> 1);
-    const int col = c0 + 2 * t + (e & 1);
-    d2a[e] = fmaxf((rows.na[row] + cols.na[col]) - 2.f * cross_a[e],
-                   kDistClamp);
-    d2b[e] = fmaxf((rows.nb[row] + cols.nb[col]) - 2.f * cross_b[e],
-                   kDistClamp);
-  }
-}
-
-// Both tiles of a block staged by its two groups of kTile threads: threads
-// [0, kTile) the column tile tj, the others the row tile ti.
-__device__ __forceinline__ void stage_pair(Tile& row_tile, Tile& col_tile,
-                                           int ti, int tj,
-                                           const float* __restrict__ a,
-                                           const float* __restrict__ b,
-                                           const uint8_t* __restrict__ mask,
-                                           size_t base, int n) {
-  const int tid = threadIdx.x;
-  if (tid < kTile) {
-    stage_atom(col_tile, tid, tj, a, b, mask, base, n);
-  } else {
-    stage_atom(row_tile, tid - kTile, ti, a, b, mask, base, n);
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------- K4b
-
-__global__ void __launch_bounds__(kThreads)
-mxu_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                const uint8_t* __restrict__ mask, int n, int n_tiles,
-                int n_pairs, float* __restrict__ part_s,
-                int* __restrict__ part_c) {
-  const int pair = blockIdx.x;
-  const int prot = blockIdx.y;
-  int ti, tj;
-  unrank_pair(pair, n_tiles, &ti, &tj);
-
-  __shared__ Tile row_tile;
-  __shared__ Tile col_tile;
-  __shared__ float red_s[kWarps];
-  __shared__ int red_c[kWarps];
-
-  stage_pair(row_tile, col_tile, ti, tj, a, b, mask,
-             static_cast<size_t>(prot) * n, n);
-
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const WarpRows w = warp_rows(row_tile, (threadIdx.x >> 5) * 16, g, t);
-
-  float s = 0.f;
-  int cnt = 0;
-  for (int c0 = 0; c0 < kTile; c0 += 8) {
-    float d2a[4], d2b[4];
-    d2_block(row_tile, col_tile, w, c0, g, t, d2a, d2b);
-    for (int e = 0; e < 4; ++e) {
-      const int row = w.r0 + g + 8 * (e >> 1);
-      const int col = c0 + 2 * t + (e & 1);
-      if (row_tile.m[row] && col_tile.m[col] &&
-          ti * kTile + row < tj * kTile + col) {
-        s += pair_term(d2a[e], d2b[e]);
-        cnt += 1;
-      }
-    }
-  }
-  block_stat_partial(s, cnt, red_s, red_c, part_s, part_c,
-                     static_cast<size_t>(prot) * n_pairs + pair);
-}
-
-// ---------------------------------------------------------------- K4c
-
 // One tile's valid atoms, compacted in tile order as K1 compacts them, in
-// the layouts that K4c's products read. Slots past the count hold zeros.
+// the layouts that the products read: K4b reads x and norm, K4c all of it.
+// Slots past the count hold zeros.
 constexpr int kPairStride = kTile / 2 + 4;  // 4 mod 8 words of 16 bytes
 struct MxuTile {
   // per component c (c = 3: zeros): {head a_c, rest a_c, head b_c, rest b_c}
@@ -370,26 +158,187 @@ __device__ __forceinline__ float rsqrt_approx(float x) {
   return r;
 }
 
-// Compacted slot k of `tile` from one atom's coordinates; zeros for
-// coordinates of zero (the slots past the count).
-__device__ __forceinline__ void put_atom(MxuTile& tile, int k,
-                                         const float (&xa)[3],
-                                         const float (&xb)[3]) {
-  uint32_t* a2 = reinterpret_cast<uint32_t*>(&tile.a2[0][k >> 1]);
+// The cross terms' operands and the squared norms of compacted slot k of
+// `tile`, from one atom's coordinates; zeros for coordinates of zero (the
+// slots past the count).
+__device__ __forceinline__ void put_split(MxuTile& tile, int k,
+                                          const float (&xa)[3],
+                                          const float (&xb)[3]) {
   for (int c = 0; c < 3; ++c) {
     uint4 w;
     split_tf32(xa[c], &w.x, &w.y);
     split_tf32(xb[c], &w.z, &w.w);
     tile.x[k][c] = w;
-    a2[c * kPairStride * 4 + (k & 1)] = w.x;
-    a2[c * kPairStride * 4 + 2 + (k & 1)] = w.y;
   }
   tile.x[k][3] = make_uint4(0u, 0u, 0u, 0u);
-  tile.a[k] = make_float4(xa[0], xa[1], xa[2], 0.f);
   tile.norm[k] = make_float2(
       fmaf(xa[2], xa[2], fmaf(xa[1], xa[1], xa[0] * xa[0])),
       fmaf(xb[2], xb[2], fmaf(xb[1], xb[1], xb[0] * xb[0])));
 }
+
+// put_split and what K4c reads besides: the split a in pairs and the fp32 a.
+__device__ __forceinline__ void put_atom(MxuTile& tile, int k,
+                                         const float (&xa)[3],
+                                         const float (&xb)[3]) {
+  put_split(tile, k, xa, xb);
+  uint32_t* a2 = reinterpret_cast<uint32_t*>(&tile.a2[0][k >> 1]);
+  for (int c = 0; c < 3; ++c) {
+    uint32_t head, rest;
+    split_tf32(xa[c], &head, &rest);
+    a2[c * kPairStride * 4 + (k & 1)] = head;
+    a2[c * kPairStride * 4 + 2 + (k & 1)] = rest;
+  }
+  tile.a[k] = make_float4(xa[0], xa[1], xa[2], 0.f);
+}
+
+// Stage one atom as K1 does: threads [0, kTile) of a block the column tile
+// tj, the others the row tile ti (none on a diagonal tile pair, whose rows
+// are its columns). Reads the mask and the coordinates together, one round
+// trip; returns whether the thread's atom is valid.
+__device__ __forceinline__ bool load_atom(const float* __restrict__ a,
+                                          const float* __restrict__ b,
+                                          const uint8_t* __restrict__ mask,
+                                          int n, size_t base, int atom,
+                                          bool stages, float (&xa)[3],
+                                          float (&xb)[3]) {
+  for (int c = 0; c < 3; ++c) xa[c] = xb[c] = 0.f;
+  if (!stages || atom >= n) return false;
+  for (int c = 0; c < 3; ++c) {
+    xa[c] = a[(base + atom) * 3 + c];
+    xb[c] = b[(base + atom) * 3 + c];
+  }
+  return mask[base + atom] != 0;
+}
+
+// ---------------------------------------------------------------- K4b
+
+// Warp w's share of K4b's sweep: compacted rows 16 w .. 16 w + 15 against
+// the columns in blocks of 16, each pair's term computed once; returns the
+// lane's share of S. kDiag: rows and columns are one tile, only compacted
+// row < column counts, and the blocks wholly below the warp's rows are
+// skipped.
+template <bool kDiag>
+__device__ __forceinline__ float mxu_stat_sweep(const MxuTile& rows,
+                                                const MxuTile& cols, int nr,
+                                                int nc) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * w;
+  // the left operands of a's and b's cross terms: rows r0 + g, r0 + g + 8,
+  // component t; and those rows' squared norms
+  const uint4 lo = rows.x[r0 + g][t], hi = rows.x[r0 + g + 8][t];
+  const SplitFrag<4> left[2] = {{{lo.x, hi.x, 0u, 0u}, {lo.y, hi.y, 0u, 0u}},
+                                {{lo.z, hi.z, 0u, 0u}, {lo.w, hi.w, 0u, 0u}}};
+  const float2 n_row[2] = {rows.norm[r0 + g], rows.norm[r0 + g + 8]};
+  // a column counts for row r0 + g + 8 i below lim[i]: nc for a valid row,
+  // 0 for one past nr; on the diagonal row < column < nc = nr covers both
+  int lim[2];
+  for (int i = 0; i < 2; ++i) lim[i] = kDiag || r0 + g + 8 * i < nr ? nc : 0;
+  float s = 0.f;
+  for (int cb = kDiag ? w : 0; 16 * cb < nc; ++cb) {
+    // the right operands, q = 2 hh + (0: a, 1: b): columns 16 cb + 8 hh + g,
+    // component t; the squared norms of columns 16 cb + 8 hh + 2 t, + 1
+    SplitFrag<2> right[4];
+    float4 n_col[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c0 = 16 * cb + 8 * hh;
+      const uint4 x = cols.x[c0 + g][t];
+      right[2 * hh] = SplitFrag<2>{{x.x, 0u}, {x.y, 0u}};
+      right[2 * hh + 1] = SplitFrag<2>{{x.z, 0u}, {x.w, 0u}};
+      n_col[hh] = *reinterpret_cast<const float4*>(&cols.norm[c0 + 2 * t]);
+    }
+    // four independent chains of mma_split's three products, issued term by
+    // term so that each product's latency overlaps the other chains'
+    float cross[4][4] = {};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      mma_tf32(cross[q], left[q & 1].rest, right[q].head);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      mma_tf32(cross[q], left[q & 1].head, right[q].rest);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      mma_tf32(cross[q], left[q & 1].head, right[q].head);
+    // entry e of half hh: row r0 + g + 8 (e / 2), column
+    // 16 cb + 8 hh + 2 t + e % 2
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int row = r0 + g + 8 * i;
+        const int col = 16 * cb + 8 * hh + 2 * t + (e & 1);
+        const float na = (e & 1) ? n_col[hh].z : n_col[hh].x;
+        const float nb = (e & 1) ? n_col[hh].w : n_col[hh].y;
+        const float d2a = fmaxf(
+            fmaf(-2.f, cross[2 * hh][e], n_row[i].x + na), kDistClamp);
+        const float d2b = fmaxf(
+            fmaf(-2.f, cross[2 * hh + 1][e], n_row[i].y + nb), kDistClamp);
+        const float term = fmaf(-2.f, sqrtf(d2a * d2b), d2a + d2b);
+        const bool counts = col < lim[i] && (!kDiag || row < col);
+        s += counts ? term : 0.f;
+      }
+  }
+  return s;
+}
+
+// K4b's tile kernel: grid (upper-triangular tile pairs, proteins), K1's
+// staging with compaction, one sweep, and K1's (S, C) partial per tile pair
+// (zeros for a block without a pair).
+__global__ void __launch_bounds__(kThreads)
+mxu_stat_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                     const uint8_t* __restrict__ mask, int n, int n_tiles,
+                     int n_pairs, float* __restrict__ part_s,
+                     int* __restrict__ part_c) {
+  __shared__ MxuTile tiles[2];  // [0] the column tile tj, [1] the rows
+  __shared__ int warp_count[kWarps];
+  __shared__ float red_s[kWarps];
+  const int pair = blockIdx.x;
+  const int prot = blockIdx.y;
+  int ti, tj;
+  unrank_pair(pair, n_tiles, &ti, &tj);
+  const bool diag = ti == tj;
+
+  const int tid = threadIdx.x;
+  const int group = tid / kTile;
+  const int pos = tid % kTile;
+  const bool stages = group == 0 || !diag;
+  float xa[3], xb[3];
+  const bool ok = load_atom(a, b, mask, n, static_cast<size_t>(prot) * n,
+                            (group == 0 ? tj : ti) * kTile + pos, stages, xa,
+                            xb);
+  const Compacted cp = compact(ok, diag, warp_count);
+  if (stages) {
+    if (ok) put_split(tiles[group], cp.k, xa, xb);
+    if (pos >= (group == 0 ? cp.nc : cp.nr)) {
+      const float zero[3] = {0.f, 0.f, 0.f};
+      put_split(tiles[group], pos, zero, zero);
+    }
+  }
+  __syncthreads();
+
+  const size_t slot = static_cast<size_t>(prot) * n_pairs + pair;
+  if (cp.nr == 0 || cp.nc == 0) {
+    if (tid == 0) {
+      part_s[slot] = 0.f;
+      part_c[slot] = 0;
+    }
+    return;
+  }
+  float s = 0.f;
+  if (16 * (tid >> 5) < cp.nr) {
+    s = diag ? mxu_stat_sweep<true>(tiles[0], tiles[0], cp.nr, cp.nc)
+             : mxu_stat_sweep<false>(tiles[1], tiles[0], cp.nr, cp.nc);
+  }
+  const float total = block_sum(s, red_s);
+  if (tid == 0) {
+    part_s[slot] = total;
+    part_c[slot] = diag ? cp.nr * (cp.nr - 1) / 2 : cp.nr * cp.nc;
+  }
+}
+
+// ---------------------------------------------------------------- K4c
 
 // Warp w's share of one sweep: compacted rows 16 w .. 16 w + 15 against
 // every column, each pair's coef computed once. Writes the rows' partials
@@ -547,17 +496,10 @@ mxu_grad_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int group = tid / kTile;
   const int pos = tid % kTile;
   const bool stages = group == 0 || !diag;
-  const int atom = (group == 0 ? tj : ti) * kTile + pos;
-  const size_t base = static_cast<size_t>(prot) * n;
-  float xa[3] = {0.f, 0.f, 0.f}, xb[3] = {0.f, 0.f, 0.f};
-  bool ok = false;
-  if (stages && atom < n) {
-    ok = mask[base + atom] != 0;
-    for (int c = 0; c < 3; ++c) {
-      xa[c] = a[(base + atom) * 3 + c];
-      xb[c] = b[(base + atom) * 3 + c];
-    }
-  }
+  float xa[3], xb[3];
+  const bool ok = load_atom(a, b, mask, n, static_cast<size_t>(prot) * n,
+                            (group == 0 ? tj : ti) * kTile + pos, stages, xa,
+                            xb);
   float* red_col = &sh.red_col[0][0][0];
   for (int e = tid; e < kWarps * 3 * kTile; e += kThreads) red_col[e] = 0.f;
   const Compacted cp = compact(ok, diag, sh.warp_count);
@@ -605,28 +547,18 @@ mxu_grad_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-bool bad_shape(int batch, int n) {
-  return batch <= 0 || n <= 0 || batch > 65535;
-}
-
-// One (S, C) tile kernel over every tile pair of every protein, then the
-// per-protein sum of its partials.
-using StatsKernel = void (*)(const float*, const float*, const uint8_t*, int,
-                             int, int, float*, int*);
-
-int launch_stats(StatsKernel kernel, const float* a, const float* b,
-                 const uint8_t* mask, int batch, int n, float* part_s,
-                 int* part_c, float* out_s, long long* out_c, void* stream) {
-  if (bad_shape(batch, n)) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_tiles = (n + kTile - 1) / kTile;
-  const int n_pairs = n_tiles * (n_tiles + 1) / 2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<dim3(n_pairs, batch), kThreads, 0, s>>>(a, b, mask, n, n_tiles,
-                                                   n_pairs, part_s, part_c);
+// The per-protein sum of the (S, C) partials that a tile kernel was just
+// launched to write, as K1a sums them (k1_epilogue_kernel<true, false>), or
+// that launch's error.
+int sum_partials(const float* part_s, const int* part_c, int batch, int n,
+                 float* out_s, long long* out_c, cudaStream_t s) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  stat_reduce_kernel<<<batch, kReduceThreads, 0, s>>>(part_s, part_c,
-                                                      n_pairs, out_s, out_c);
+  const int n_tiles = (n + kTile - 1) / kTile;
+  const int n_pairs = n_tiles * (n_tiles + 1) / 2;
+  k1_epilogue_kernel<true, false><<<dim3(1, batch), kEpilogueThreads, 0, s>>>(
+      part_s, part_c, nullptr, nullptr, n, n_tiles, n_pairs, out_s, out_c,
+      nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -641,23 +573,33 @@ const char* drmsd_variants_error_string(int err) {
 }
 
 // K4a. a, b: (batch, n, 3) float32, contiguous. mask: (batch, n) uint8 0/1.
-// part_s, part_c: (batch, n_pairs) scratch, n_pairs = T (T + 1) / 2 with
-// T = ceil(n / drmsd_variants_tile()). out_s: (batch,) float32, out_c:
-// (batch,) int64. Launches on `stream`; returns the CUDA error code (0 on
-// success).
+// part_s, part_c: (batch, n_pairs) scratch, any contents, n_pairs =
+// T (T + 1) / 2 with T = ceil(n / drmsd_variants_tile()). out_s: (batch,)
+// float32, out_c: (batch,) int64. Launches on `stream`; returns the CUDA
+// error code (0 on success).
 int drmsd_fwd_sqrt1(const float* a, const float* b, const uint8_t* mask,
                     int batch, int n, float* part_s, int* part_c,
                     float* out_s, long long* out_c, void* stream) {
-  return launch_stats(sqrt1_tile_kernel, a, b, mask, batch, n, part_s, part_c,
-                      out_s, out_c, stream);
+  if (k1_bad_shape(batch, n)) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = (n + kTile - 1) / kTile;
+  const int n_pairs = n_tiles * (n_tiles + 1) / 2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  k1_tile_kernel<false, true, true><<<dim3(n_pairs, batch), kThreads, 0, s>>>(
+      a, b, mask, n, n_tiles, n_pairs, part_s, part_c, nullptr, nullptr);
+  return sum_partials(part_s, part_c, batch, n, out_s, out_c, s);
 }
 
 // K4b. Arguments as for drmsd_fwd_sqrt1.
 int drmsd_fwd_mxu(const float* a, const float* b, const uint8_t* mask,
                   int batch, int n, float* part_s, int* part_c, float* out_s,
                   long long* out_c, void* stream) {
-  return launch_stats(mxu_tile_kernel, a, b, mask, batch, n, part_s, part_c,
-                      out_s, out_c, stream);
+  if (k1_bad_shape(batch, n)) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = (n + kTile - 1) / kTile;
+  const int n_pairs = n_tiles * (n_tiles + 1) / 2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mxu_stat_tile_kernel<<<dim3(n_pairs, batch), kThreads, 0, s>>>(
+      a, b, mask, n, n_tiles, n_pairs, part_s, part_c);
+  return sum_partials(part_s, part_c, batch, n, out_s, out_c, s);
 }
 
 // K4c. a, b, mask as above; part_row, part_col: (batch, n_pairs, 3, tile)
@@ -665,7 +607,7 @@ int drmsd_fwd_mxu(const float* a, const float* b, const uint8_t* mask,
 int drmsd_grad_a_mxu(const float* a, const float* b, const uint8_t* mask,
                      int batch, int n, float* part_row, float* part_col,
                      float* out_g, void* stream) {
-  if (bad_shape(batch, n)) return static_cast<int>(cudaErrorInvalidValue);
+  if (k1_bad_shape(batch, n)) return static_cast<int>(cudaErrorInvalidValue);
   const int n_tiles = (n + kTile - 1) / kTile;
   const int n_pairs = n_tiles * (n_tiles + 1) / 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

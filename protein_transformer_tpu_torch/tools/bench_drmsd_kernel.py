@@ -26,10 +26,20 @@ as a script with another checkout's root first on ``PYTHONPATH`` it times
 that checkout's kernels instead, so that two versions can be compared in one
 run on one card; on the GPU it ends with the times as one JSON object.
 
+``--save-outputs FILE`` and ``--compare-outputs FILE`` replace the bench:
+``outputs`` runs K1a, K1b, K1c, K4a, K4b and K4c on the bench's inputs at
+both shapes and on the training step's masks at B=16 x 3584 atoms; the
+first saves what they return, the second holds this checkout's against a
+saved file bit for bit (``torch.equal``) and prints which kernels agree. Run
+with two checkouts in turn, it shows whether a change kept a kernel's bits.
+
     python -m protein_transformer_tpu_torch.tools.bench_drmsd_kernel
     python -m protein_transformer_tpu_torch.tools.bench_drmsd_kernel \
         --device cpu
     PYTHONPATH=<other checkout> python <this file>
+    PYTHONPATH=<other checkout> python <this file> --save-outputs other.pt
+    python -m protein_transformer_tpu_torch.tools.bench_drmsd_kernel \
+        --compare-outputs other.pt
 
 The default device is the GPU, and the run raises without one. ``--device
 cpu`` runs ``parity`` on the plain PyTorch versions only, which checks their
@@ -38,6 +48,7 @@ arithmetic and gives no time.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import statistics
 import subprocess
@@ -45,6 +56,7 @@ import subprocess
 import numpy as np
 import torch
 
+from protein_transformer_tpu_torch.data.synthetic import atom_mask_case
 from protein_transformer_tpu_torch.device import cuda_device
 from protein_transformer_tpu_torch.ops import drmsd as D
 from protein_transformer_tpu_torch.ops import drmsd_variants as V
@@ -52,6 +64,11 @@ from protein_transformer_tpu_torch.ops import drmsd_variants as V
 SHAPES = ((256, 8), (500, 8))
 TIMED_RUNS = 25
 ATOMS_PER_RESIDUE = 14
+
+# calls of each implementation (by its name in ``implementations``) that the
+# last ``bench`` made: 3 warm-up, TIMED_RUNS timed, 1 + 5 traced at each
+# shape, and 5 more for each trace that ``device_records`` took again
+CALLS: collections.Counter = collections.Counter()
 
 
 def implementations(device: torch.device) -> dict:
@@ -145,7 +162,7 @@ def device_records(fn, calls: int) -> list:
     fn()
     # a trace now and then comes back without its device records (seen once
     # in ~20 traces on an H100 under torch 2.11): such a trace is taken again
-    for _ in range(3):
+    for traces in range(1, 4):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -156,6 +173,9 @@ def device_records(fn, calls: int) -> list:
                      if e.device_type == torch.autograd.DeviceType.CUDA]
         if on_device:
             return on_device
+        if traces < 3:
+            print(f"the trace of {calls} calls recorded no device "
+                  f"operation; taking it again")
     raise RuntimeError("the profiler recorded no device operation")
 
 
@@ -181,6 +201,12 @@ def bench(device: torch.device, shapes=SHAPES) -> dict:
                          f"device; got {device}")
     impl = implementations(device)
     card = card_label()
+    CALLS.clear()
+
+    def call(name):
+        CALLS[name] += 1
+        impl[name](a, b, mask)
+
     out = {}
     for length, bsz in shapes:
         n = length * ATOMS_PER_RESIDUE
@@ -190,14 +216,59 @@ def bench(device: torch.device, shapes=SHAPES) -> dict:
         for label, name in (("fwd  cur  ", "cur"), ("fwd  sqrt1", "sqrt1"),
                             ("fwd  mxu  ", "mxu"), ("bwd  cur  ", "grad cur"),
                             ("bwd  mxu  ", "grad mxu")):
-            ms = event_ms(lambda: impl[name](a, b, mask))
-            on_device = device_ms(lambda: impl[name](a, b, mask))
+            ms = event_ms(lambda: call(name))
+            on_device = device_ms(lambda: call(name))
             times[" ".join(label.split())] = (ms, on_device)
             print(f"  {label}: {ms:7.3f} ms by events (median of "
                   f"{TIMED_RUNS}), {on_device:7.3f} ms on the device  "
                   f"({card})")
         out[(length, bsz)] = times
     return out
+
+
+def outputs(device: torch.device) -> dict:
+    """{kernel: {case: its outputs}} of K1a ("cur"), K1b ("grad cur"), K1c
+    ("grad b"), K4a, K4b and K4c on the bench's inputs at each of SHAPES and
+    on the training step's masks (``atom_mask_case``, seed 0, a, b ~
+    N(0, 10)) at B=16 x 3584 atoms, on the CPU."""
+    impl = implementations(device)
+    calls = {name: impl[name] for name in ("cur", "grad cur", "sqrt1", "mxu",
+                                           "grad mxu")}
+    calls["grad b"] = (D.drmsd_grad_b_cuda if device.type == "cuda"
+                       else D.drmsd_grad_b_torch)
+    cases = {f"L={length} B={bsz}": case(
+        device, (bsz, length * ATOMS_PER_RESIDUE), masked=0.1)
+        for length, bsz in SHAPES}
+    rng = np.random.default_rng(0)
+    a, b = (torch.from_numpy(rng.normal(0, 10, (16, 3584, 3)).astype(
+        np.float32)).to(device) for _ in range(2))
+    cases["train masks B=16 N=3584"] = (
+        a, b, torch.from_numpy(atom_mask_case(rng, 16, 3584)).to(device))
+    out = {}
+    for name, fn in calls.items():
+        out[name] = {}
+        for where, inputs in cases.items():
+            got = fn(*inputs)
+            out[name][where] = [t.cpu() for t in (
+                got if isinstance(got, tuple) else (got,))]
+    return out
+
+
+def compare_outputs(mine: dict, saved: dict) -> dict:
+    """{kernel: whether every output of it, in every case, equals the saved
+    one bit for bit}; prints one line per kernel."""
+    if mine.keys() != saved.keys():
+        raise ValueError(f"the saved outputs are of {sorted(saved)}, not "
+                         f"{sorted(mine)}")
+    same = {}
+    for name, cases in mine.items():
+        same[name] = all(
+            len(got) == len(saved[name][where]) and all(
+                torch.equal(x, y) for x, y in zip(got, saved[name][where]))
+            for where, got in cases.items())
+        print(f"{name}: {'the same bits' if same[name] else 'other bits'} "
+              f"in {len(cases)} cases")
+    return same
 
 
 def main(argv=None) -> dict:
@@ -207,6 +278,12 @@ def main(argv=None) -> dict:
                          "the parity check on the plain versions only")
     ap.add_argument("--parity", action="store_true",
                     help="on the GPU, run the parity check before the bench")
+    ap.add_argument("--save-outputs", metavar="FILE",
+                    help="instead of the bench, save the kernels' outputs "
+                         "(torch.save)")
+    ap.add_argument("--compare-outputs", metavar="FILE",
+                    help="instead of the bench, hold the kernels' outputs "
+                         "against a saved file bit for bit")
     args = ap.parse_args(argv)
     if args.device == "cpu":
         return {"parity": parity(torch.device("cpu"))}
@@ -215,6 +292,16 @@ def main(argv=None) -> dict:
     out = {}
     if args.parity:
         out["parity"] = parity(device)
+    if args.save_outputs or args.compare_outputs:
+        mine = outputs(device)
+        if args.save_outputs:
+            torch.save(mine, args.save_outputs)
+        if args.compare_outputs:
+            out["same_bits"] = compare_outputs(
+                mine, torch.load(args.compare_outputs))
+            print(json.dumps({"card": card_label(),
+                              "same_bits": out["same_bits"]}))
+        return out
     out["bench"] = bench(device)
     print(json.dumps({"card": card_label(), "bench": {
         f"L={length} B={bsz}": times

@@ -81,6 +81,11 @@ def tensors(*arrays, device="cpu"):
     return [torch.from_numpy(x).to(device) for x in arrays]
 
 
+def drmsd_of(s, c):
+    """dRMSD from (S, C): sqrt(S / C), 0 where C = 0."""
+    return torch.sqrt(s.clamp(min=0) / c.clamp(min=1).to(s.dtype))
+
+
 @pytest.mark.parametrize("n", [700, 333])
 @pytest.mark.parametrize("name", list(STATS))
 def test_plain_stats_match_the_jax_tools_kernel(jax_tool, name, n):
@@ -95,6 +100,34 @@ def test_plain_stats_match_the_jax_tools_kernel(jax_tool, name, n):
         jnp.asarray(m, jnp.float32), True)
     assert c.dtype == torch.int64 and int(c) == int(jc) > 0
     assert abs(float(s) - float(js)) <= 1e-5 * abs(float(js))
+
+
+@pytest.mark.parametrize("n", [127, 129])
+@pytest.mark.parametrize("name", list(STATS))
+def test_plain_stats_match_the_jax_tools_kernel_on_structured_masks(
+        jax_tool, name, n):
+    """One protein of ``structured_batch`` at a time, on either side of the
+    128-atom tile edge, against the tool's kernel (jitted, interpret mode):
+    counts equal, 0 and 1 included; S within 1e-5 relative, and exactly 0
+    where there is no pair."""
+    import jax
+    import jax.numpy as jnp
+    plain, _, kernel = STATS[name]
+    call = jax.jit(functools.partial(
+        jax_tool._call_fwd, getattr(jax_tool, kernel), interpret=True))
+    a, b, m = structured_batch(n, n + 11)
+    counts = []
+    for i in range(len(m)):
+        s, c = plain(*tensors(a[i], b[i], m[i]))
+        js, jc = call(jnp.asarray(a[i]), jnp.asarray(b[i]),
+                      jnp.asarray(m[i], jnp.float32))
+        assert c.dtype == torch.int64 and int(c) == int(jc)
+        if int(c) == 0:
+            assert float(s) == 0.0 == float(js)
+        else:
+            assert abs(float(s) - float(js)) <= 1e-5 * abs(float(js))
+        counts.append(int(c))
+    assert counts[2:] == [0, 0, 1] and min(counts[:2]) > 1000
 
 
 @pytest.mark.parametrize("n", [700, 333])
@@ -179,11 +212,66 @@ def test_tool_on_the_cpu_runs_parity_and_prints_no_time(capsys):
         tool.bench(torch.device("cpu"))
 
 
+def test_device_records_takes_an_empty_trace_again(monkeypatch, capsys):
+    """A trace without device records is taken again, up to three traces,
+    each of ``calls`` calls after the one warm-up call: the count of calls
+    ``bench`` keeps in ``CALLS``, and ``chip_smoke.py`` holds the kernels'
+    launches to. On the CPU no trace holds a device record."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    with pytest.raises(RuntimeError, match="no device operation"):
+        tool.device_records(lambda: calls.append(torch.ones(3).sum()), 2)
+    assert len(calls) == 1 + 3 * 2
+    assert capsys.readouterr().out.count("taking it again") == 2
+
+
+def test_compare_outputs_names_the_kernels_whose_bits_differ(capsys):
+    """What ``--compare-outputs`` reports: a kernel keeps its bits only if
+    every output in every case is equal, by ``torch.equal``."""
+    saved = {"cur": {"x": [torch.tensor([1.0, 2.0]), torch.tensor([3])]},
+             "mxu": {"x": [torch.tensor([0.5])], "y": [torch.zeros(2, 3)]}}
+    mine = {"cur": {"x": [torch.tensor([1.0, 2.0]), torch.tensor([3])]},
+            "mxu": {"x": [torch.tensor([0.5])],
+                    "y": [torch.tensor([[0.0, 0, 0], [0, 0, 2 ** -30]])]}}
+    assert tool.compare_outputs(mine, saved) == {"cur": True, "mxu": False}
+    assert "mxu: other bits in 2 cases" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="saved outputs"):
+        tool.compare_outputs({"cur": mine["cur"]}, saved)
+
+
 def test_tool_without_a_gpu_raises_and_never_uses_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tool.main([])
+
+
+def test_bounds_of_k4a_and_k4b():
+    """chip_smoke's bounds at the K4 rows (the bench's B=8 x 3584 atoms,
+    41,475,020 valid pairs): K4b's one square root a pair over 132 SMs x 16
+    a clock x 1.98 GHz takes longer than its 14 fp32 operations a pair over
+    67 TFLOP/s and its products over 495 TFLOP/s; K4a's 24 fp32 operations
+    a pair take longer than its one root."""
+    import chip_smoke
+    pairs = 41_475_020
+    n_bytes = 8 * 3584 * 25 + 8 * 12
+
+    def bound_of(name):
+        flops, tensor_flops = chip_smoke.VARIANT_FLOPS_PER_PAIR[name]
+        return chip_smoke.bound(
+            n_bytes, flops * pairs, tensor_flops * pairs,
+            special=chip_smoke.SPECIAL_PER_PAIR[name] * pairs)
+
+    ms, by = bound_of("drmsd_fwd_mxu")
+    assert by == "special functions"
+    assert ms == pytest.approx(1e3 * pairs / (132 * 16 * 1.98e9))
+    assert round(ms, 5) == 0.00992
+    assert chip_smoke.bound(n_bytes, 14 * pairs)[0] == pytest.approx(
+        0.00867, rel=1e-3)
+    ms, by = bound_of("drmsd_fwd_sqrt1")
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * 24 * pairs / 67e12)
+    assert round(ms, 4) == 0.0149
 
 
 # ------------------------------------------------------ card-only tests
@@ -264,3 +352,37 @@ def test_grad_kernel_on_structured_masks_on_card(cuda, n):
     assert g[4].any()
     poison_allocator(cuda)
     assert torch.equal(V.drmsd_grad_a_mxu_cuda(a, b, m), g)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("n", [127, 128, 129, 255, 257, 3584])
+@pytest.mark.parametrize("name", list(STATS))
+def test_stats_kernels_on_structured_masks_on_card(cuda, name, n):
+    """K4a and K4b on the training step's masks around the 128-atom tile
+    edge, their scratch NaN-poisoned: one launch a call, counts equal to the
+    plain version's and to K1a's, exact zeros for the all-masked protein and
+    the one with a single valid atom, the same bits on a second (poisoned)
+    call. Against float64: S within 1e-5 relative where there are many
+    pairs, and every dRMSD within 1e-4 A. The protein with two valid atoms
+    gets the dRMSD gate alone: its S is one pair's term, which the one-root
+    form in fp32 takes as a difference of numbers ~10^3 times larger (at
+    n = 257 the plain fp32 version misses 1e-5 relative on it too)."""
+    plain, kernel, _ = STATS[name]
+    a, b, m = tensors(*structured_batch(n, n + 11), device=cuda)
+    poison_allocator(cuda)
+    before = kernel.launches
+    s, c = kernel(a, b, m)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 1
+    ps, pc = plain(a, b, m)
+    assert torch.equal(c, pc) and torch.equal(c, D.drmsd_stats_cuda(a, b, m)[1])
+    assert int(c[2]) == int(c[3]) == 0 and int(c[4]) == 1
+    assert float(s[2]) == 0.0 and float(s[3]) == 0.0
+    exact = D.drmsd_stats_torch(a.double(), b.double(), m)[0]
+    many = c > 1
+    assert ((s.double() - exact)[many].abs()
+            <= 1e-5 * exact[many].abs()).all() and many[:2].all()
+    assert float((drmsd_of(s.double(), c) - drmsd_of(exact, c)).abs().max()
+                 ) <= 1e-4
+    poison_allocator(cuda)
+    assert torch.equal(kernel(a, b, m)[0], s)
