@@ -79,9 +79,13 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    dropout 0 from identical weights, one step's loss (within 1e-4
    relative) and every parameter's gradient (within 1e-3 of its largest
    entry) of the all-kernels path against the all-plain path. Phases 5
-   and 6 also count each arm's device operations and device time per step
-   with torch.profiler, and the stream synchronisations of one step with
-   torch.cuda.set_sync_debug_mode("warn");
+   and 6 run the trainers' default data path, the device store (each
+   timed phase prints the path it ran), and also count each arm's device
+   operations and device time per step (a batch gathered from the store,
+   then the step) with torch.profiler, and the stream synchronisations of
+   one such step with torch.cuda.set_sync_debug_mode("warn"), with the
+   lines that make them: none in a train step, at most two in an eval step
+   with every kernel;
 7. the training CLI at the same width: a synthetic dataset (train, two
    validation splits, test; lengths 255-256) written with torch.save, then
    ``training.cli.main`` for two epochs into a temporary run directory:
@@ -148,15 +152,42 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    <step>_pred.pdb, <step>_pred.glb and <step>_scene.glb, and true.pdb and
    true.glb, under structures/train and structures/V10, each parsed (PDB
    atoms finite, the .glb container valid); ms per train step with logging
-   on beside logging off.
+   on beside logging off;
+13. the training loop's data paths at the flagship width (B=16 x L=256
+   training, B=8 x L=256 eval): every batch of one train epoch and one eval
+   epoch gathered from the device store equals collate(...).to(device) bit
+   for bit; a synchronising copy made on another thread is counted (the
+   prefetch thread's place); then train and eval epochs with the store
+   (--device_data true), with prefetched host batches (false) and with the
+   synchronous host path the port ran before (the step copies each field
+   from pageable memory), interleaved: ms per step, device operations,
+   device ms and the idle share per step, and the stream synchronisations
+   of a step and of an epoch with their lines; none in the store path's
+   train step or epoch, at most two in its eval step; one step with the
+   store and one with host batches from identical weights at dropout 0,
+   losses within 1e-6 relative;
+14. the repo's own chains, examples/dev_data (NaN angles, missing atoms),
+   through the CLI at full width for two epochs with --device_data true and
+   false: finite epoch metrics, the CSV's columns, checkpoints, the
+   kernels launched as often as the steps say, first-epoch losses of the
+   two runs within 1e-4 relative;
+15. -adbs True through the CLI at L=256 with the store on: the probe must
+   meet a real torch.cuda.OutOfMemoryError, prints its answer, its seconds
+   and what it caught, then one epoch trains at the answer; one epoch with
+   --profile_dir, whose Chrome trace must parse and hold the epoch's CPU
+   operations (its count of device kernel events is printed, and a trace
+   without any is named as the profiler's known empty-trace fault); one
+   epoch under PTT_LOOP_PROFILE=1, whose report must name every phase.
 
-It prints the kernel table as one JSON line, and as its last line
-{"ok": true, "device": {...}}. It needs one CUDA device and no network.
+It prints the time the run took, then the kernel table as one JSON line,
+and as its last line {"ok": true, "device": {...}}. It needs one CUDA
+device and no network.
 """
 from __future__ import annotations
 
 import contextlib
 import csv
+import gc
 import io
 import json
 import math
@@ -164,6 +195,7 @@ import os
 import statistics
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -172,8 +204,9 @@ import torch
 
 from protein_transformer_tpu_torch import predict
 from protein_transformer_tpu_torch.config import TrainConfig
-from protein_transformer_tpu_torch.data.dataset import collate
-from protein_transformer_tpu_torch.data.dataset import DataModule
+from protein_transformer_tpu_torch.data.dataset import (
+    DataModule, collate, load_dataset)
+from protein_transformer_tpu_torch.data.device_store import plan_batch
 from protein_transformer_tpu_torch.data.synthetic import (
     OUT_OF_TABLE_IDS, atom_mask_case, make_dataset, sidechain_case,
     with_every_type)
@@ -192,14 +225,17 @@ from protein_transformer_tpu_torch.protein.geometry import (
     build_coords_batch, inverse_trig_transform)
 from protein_transformer_tpu_torch.protein.pdb import parse_pdb_atoms
 from protein_transformer_tpu_torch.tools import bench_drmsd_kernel
-from protein_transformer_tpu_torch.tools.bench_geometry import sync_count
-from protein_transformer_tpu_torch.training import cli
+from protein_transformer_tpu_torch.tools.bench_geometry import (
+    sync_count, sync_sites)
+from protein_transformer_tpu_torch.training import batch_probe, cli
 from protein_transformer_tpu_torch.training.checkpoint import (
     CheckpointManager)
 from protein_transformer_tpu_torch.training.trainer import Trainer
+from protein_transformer_tpu_torch.utils import TRACE_FILE
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
+DEV_DATA = os.path.join(ROOT, "examples", "dev_data")
 LIBRARIES = ("drmsd_fwd", "drmsd_train", "drmsd_variants", "sidechain",
              "attention")
 # (B, N): the sizes of the TPU kernel's tests, then the training step's
@@ -230,6 +266,10 @@ FLASH_TRAIN_REPEAT = 4   # 16 proteins x 4 / (8 x 500 residues) -> 5 steps
 TIMED_RUNS = bench_drmsd_kernel.TIMED_RUNS
 TRAIN_REPEAT = 8         # 16 proteins x 8 / (8 x 500 residues) -> 9 steps
 MODEL = "conv-enc|21,11,3|1,1,1"
+# stream synchronisations an eval step may make on the store path: both in
+# torch.linalg.svd of the RMSD's Kabsch superposition (losses.py), as read
+# on an H100 (the run prints the lines that make them)
+EVAL_SYNCS = 2
 # arm -> (drmsd_impl, sidechain_impl)
 ARMS = {"all": ("cuda", "cuda"), "drmsd": ("cuda", "torch"),
         "plain": ("torch", "torch")}
@@ -902,6 +942,26 @@ def launched(**counts) -> dict:
     return {**dict.fromkeys(COUNTERS, 0), **counts}
 
 
+def stored_batch(trainer, split: str, idx):
+    """The device batch of rows ``idx`` of a split, gathered from the
+    trainer's store as its data stream gathers it."""
+    if split == "train":
+        split_obj, store = trainer.dm.train, trainer.train_store
+    else:
+        split_obj, store = (trainer.dm.eval_splits[split],
+                            trainer._eval_store(split))
+    return store.batch(plan_batch(split_obj, idx, trainer.cfg.bucket_sizes,
+                                  trainer.dm.max_seq_len))
+
+
+def where(sites) -> str:
+    """The lines of ``sync_sites``, those of this checkout relative to it."""
+    if not sites:
+        return "none"
+    return ", ".join(os.path.relpath(s, ROOT) if s.startswith(ROOT)
+                     else s for s in sites)
+
+
 def timed_epoch(trainer, params, split):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -959,13 +1019,20 @@ def phase_slice(dev, card, out_dir):
     cfg = trainers["all"].cfg
     steps = {arm: 1e3 * statistics.median(t) / n_batches
              for arm, t in times.items()}
-    batch = next(trainers["all"].dm.eval_batches(split))
+    idx = next(trainers["all"].dm.eval_index_batches(split))
     for arm, tr in trainers.items():
-        n_ops, dev_ms = profile_steps(lambda: tr.eval_step(params, batch))
-        syncs = sync_count(lambda: tr.eval_step(params, batch))
-        print(f"[profile] eval step, {arm}: {n_ops:.0f} device operations, "
-              f"{syncs} stream synchronisations "
-              f"and {dev_ms:.2f} ms of device time per step; idle share "
+        def step(tr=tr):  # the store path's step: the gather and the step
+            tr.eval_step(params, stored_batch(tr, split, idx))
+        n_ops, dev_ms = profile_steps(step)
+        sites = sync_sites(step)
+        require(arm != "all" or len(sites) <= EVAL_SYNCS,
+                f"eval step with every kernel on the store path: "
+                f"{len(sites)} stream synchronisations ({where(sites)}), at "
+                f"most {EVAL_SYNCS}")
+        print(f"[profile] eval step, {arm}, {data_path(tr)}: {n_ops:.0f} "
+              f"device operations, {len(sites)} stream synchronisations "
+              f"({where(sites)}) and {dev_ms:.2f} ms of device time per "
+              f"step (the gather included); idle share "
               f"{1 - dev_ms / steps[arm]:.2f} of the {steps[arm]:.2f} ms "
               f"step timed above ({card})")
     print(f"[slice] {MODEL}, d_model {cfg.d_model} x {cfg.n_layers} layers, "
@@ -975,7 +1042,8 @@ def phase_slice(dev, card, out_dir):
                       for arm, label in (("all", "all kernels"),
                                          ("drmsd", "dRMSD kernels only"),
                                          ("plain", "all plain")))
-          + f", medians of 3 epochs each, interleaved; launches in the "
+          + f", medians of 3 epochs each, interleaved, data path "
+          f"{data_path(trainers['all'])}; launches in the "
           f"counted epoch {json.dumps(launches)} ({card})")
     return launches
 
@@ -1002,16 +1070,32 @@ def train_epoch_timed(trainer, state, logger=None):
     return state, seconds, len(batches), n_res
 
 
+def data_path(trainer) -> str:
+    """The data path a trainer's epochs run."""
+    return ("device store" if trainer.train_store is not None
+            else "prefetched host batches")
+
+
+class TimedEpochs(list):
+    """(seconds, steps, residues) of each timed epoch; ``paths``: the data
+    path each ran."""
+
+    def __init__(self):
+        super().__init__()
+        self.paths = []
+
+
 @contextlib.contextmanager
 def timed_train_epochs():
     """Time every ``Trainer.train_epoch`` that runs inside the block (the
-    CLI's trainers among them) from the outside; yields the list that gets
-    one (seconds, steps, residues) per epoch."""
-    epochs = []
+    CLI's trainers among them) from the outside; yields the TimedEpochs that
+    get one (seconds, steps, residues) per epoch."""
+    epochs = TimedEpochs()
 
     def timed(self, state, logger=None):
         state, seconds, n, n_res = train_epoch_timed(self, state, logger)
         epochs.append((seconds, n, n_res))
+        epochs.paths.append(data_path(self))
         return state
 
     Trainer.train_epoch = timed
@@ -1154,18 +1238,24 @@ def phase_train(dev, card, out_dir):
         {k: m[f"epoch-{k}"] for k in ("combined-full", "drmsd-full",
                                       "lndrmsd-full", "mse-full")}))
     cfg = trainers["all"].cfg
-    batch = next(trainers["all"].dm.train_batches(np.random.default_rng(0)))
+    idx = next(trainers["all"].dm.train_index_batches(
+        np.random.default_rng(0)))
     for arm, tr in trainers.items():
-        def step(arm=arm, tr=tr):
-            states[arm] = tr.train_step(states[arm], batch)[0]
+        def step(arm=arm, tr=tr):  # the store path's: gather, then step
+            states[arm] = tr.train_step(
+                states[arm], stored_batch(tr, "train", idx))[0]
         n_ops, dev_ms = profile_steps(step)
-        syncs = sync_count(step)
+        sites = sync_sites(step)
+        require(arm != "all" or not sites,
+                f"train step with every kernel on the store path: "
+                f"{len(sites)} stream synchronisations ({where(sites)}), "
+                "expected none")
         ms = 1e3 * statistics.median(times[arm])
-        print(f"[profile] train step, {arm}: {n_ops:.0f} device operations, "
-              f"{syncs} stream synchronisations "
-              f"and {dev_ms:.2f} ms of device time per step; idle share "
-              f"{1 - dev_ms / ms:.2f} of the {ms:.2f} ms step timed above "
-              f"({card})")
+        print(f"[profile] train step, {arm}, {data_path(tr)}: {n_ops:.0f} "
+              f"device operations, {len(sites)} stream synchronisations "
+              f"({where(sites)}) and {dev_ms:.2f} ms of device time per step "
+              f"(the gather included); idle share {1 - dev_ms / ms:.2f} of "
+              f"the {ms:.2f} ms step timed above ({card})")
     print(f"[train] {MODEL}, d_model {cfg.d_model} x {cfg.n_layers} layers, "
           f"{steps} steps per epoch of B={batch_shape[0]} x "
           f"L={batch_shape[1]}, ms/step (res/s): "
@@ -1174,7 +1264,8 @@ def phase_train(dev, card, out_dir):
                       for arm, label in (("all", "all kernels"),
                                          ("drmsd", "dRMSD kernels only"),
                                          ("plain", "all plain")))
-          + f", medians of 3 epochs each, interleaved; launches in the "
+          + f", medians of 3 epochs each, interleaved, data path "
+          f"{data_path(trainers['all'])}; launches in the "
           f"counted epoch {json.dumps(launches)} ({card})")
     # at dropout 0 from identical weights: every kernel against all plain
     hold_steps(one_step(dev, data, params, out_dir, name="ab-all"),
@@ -1290,8 +1381,9 @@ def phase_cli(dev, card, out_dir):
     print(f"[cli] {MODEL}, d_model 512 x 6 layers: 2 epochs of {steps} train "
           f"steps and {n_eval} eval steps, then resumed from 'best' (epoch "
           f"{saved_epoch}) for a third; second epoch {1e3 * seconds / n:.2f} "
-          f"ms/train step, {n_res / seconds:.0f} res/s; launches of the "
-          f"first run {json.dumps(launches)} ({card})")
+          f"ms/train step, {n_res / seconds:.0f} res/s, data path "
+          f"{epochs.paths[1]}; launches of the first run "
+          f"{json.dumps(launches)} ({card})")
     return launches, 1e3 * seconds / n
 
 
@@ -1647,8 +1739,9 @@ def phase_flash_train(dev, card, out_dir):
           f"{steps} steps per epoch of B=16 x L=256, ms/step: "
           + ", ".join(f"{impl} {1e3 * statistics.median(t):.2f}"
                       for impl, t in times.items())
-          + f", medians of 3 epochs each, interleaved; launches in the "
-          f"counted epoch {json.dumps(launches)} ({card})")
+          + f", medians of 3 epochs each, interleaved, data path "
+          f"{data_path(trainers['flash'])}; launches in the counted epoch "
+          f"{json.dumps(launches)} ({card})")
     # One step from identical weights, flash against the materialised
     # branch. The arms' activations differ by fp32 rounding (their sin/cos by
     # ~2e-6), and two things between the attention layers magnify that: a
@@ -1918,8 +2011,8 @@ def phase_enc_dec(dev, card, out_dir, conv_enc_ms):
     print(f"[enc-dec] d_model 512 x 6 + 6 layers, combined loss, dropout "
           f"0.1, teacher forcing, epochs of {steps} train steps of "
           f"B={batch.seq.shape[0]} x L={batch.seq.shape[1]} and {n_eval} "
-          f"eval steps through the CLI: {step_ms['off']:.2f} ms/train step "
-          f"(second epoch) beside {conv_enc_ms:.2f} ms for the conv-enc CLI "
+          f"eval steps through the CLI ({epochs.paths[-1]}): "
+          f"{step_ms['off']:.2f} ms/train step (second epoch) beside {conv_enc_ms:.2f} ms for the conv-enc CLI "
           f"step of this call; {n_ops:.0f} device operations and "
           f"{dev_ms:.2f} ms of device time per step, idle share "
           f"{1 - dev_ms / step_ms['off']:.2f}; {statistics.median(direct):.2f} "
@@ -1938,11 +2031,382 @@ def phase_enc_dec(dev, card, out_dir, conv_enc_ms):
     return launches["on"]
 
 
+# the data paths of phase 13: the device store, prefetched host batches, and
+# the synchronous host path that the port ran before the store
+DATA_PATHS = {"store": "true", "prefetch": "false", "sync": "false"}
+DATA_PATH_LABELS = {"store": "device store",
+                    "prefetch": "prefetched host batches",
+                    "sync": "synchronous host batches"}
+# the phases LoopProfiler reports from a training epoch on a GPU
+LOOP_PHASES = ("plan/collate", "dispatch", "watchdog poll", "structure log",
+               "flush/CSV", "flush:drain-wait")
+# the probe's dataset: more proteins than the probed batch takes, so that
+# the epoch after the probe trains batches of the probed size
+PROBE_PROTEINS = 1536
+
+
+def synchronous_host_stream(batches):
+    """The host path before the store and the prefetch thread: the step gets
+    the host batch, and its ``Batch.to`` copies each field from pageable
+    memory and waits."""
+    return ((batch, batch) for batch in batches)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.device == b.device
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+def check_store_batches(tr, dev, split, index_iter) -> int:
+    """Every batch of ``index_iter`` from the trainer's store equals
+    ``collate(...).to(dev)`` bit for bit, all six fields; returns their
+    number."""
+    split_obj = tr.dm.train if split == "train" else tr.dm.eval_splits[split]
+    n = 0
+    for idx in index_iter:
+        got = stored_batch(tr, split, idx)
+        want = collate(split_obj, idx, tr.cfg.bucket_sizes,
+                       tr.dm.max_seq_len).to(dev)
+        require(got.n_res == want.n_res and all(
+            same_bits(getattr(got, f), getattr(want, f))
+            for f in ("seq", "ang", "ang_mask", "crd", "crd_mask",
+                      "protein_mask")),
+                f"{split} batch {n} from the store equals its collated copy "
+                "bit for bit")
+        n += 1
+    return n
+
+
+def path_batch(path, tr, split, idx):
+    """The device batch of rows ``idx`` as a data path hands it to a step
+    (the synchronous path hands the host batch, which the step copies)."""
+    if path == "store":
+        return stored_batch(tr, split, idx)
+    split_obj = tr.dm.train if split == "train" else tr.dm.eval_splits[split]
+    host = collate(split_obj, idx, tr.cfg.bucket_sizes, tr.dm.max_seq_len)
+    return next(iter(tr._host_stream(iter([host]))))[1]
+
+
+def phase_data_path(dev, card, out_dir):
+    """The training loop's three data paths at the flagship width: the
+    store's batches against collate, then train and eval epochs of each,
+    interleaved, with their device operations, device time and stream
+    synchronisations, and one step of the store against one of host
+    batches at dropout 0."""
+    split = "test"
+    data = make_dataset(n_train=16, n_eval=16, min_len=255, max_len=256,
+                        seed=3, device=dev)
+    kw = dict(optimizer="adam", lr_scheduling="noam", max_seq_len=256,
+              repeat_train=TRAIN_REPEAT)
+    trainers = {path: Trainer(flagship("all", out_dir, name=f"data-{path}",
+                                       device_data=flag, **kw),
+                              device=dev, data=data)
+                for path, flag in DATA_PATHS.items()}
+    trainers["sync"]._host_stream = synchronous_host_stream
+    require([data_path(tr) for tr in trainers.values()]
+            == ["device store"] + ["prefetched host batches"] * 2,
+            "--device_data true builds the store, false does not")
+    store_tr = trainers["store"]
+    n_train = check_store_batches(store_tr, dev, "train",
+                                  store_tr.dm.train_index_batches(
+                                      np.random.default_rng(0)))
+    n_eval = check_store_batches(store_tr, dev, split,
+                                 store_tr.dm.eval_index_batches(split))
+    print(f"[data-path] the store's batches equal collate(...).to(device) "
+          f"bit for bit: {n_train} train batches of one epoch, {n_eval} "
+          f"eval batches of {split}")
+
+    # a synchronisation made on another thread (the prefetch thread's
+    # place) is counted as well
+    def elsewhere():
+        t = threading.Thread(target=lambda: torch.ones(256).to(dev))
+        t.start()
+        t.join()
+
+    on_thread = sync_count(elsewhere)
+    require(on_thread >= 1, "a synchronising copy on another thread is "
+                            f"counted ({on_thread})")
+
+    params = random_weights(store_tr, dev)
+    states = {path: tr.state_from(params) for path, tr in trainers.items()}
+    for path, tr in trainers.items():  # warm-up epochs, every path
+        states[path] = train_epoch_timed(tr, states[path])[0]
+        timed_epoch(tr, params, split)
+    times = {path: [] for path in DATA_PATHS}
+    eval_times = {path: [] for path in DATA_PATHS}
+    for path in ("store", "prefetch", "sync", "sync", "prefetch", "store",
+                 "store", "sync", "prefetch"):
+        states[path], sec, steps, _ = train_epoch_timed(trainers[path],
+                                                        states[path])
+        times[path].append(1e3 * sec / steps)
+        eval_times[path].append(
+            1e3 * timed_epoch(trainers[path], params, split)[1] / n_eval)
+
+    train_idx = next(store_tr.dm.train_index_batches(
+        np.random.default_rng(0)))
+    eval_idx = next(store_tr.dm.eval_index_batches(split))
+    shapes = [tuple(stored_batch(store_tr, s, idx).seq.shape)
+              for s, idx in (("train", train_idx), (split, eval_idx))]
+    report = {}
+    for path, tr in trainers.items():
+        def train_epoch(path=path, tr=tr):
+            states[path] = TRAIN_EPOCH(tr, states[path])
+
+        def train_step(path=path, tr=tr):
+            states[path] = tr.train_step(
+                states[path], path_batch(path, tr, "train", train_idx))[0]
+
+        def eval_step(path=path, tr=tr):
+            tr.eval_step(params, path_batch(path, tr, split, eval_idx))
+
+        t_ops, t_dev = profile_steps(train_epoch, steps=1)
+        e_ops, e_dev = profile_steps(
+            lambda tr=tr: tr.eval_epoch(params, split), steps=1)
+        r = {"train_ms": statistics.median(times[path]),
+             "train_device_ops": t_ops / steps,
+             "train_device_ms": t_dev / steps,
+             "train_step_syncs": sync_sites(train_step),
+             "train_epoch_syncs": sync_count(train_epoch),
+             "eval_ms": statistics.median(eval_times[path]),
+             "eval_device_ops": e_ops / n_eval,
+             "eval_device_ms": e_dev / n_eval,
+             "eval_step_syncs": sync_sites(eval_step),
+             "eval_epoch_syncs": sync_count(
+                 lambda tr=tr: tr.eval_epoch(params, split))}
+        report[path] = r
+        print(f"[data-path] {DATA_PATH_LABELS[path]}: train step "
+              f"{r['train_ms']:.2f} ms, {r['train_device_ops']:.0f} device "
+              f"operations, {r['train_device_ms']:.2f} device ms (idle share "
+              f"{1 - r['train_device_ms'] / r['train_ms']:.2f}), "
+              f"{len(r['train_step_syncs'])} stream synchronisations a step "
+              f"({where(r['train_step_syncs'])}), {r['train_epoch_syncs']} in "
+              f"an epoch of {steps} steps; eval step {r['eval_ms']:.2f} ms, "
+              f"{r['eval_device_ops']:.0f} device operations, "
+              f"{r['eval_device_ms']:.2f} device ms (idle share "
+              f"{1 - r['eval_device_ms'] / r['eval_ms']:.2f}), "
+              f"{len(r['eval_step_syncs'])} synchronisations a step "
+              f"({where(r['eval_step_syncs'])}), {r['eval_epoch_syncs']} in an "
+              f"epoch of {n_eval} steps; medians of 3 epochs, interleaved "
+              f"with the other paths; B x L = {shapes[0]} training, "
+              f"{shapes[1]} eval ({card})")
+    store = report["store"]
+    require(not store["train_step_syncs"] and not store["train_epoch_syncs"],
+            "the store path's train step and epoch make no stream "
+            f"synchronisation ({where(store['train_step_syncs'])}; "
+            f"{store['train_epoch_syncs']} in the epoch)")
+    require(len(store["eval_step_syncs"]) <= EVAL_SYNCS,
+            f"the store path's eval step makes at most {EVAL_SYNCS} stream "
+            f"synchronisations ({where(store['eval_step_syncs'])})")
+
+    # one step from identical weights at dropout 0, store against host
+    # batches (prefetched): the batches are equal, and so must the losses be
+    losses = {}
+    for path in ("store", "prefetch"):
+        tr = Trainer(flagship("all", out_dir, name=f"data-ab-{path}",
+                              device_data=DATA_PATHS[path], dropout=0.0,
+                              **kw), device=dev, data=data)
+        out = tr.train_step(tr.state_from(params),
+                            path_batch(path, tr, "train", train_idx))[1]
+        losses[path] = float(out[0])
+    gap = abs(losses["store"] - losses["prefetch"]) / abs(losses["prefetch"])
+    require(np.isfinite(losses["store"]) and gap <= 1e-6,
+            f"one step at dropout 0: loss with the store {losses['store']} "
+            f"vs host batches {losses['prefetch']} within 1e-6 relative")
+    print(f"[data-path] one step at dropout 0 from identical weights: loss "
+          f"{losses['store']:.9f} with the store, {losses['prefetch']:.9f} "
+          f"with host batches ({gap:.1e} relative); a synchronising copy on "
+          f"another thread counted {on_thread} time(s) ({card})")
+    return report
+
+
+def csv_rows(path):
+    with open(path) as f:
+        reader = csv.DictReader(f)
+        return reader.fieldnames, list(reader)
+
+
+def phase_dev_data(dev, card, out_dir):
+    """The CLI on the repo's own chains, examples/dev_data (NaN angles,
+    missing atoms), at full width for two epochs, with the store and
+    without it."""
+    base = ["--data", DEV_DATA, "--out_dir", out_dir, "-m", MODEL, "-dm",
+            "512", "-dih", "2048", "-nh", "8", "-nl", "6", "-do", "0.1",
+            "-l", "combined", "-opt", "adam", "--lr_scheduling", "noam",
+            "-b", "2", "--repeat_train", "4", "--cluster", "True",
+            "--log_structure_step", "0", "-lvs", "0", "-e", "2"]
+    data = load_dataset(DEV_DATA)
+    dm = DataModule(data, cli.config_from_args(base))
+    require(set(dm.eval_splits) == {"valid-70", "test"},
+            "dev data: valid-70 and test")
+    n_eval = (2 * len(list(dm.eval_index_batches("valid-70")))
+              + len(list(dm.eval_index_batches("test"))))
+    masked = [float(1 - np.isfinite(np.concatenate(data["train"][k])).mean())
+              for k in ("ang", "crd")]
+    runs = {}
+    for flag in ("true", "false"):
+        with timed_train_epochs() as epochs:
+            reset_launches()
+            run_cli(base + ["--name", f"dev-{flag}", "--device_data", flag])
+            launches = read_launches()
+        steps = [n for _, n, _ in epochs]
+        total = sum(steps)
+        expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * total,
+                            sidechain_fwd=total + n_eval,
+                            sidechain_bwd=total)
+        require(len(steps) == 2 and min(steps) >= 2
+                and launches == expected,
+                f"dev data CLI launches, --device_data {flag}: {launches}; "
+                f"expected {expected} for epochs of {steps} train steps (K1b "
+                f"twice, K2a and K2b once a step) and {n_eval} eval steps "
+                "(K1a twice, K2a once)")
+        want_path = "device store" if flag == "true" else \
+            "prefetched host batches"
+        require(epochs.paths == [want_path] * 2,
+                f"--device_data {flag} trains on the {want_path}")
+        run_dir = os.path.join(out_dir, f"dev-{flag}")
+        for path in ("checkpoints/best", "checkpoints/best.meta.json",
+                     "config.json"):
+            require(os.path.isfile(os.path.join(run_dir, path)),
+                    f"dev-{flag}/{path} written")
+        header, rows = csv_rows(os.path.join(run_dir, f"dev-{flag}.train"))
+        epoch_rows = {r["mode"]: r for r in rows
+                      if r["granularity"] == "epoch"}
+        require(set(epoch_rows) == {"train", "valid-70", "test"},
+                f"epoch rows of train, valid-70 and test ({flag})")
+        for mode, r in epoch_rows.items():
+            require(all(np.isfinite(float(r[k])) and float(r[k]) > 0
+                        for k in ("drmsd", "ln_drmsd", "rmse", "combined")),
+                    f"finite epoch metrics for {mode} ({flag}): {r}")
+        runs[flag] = (header, rows, steps, epochs, launches)
+    header, rows, steps, epochs, launches = runs["true"]
+    require(header == runs["false"][0], "the same CSV columns")
+    # the first epoch: its train batches and its train epoch row
+    first = [r for r in rows if r["mode"] == "train"][:steps[0] + 1]
+    other = [r for r in runs["false"][1] if r["mode"] == "train"][
+        :steps[0] + 1]
+    worst = 0.0
+    for a, b in zip(first, other):
+        for k in ("drmsd", "ln_drmsd", "rmse", "combined"):
+            rel = abs(float(a[k]) - float(b[k])) / abs(float(b[k]))
+            worst = max(worst, rel)
+    require(len(first) == len(other) == steps[0] + 1 and worst <= 1e-4,
+            f"first-epoch losses with and without the store within 1e-4 "
+            f"relative ({worst:.2e})")
+    ms = {flag: 1e3 * r[3][1][0] / r[3][1][1] for flag, r in runs.items()}
+    print(f"[dev-data] examples/dev_data ({len(data['train']['seq'])} train "
+          f"chains, {masked[0]:.1%} of angle entries and {masked[1]:.1%} of "
+          f"atom coordinates missing), {MODEL} at d_model 512 x 6 layers, "
+          f"2 epochs of {steps} train steps and {n_eval} eval steps through "
+          f"the CLI with --device_data true and false: first-epoch losses "
+          f"within {worst:.2e} relative; second epoch {ms['true']:.2f} "
+          f"ms/train step with the store, {ms['false']:.2f} with prefetched "
+          f"host batches; launches {json.dumps(launches)} ({card})")
+
+
+def phase_tools(dev, card, out_dir):
+    """The batch-size probe through the CLI up to real out-of-memory
+    errors, then a profiler trace and the loop profile of one epoch each."""
+    data = make_dataset(n_train=PROBE_PROTEINS, n_eval=1, min_len=255,
+                        max_len=256, seed=4, device=dev)
+    data_path = os.path.join(out_dir, "probe_data.pt")
+    torch.save(data, data_path)
+    argv = ["--data", data_path, "--out_dir", out_dir, "-m", MODEL, "-dm",
+            "512", "-dih", "2048", "-nh", "8", "-nl", "6", "-do", "0.1",
+            "-l", "combined", "-opt", "adam", "--lr_scheduling", "noam",
+            "--train_only", "--cluster", "True", "--log_structure_step", "0",
+            "-lvs", "0", "-e", "1"]
+    # what the probe caught, by type and first line (never the exception:
+    # its traceback holds the tried tensors), and how long it took
+    caught, probe_seconds = [], []
+    is_oom, probe = batch_probe._is_oom, batch_probe.probe_trainer_batch_size
+
+    def recording_is_oom(e):
+        caught.append((type(e).__name__, str(e).splitlines()[0][:120]))
+        return is_oom(e)
+
+    def timed_probe(trainer, **kw):
+        t0 = time.perf_counter()
+        b = probe(trainer, **kw)
+        probe_seconds.append(time.perf_counter() - t0)
+        return b
+
+    batch_probe._is_oom = recording_is_oom
+    batch_probe.probe_trainer_batch_size = timed_probe
+    try:
+        with timed_train_epochs() as epochs:
+            # descending order: a batch is --batch_size rows, the probed
+            # shape (the binned sampler's residue budget is batch_size x 500
+            # residues, ~2x the rows at L=256)
+            out = run_cli(argv + ["--name", "probe", "-adbs", "True",
+                                  "--batching_order", "descending"])
+    finally:
+        batch_probe._is_oom = is_oom
+        batch_probe.probe_trainer_batch_size = probe
+    answer = int(out.split("automatically determined batch size:")[1]
+                 .split()[0])
+    require(any(name == "OutOfMemoryError" for name, _ in caught),
+            f"the probe reached a real OutOfMemoryError ({caught})")
+    seconds, steps, n_res = epochs[0]
+    rows = min(answer, PROBE_PROTEINS)
+    require(epochs.paths == ["device store"] and steps
+            == -(-PROBE_PROTEINS // answer),
+            f"one epoch at batch {answer} on the store ({steps} steps)")
+    print(f"[probe] -adbs True through the CLI at {MODEL}, d_model 512 x 6 "
+          f"layers, L=256: batch {answer} (0.8 of the frontier) in "
+          f"{probe_seconds[0]:.1f} s; errors caught: "
+          + "; ".join(sorted({f"{n}: {m}" for n, m in caught}))
+          + f"; then one epoch of {steps} steps, the first of {rows} "
+          f"proteins, in {seconds:.2f} s ({n_res / seconds:.0f} res/s) on "
+          f"the device store ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    small = make_dataset(n_train=16, n_eval=1, min_len=255, max_len=256,
+                         seed=5, device=dev)
+    small_path = os.path.join(out_dir, "tools_data.pt")
+    torch.save(small, small_path)
+    argv = [a if a != data_path else small_path for a in argv] + [
+        "--repeat_train", str(TRAIN_REPEAT), "-b", "8"]
+    trace_dir = os.path.join(out_dir, "trace")
+    run_cli(argv + ["--name", "profiled", "--profile_dir", trace_dir])
+    with open(os.path.join(trace_dir, TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    cpu_ops = [e for e in events if e.get("cat") == "cpu_op"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {e.get("name") for e in cpu_ops}
+    require("aten::index" in names and "aten::convolution" in names,
+            "the trace holds the epoch's CPU operations (the store's "
+            "gather, the convolutions)")
+    print(f"[profile-dir] --profile_dir: {TRACE_FILE} "
+          f"({os.path.getsize(os.path.join(trace_dir, TRACE_FILE))} bytes) "
+          f"parses: {len(cpu_ops)} CPU operations, {len(kernels)} device "
+          f"kernel events"
+          + ("" if kernels else " (none: the profiler's known empty-trace "
+             "fault)") + f" ({card})")
+
+    os.environ["PTT_LOOP_PROFILE"] = "1"
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            run_cli(argv + ["--name", "loop-profiled"])
+    finally:
+        del os.environ["PTT_LOOP_PROFILE"]
+    report = err.getvalue()
+    missing = [p for p in LOOP_PHASES if f"#   {p:<18} " not in report]
+    require(report.startswith("# loop profile:") and not missing,
+            f"PTT_LOOP_PROFILE=1 reports every phase (missing {missing})")
+    print(f"[loop-profile] PTT_LOOP_PROFILE=1, one epoch through the CLI "
+          f"({card}):\n{report.rstrip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this smoke run "
               "needs one GPU", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev, card = phase_device()
@@ -1959,6 +2423,9 @@ def main() -> int:
         predict_launches = phase_predict(dev, card, out_dir)
         flash_launches = phase_flash_train(dev, card, out_dir)
         enc_dec_launches = phase_enc_dec(dev, card, out_dir, cli_step_ms)
+        phase_data_path(dev, card, out_dir)
+        phase_dev_data(dev, card, out_dir)
+        phase_tools(dev, card, out_dir)
     source = "protein_transformer_tpu_torch/csrc/"
     replaces = "protein_transformer_tpu/ops/"
     rows = []
@@ -2029,6 +2496,8 @@ def main() -> int:
                 for row in rows),
             "every kernel of a main path was launched on it (K1c runs only "
             "when the true coordinates need a gradient)")
+    print(f"[run] every phase passed in {time.perf_counter() - t_start:.1f} s "
+          f"({card})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

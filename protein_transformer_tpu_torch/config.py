@@ -54,6 +54,9 @@ class TrainConfig:
     full_metrics: bool = False
     bins: int = -1                           # -1 -> 'auto'
     train_eval_downsample: float = 0.10
+    # probe the largest batch that fits on the device before training and
+    # train at 0.8 of it (training/batch_probe.py)
+    automatically_determine_batch_size: bool = False
 
     # Model
     model: str = "enc-only"
@@ -98,6 +101,13 @@ class TrainConfig:
     # training) through the flash kernels; training with dropout > 0 keeps
     # the materialised branch. auto = xla (the materialised branch).
     attention_impl: str = "auto"             # auto | xla | flash
+    # a torch.profiler trace of the first trained epoch goes here
+    profile_dir: Optional[str] = None
+    # Device-resident data path (data/device_store.py): splits live on the
+    # device and a batch is one gather. auto = on when the footprint fits
+    # device_data_max_mb.
+    device_data: str = "auto"                # auto | true | false
+    device_data_max_mb: int = 4096
 
     # Derived (filled by finalize())
     vocab_size: int = 22

@@ -6,7 +6,8 @@ zero-filled arrays plus explicit boolean masks, padded to a bucketed (B, L)
 shape lattice. Sampling and collation are numpy on the host, draw for draw
 and element for element the JAX package's, so one ``np.random.Generator``
 gives the same batches in both; ``Batch.to(device)`` moves a batch onto a
-torch device.
+torch device (``data/device_store.py`` assembles the same batch on the
+device instead).
 """
 from __future__ import annotations
 
@@ -38,10 +39,20 @@ class Batch:
     protein_mask: np.ndarray | torch.Tensor  # (B,) bool: row is a real protein
     n_res: int                               # real residues (throughput)
 
-    def to(self, device: torch.device) -> "Batch":
-        """The same batch as torch tensors on ``device`` (ids as int64)."""
+    def to(self, device: torch.device, non_blocking: bool = False
+           ) -> "Batch":
+        """The same batch as torch tensors on ``device`` (ids as int64); a
+        field already there is used as it is, without a copy. With
+        non_blocking, host arrays bound for a GPU go through pinned memory
+        and the copies do not wait: the caller orders their use (the caching
+        host allocator keeps each pinned block until its copy has landed)."""
+        pin = non_blocking and torch.device(device).type == "cuda"
+
         def put(x):
-            return torch.as_tensor(x).to(device)
+            t = torch.as_tensor(x)
+            if pin and t.device.type == "cpu":
+                t = t.pin_memory()
+            return t.to(device, non_blocking=non_blocking)
         return Batch(put(self.seq).long(), put(self.ang), put(self.ang_mask),
                      put(self.crd), put(self.crd_mask),
                      put(self.protein_mask), self.n_res)

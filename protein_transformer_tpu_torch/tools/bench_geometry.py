@@ -76,9 +76,11 @@ def geometry_inputs(bsz: int, length: int, seed: int = 0
     return ang, seq.astype(np.int64)
 
 
-def sync_count(fn) -> int:
-    """The stream synchronisations of one fn() call, as
-    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+def sync_sites(fn) -> list[str]:
+    """Where the stream synchronisations of one fn() call happen: the
+    ``file:line`` of the Python line that made each, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them. The warnings
+    of every thread are caught while fn() runs."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -86,8 +88,13 @@ def sync_count(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchronizing CUDA operation" in str(w.message)
-               for w in caught)
+    return [f"{w.filename}:{w.lineno}" for w in caught
+            if "synchronizing CUDA operation" in str(w.message)]
+
+
+def sync_count(fn) -> int:
+    """The stream synchronisations of one fn() call (see ``sync_sites``)."""
+    return len(sync_sites(fn))
 
 
 def profile(fn, calls: int = CALLS) -> dict:

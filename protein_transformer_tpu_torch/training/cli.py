@@ -73,8 +73,9 @@ def create_parser() -> argparse.ArgumentParser:
                    help="(ignored: dRMSD is always computed in the step)")
     t.add_argument("--automatically_determine_batch_size", "-adbs",
                    type=my_bool, default="False",
-                   help="(not in the port yet) probe the largest batch size "
-                        "that fits on the device and use 0.8x of it")
+                   help="probe the largest batch size that fits on the "
+                        "device before training and use 0.8x of it "
+                        "(reference train.py:532-551)")
 
     m = p.add_argument_group("Model Args")
     m.add_argument("-m", "--model", default="enc-only")
@@ -133,11 +134,16 @@ def create_parser() -> argparse.ArgumentParser:
                           "flash kernels (CUDA; the plain version on the "
                           "CPU) and keeps the materialised branch for "
                           "training with dropout > 0; auto = xla")
-    gpu.add_argument("--profile_dir", type=str, default=None)
+    gpu.add_argument("--profile_dir", type=str, default=None,
+                     help="write a torch.profiler Chrome trace of the first "
+                          "trained epoch into this directory")
     gpu.add_argument("--device_data", choices=["auto", "true", "false"],
                      default="auto",
-                     help="auto and false both mean host batches until the "
-                          "device-resident store is in the port")
+                     help="hold each split on the device and assemble a "
+                          "batch by one gather there (true), collate host "
+                          "batches on a prefetch thread (false), or auto: "
+                          "the store when the splits fit "
+                          "--device_data_max_mb")
     gpu.add_argument("--device_data_max_mb", type=int, default=4096)
     return p
 
@@ -153,16 +159,8 @@ def check_ported(settings: Mapping, only: Optional[Sequence[str]] = None
     asked = {
         "use_wandb": (get("use_wandb"), "--use_wandb True",
                       "wandb logging (training/wandb_logging.py)"),
-        "automatically_determine_batch_size": (
-            get("automatically_determine_batch_size"), "-adbs True",
-            "the batch-size probe (training/batch_probe.py)"),
-        "device_data": (get("device_data") == "true", "--device_data true",
-                        "the device-resident data store "
-                        "(data/device_store.py)"),
         "compute_dtype": (get("compute_dtype", "float32") != "float32",
                           "--compute_dtype bfloat16", "bfloat16 compute"),
-        "profile_dir": (get("profile_dir") is not None, "--profile_dir",
-                        "profiler traces (utils.maybe_profile)"),
         "mesh": (list(get("mesh_shape", [-1])) != [-1]
                  or list(get("mesh_axes", ["data"])) != ["data"],
                  "--mesh_shape / --mesh_axes",
@@ -199,6 +197,19 @@ def main(argv=None):
     device = (cuda_device() if args.device == "cuda"
               else torch.device("cpu"))
     trainer = Trainer(cfg, device=device)
+    if cfg.automatically_determine_batch_size:
+        # Probe the out-of-memory frontier at the longest bucket, then
+        # rebuild the trainer at 0.8 of it (reference: train.py:532-551).
+        from protein_transformer_tpu_torch.training import batch_probe
+        b = batch_probe.probe_trainer_batch_size(trainer)
+        print(f"[Info] automatically determined batch size: {b}")
+        cfg = dataclasses.replace(
+            cfg, batch_size=b, automatically_determine_batch_size=False)
+        # drop the probed trainer and its device store before the new
+        # trainer uploads its own
+        del trainer
+        batch_probe.release_memory()
+        trainer = Trainer(cfg, device=device)
     return trainer.train()
 
 

@@ -2,8 +2,8 @@
 (model -> angles -> NeRF -> losses, backward, the optimizer update) and the
 host loop around them.
 
-Port of protein_transformer_tpu/training/trainer.py on its host-batch path.
-The model runs on an explicit device; parameters are a plain dict of tensors
+Port of protein_transformer_tpu/training/trainer.py on one device. The
+model runs on an explicit device; parameters are a plain dict of tensors
 (``Trainer.init_params``, or the flax bridge) applied with
 ``torch.func.functional_call``, the counterpart of flax's ``apply``. A step
 computes the losses in train mode (dropout drawn from the trainer's own
@@ -13,18 +13,29 @@ device vector per step, copied to the host without blocking, and recorded in
 windows of FLUSH_EVERY steps by ``training/metrics.py``; the NaN watchdog
 polls the copies that have arrived after every step.
 
+Batches come by one of two data paths, as in the JAX package. With the
+device-resident store (``data/device_store.py``; ``--device_data``, on under
+``auto`` when the splits fit ``device_data_max_mb``) each split lives on the
+device and a batch is an index vector and one gather: the step makes no
+stream synchronisation. Otherwise batches are collated on a prefetch thread
+(``data/prefetch.py``) and copied from pinned memory on a copy stream, which
+the step's stream waits for by an event.
+
 ``Trainer.train`` is the host loop with the reference's semantics: epochs,
 the validation splits after each, plateau scheduling and early stopping on
 the monitored metric, 'best' / 'latest' checkpoints, resume, the CSV log,
-structure logging (``training/structure_logging.py``), and the test split
-at the end. wandb, the device-resident data path and meshes are not in the
-port yet.
+structure logging (``training/structure_logging.py``), the test split at
+the end, a profiler trace of the first epoch (``--profile_dir``) and the
+per-phase host-time report of ``LoopProfiler`` (``PTT_LOOP_PROFILE=1``).
+wandb and meshes are not in the port yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -34,8 +45,10 @@ from torch.func import functional_call
 from protein_transformer_tpu_torch.training import metrics as M
 from protein_transformer_tpu_torch import losses as L
 from protein_transformer_tpu_torch.config import TrainConfig
+from protein_transformer_tpu_torch.data import device_store as DS
 from protein_transformer_tpu_torch.data.dataset import (
     Batch, DataModule, collate, load_dataset)
+from protein_transformer_tpu_torch.data.prefetch import prefetch
 from protein_transformer_tpu_torch.models.enc_dec import (
     OUTPUT_GAIN, Transformer)
 from protein_transformer_tpu_torch.models.factory import (
@@ -51,6 +64,7 @@ from protein_transformer_tpu_torch.training.checkpoint import (
     CheckpointManager, check_against, checkpoint_policy)
 from protein_transformer_tpu_torch.training.optim import (
     EarlyStopping, OptState, PlateauState, make_optimizer, noam_schedule)
+from protein_transformer_tpu_torch.utils import maybe_profile
 
 DRMSD_LOSSES = ("drmsd", "lndrmsd", "combined")
 
@@ -73,6 +87,34 @@ def pack_metrics(out: dict) -> torch.Tensor:
 def unpack_metrics(row) -> dict:
     """Host-side inverse of pack_metrics for one fetched row."""
     return {k: float(v) for k, v in zip(METRIC_KEYS, row)}
+
+
+class LoopProfiler:
+    """Per-phase host-time accumulator for train_epoch (PTT_LOOP_PROFILE=1).
+
+    Accumulates wall time spent in each host-side phase of the step loop so
+    the wall-vs-device-step residue can be attributed (sampler/plan, step
+    dispatch, watchdog poll, metric flush, structure logging) instead of
+    guessed. Near-zero overhead: two perf_counter calls per phase."""
+
+    def __init__(self):
+        self.t = {}
+        self.steps = 0
+
+    def add(self, phase: str, dt: float) -> None:
+        self.t[phase] = self.t.get(phase, 0.0) + dt
+
+    def report(self, wall: float) -> str:
+        n = max(self.steps, 1)
+        lines = [f"# loop profile: {self.steps} steps, "
+                 f"{1e3 * wall / n:.2f} ms/step wall"]
+        acct = 0.0
+        for k, v in sorted(self.t.items(), key=lambda kv: -kv[1]):
+            lines.append(f"#   {k:<18} {1e3 * v / n:6.2f} ms/step")
+            acct += v
+        lines.append(f"#   {'(unaccounted)':<18} "
+                     f"{1e3 * (wall - acct) / n:6.2f} ms/step")
+        return "\n".join(lines)
 
 
 def compute_losses(model, params, batch: Batch, cfg: TrainConfig,
@@ -226,6 +268,20 @@ class Trainer:
                                      for s in (10, 20, 30, 40, 50, 70, 90)]
         self.metrics = M.init_metrics(modes)
 
+        # The device-resident data path: budget only the stores this run
+        # builds (a train_only run builds no eval-split store). A store that
+        # cannot be built raises, also under device_data true.
+        self.train_store = None
+        self._eval_stores: dict = {}
+        splits = ([self.dm.train] if cfg.train_only else
+                  [self.dm.train, *self.dm.eval_splits.values()])
+        self.use_device_data = DS.auto_enabled(cfg, splits)
+        if self.use_device_data:
+            self.train_store = DS.DeviceStore(self.dm.train, self.device)
+        # host batches are copied to a GPU on a stream of their own
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+
         self.out_dir = os.path.join(cfg.out_dir, cfg.name or "run")
         os.makedirs(self.out_dir, exist_ok=True)
         self.ckpt = CheckpointManager(os.path.join(self.out_dir,
@@ -359,7 +415,8 @@ class Trainer:
 
     def train_step(self, state: TrainState, batch: Batch,
                    lr_scale: float = 1.0) -> tuple[TrainState, torch.Tensor]:
-        """One optimizer update on one batch (moved to the device here):
+        """One optimizer update on one batch (moved to the device here, a
+        no-op for a batch already there):
         forward in train mode, backward, then the update, in place on
         ``state.params``. Returns the new state and the packed (K,) metrics
         vector of the batch, still on the device."""
@@ -372,7 +429,8 @@ class Trainer:
 
     @torch.inference_mode()
     def eval_step(self, params: dict, batch: Batch) -> torch.Tensor:
-        """Packed (K,) metrics of one batch (moved to the device here)."""
+        """Packed (K,) metrics of one batch (moved to the device here, a
+        no-op for a batch already there)."""
         self.model.eval()
         _, out = compute_losses(self.model, params, batch.to(self.device),
                                 self.cfg, impl=self.drmsd_impl,
@@ -385,9 +443,11 @@ class Trainer:
     @torch.no_grad()
     def _log_structure(self, params: dict, batch: Batch, step: int,
                        name: str = "train") -> None:
-        """Predict the last real protein of a host batch in eval mode, build
-        its coordinates on the device and hand them to the structure
-        logger, whose worker thread makes the copy to the host."""
+        """Predict the last real protein of a batch in eval mode, build its
+        coordinates on the device and hand them to the structure logger,
+        whose worker thread makes the copies to the host. ``batch`` is a host
+        batch or a ``LazyBatch``, whose fields the first access gathers
+        once on the device."""
         idx = max(int(batch.protein_mask.sum()) - 1, 0)
         seq = torch.as_tensor(batch.seq[idx:idx + 1]).to(self.device).long()
         ang = torch.as_tensor(batch.ang[idx:idx + 1]).to(self.device)
@@ -438,10 +498,64 @@ class Trainer:
         event.record()
         return host_rows[slot], event
 
+    # ---------------- data streams ----------------
+
+    def _device_stream(self, split_obj, store: DS.DeviceStore, index_iter):
+        """(LazyBatch, device Batch) pairs for the device-data path: the
+        plan and the LazyBatch's host fields on the host, the batch one
+        gather on the device."""
+        for idx in index_iter:
+            plan = DS.plan_batch(split_obj, idx, self.cfg.bucket_sizes,
+                                 self.dm.max_seq_len)
+            yield DS.LazyBatch(store, plan), store.batch(plan)
+
+    def _transfer(self, batch: Batch):
+        """(host batch, device batch, event or None); runs on the prefetch
+        thread. On a GPU the fields go from pinned memory, without blocking,
+        on the copy stream, and the event marks their arrival."""
+        if self.device.type != "cuda":
+            return batch, batch.to(self.device), None
+        with torch.cuda.stream(self._copy_stream):
+            dev = batch.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        return batch, dev, event
+
+    def _host_stream(self, batch_iter):
+        """(host batch, device batch) pairs: collate and the transfer run
+        ahead on the prefetch thread; the step's stream waits for each
+        batch's copies, and the caching allocator learns that the step's
+        stream uses them."""
+        for host, dev, event in prefetch(batch_iter, size=2,
+                                         transform=self._transfer):
+            if event is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(event)
+                for field in dataclasses.fields(dev):
+                    value = getattr(dev, field.name)
+                    if isinstance(value, torch.Tensor):
+                        value.record_stream(stream)
+            yield host, dev
+
+    def _eval_store(self, split: str) -> DS.DeviceStore:
+        if split not in self._eval_stores:
+            self._eval_stores[split] = DS.DeviceStore(
+                self.dm.eval_splits[split], self.device)
+        return self._eval_stores[split]
+
+    def _eval_batch_stream(self, split: str):
+        """Eval batches for a split via whichever data path is active."""
+        if self.use_device_data:
+            return self._device_stream(self.dm.eval_splits[split],
+                                       self._eval_store(split),
+                                       self.dm.eval_index_batches(split))
+        return self.dm.eval_batches(split)
+
     def train_epoch(self, state: TrainState, logger=None) -> TrainState:
         """One epoch over the binned sampler's batches (drawn from
         ``seed + step``), with the plateau scale on the learning rate;
-        returns the new state and keeps the "train" metrics.
+        returns the new state and keeps the "train" metrics. Batches come
+        from the device store when it is on, else prefetched host batches.
 
         Up to FLUSH_EVERY steps stay in flight: each step's metrics vector
         starts a non-blocking copy to pinned host memory, and the rows are
@@ -449,18 +563,26 @@ class Trainer:
         window. The NaN watchdog does not wait for the window: after every
         step it reads the rows whose copies have arrived, oldest first, and
         a loss that is not finite raises FloatingPointError at once, after
-        the rows before it are recorded."""
+        the rows before it are recorded. Under PTT_LOOP_PROFILE=1 the host
+        time of each phase of the loop is reported on stderr."""
         mode = "train"
         self.metrics = M.reset_for_epoch(self.metrics, mode)
         step = state.step
         rng = np.random.default_rng(self.cfg.seed + step)
         lr_scale = self.plateau.scale if self.plateau else 1.0
+        if self.train_store is not None:
+            batches = self._device_stream(self.dm.train, self.train_store,
+                                          self.dm.train_index_batches(rng))
+        else:
+            batches = self._host_stream(self.dm.train_batches(rng))
         host_rows = (torch.empty((self.FLUSH_EVERY, len(METRIC_KEYS)),
                                  pin_memory=True)
                      if self.device.type == "cuda" else None)
         # pending entries: [host tensor, event | None, n_res, step, row | None]
         pending: list = []
         t_last_flush = time.time()
+        prof = LoopProfiler() if os.environ.get("PTT_LOOP_PROFILE") else None
+        t_epoch0 = time.perf_counter()
 
         def drain(rows) -> None:
             """Record fetched rows, each at an even share of the time since
@@ -483,6 +605,11 @@ class Trainer:
 
         def flush() -> None:
             nonlocal pending, t_last_flush
+            if prof and pending[-1][1] is not None:
+                # the wait for the device, apart from reading the rows
+                t_d0 = time.perf_counter()
+                pending[-1][1].synchronize()
+                prof.add("flush:drain-wait", time.perf_counter() - t_d0)
             for p in pending:
                 if p[4] is None:
                     if p[1] is not None:
@@ -492,11 +619,30 @@ class Trainer:
             t_last_flush = time.time()
             pending = []
 
-        for batch in self.dm.train_batches(rng):
-            state, out = self.train_step(state, batch, lr_scale)
+        batch_it = iter(batches)
+        while True:
+            t0 = time.perf_counter()
+            nxt = next(batch_it, None)
+            if nxt is None:
+                break
+            batch, payload = nxt
+            if prof:
+                t1 = time.perf_counter()
+                prof.add("plan/collate", t1 - t0)
+                prof.steps += 1
+                t0 = t1
+            state, out = self.train_step(state, payload, lr_scale)
             host, event = self._start_fetch(out, host_rows, len(pending))
+            if prof:
+                t1 = time.perf_counter()
+                prof.add("dispatch", t1 - t0)
+                t0 = t1
             pending.append([host, event, batch.n_res, step, None])
             check_ready()
+            if prof:
+                t1 = time.perf_counter()
+                prof.add("watchdog poll", t1 - t0)
+                t0 = t1
             # at dispatch, so the logged parameters are those after this
             # step's update, labelled with its number
             if (self.cfg.log_structure_step
@@ -505,24 +651,44 @@ class Trainer:
             if (self.cfg.log_val_struct_step
                     and step % self.cfg.log_val_struct_step == 0):
                 self._log_validation_structures(state.params, step)
+            if prof:
+                t1 = time.perf_counter()
+                prof.add("structure log", t1 - t0)
+                t0 = t1
             step += 1
             if len(pending) >= self.FLUSH_EVERY:
                 flush()
+            if prof:
+                prof.add("flush/CSV", time.perf_counter() - t0)
+        t0 = time.perf_counter()
         if pending:
             flush()
+        if prof:
+            prof.add("flush/CSV", time.perf_counter() - t0)
+            print(prof.report(time.perf_counter() - t_epoch0),
+                  file=sys.stderr)
         self.batch_status.clear()
         self.metrics = M.end_of_epoch(self.metrics, mode)
         return state
 
     def eval_epoch(self, params: dict, mode: str, batches=None,
                    logger=None) -> dict:
-        """Evaluate ``batches`` (default: the collated batches of the split
-        ``mode``) and keep the result under ``mode``; returns that metrics
-        dict. Metric vectors stay on the device and are fetched every
-        FLUSH_EVERY steps in one copy."""
+        """Evaluate ``batches`` and keep the result under ``mode``; returns
+        that metrics dict. ``batches``: host Batch objects (collated; they
+        go through the prefetch thread and the copy stream), or the
+        (LazyBatch, device Batch) pairs of the device-data path; by default
+        the split ``mode`` through whichever data path is active. Metric
+        vectors stay on the device and are fetched every FLUSH_EVERY steps
+        in one copy."""
         self.metrics = M.reset_for_epoch(self.metrics, mode)
         if batches is None:
-            batches = self.dm.eval_batches(mode)
+            batches = self._eval_batch_stream(mode)
+        it = iter(batches)
+        first = next(it, None)
+        chained = (itertools.chain([first], it) if first is not None
+                   else iter(()))
+        pairs = (self._host_stream(chained) if isinstance(first, Batch)
+                 else chained)
         pending: list = []
         t_last_flush = time.time()
 
@@ -539,8 +705,8 @@ class Trainer:
             t_last_flush = t_now
             pending = []
 
-        for batch in batches:
-            pending.append((self.eval_step(params, batch), batch.n_res))
+        for batch, payload in pairs:
+            pending.append((self.eval_step(params, payload), batch.n_res))
             if len(pending) >= self.FLUSH_EVERY:
                 flush()
         if pending:
@@ -595,7 +761,9 @@ class Trainer:
         train epochs ``start_epoch .. epochs - 1``; after each, the
         ``--eval_train`` pass and the validation splits, the plateau step
         and the early-stopping update on the monitored metric, and the
-        checkpoint the policy asks for; the test split at the end."""
+        checkpoint the policy asks for; the test split at the end. With
+        ``profile_dir`` the first trained epoch is traced there
+        (``utils.maybe_profile``)."""
         cfg = self.cfg
         if state is None:
             state = self.init_state(torch.Generator().manual_seed(cfg.seed))
@@ -608,11 +776,17 @@ class Trainer:
         for epoch in range(self.start_epoch, cfg.epochs):
             print(f"[ Epoch {epoch} ]")
             start = time.time()
-            state = self.train_epoch(state, logger)
+            with maybe_profile(cfg.profile_dir if epoch == self.start_epoch
+                               else None):
+                state = self.train_epoch(state, logger)
             if cfg.eval_train:
                 te_rng = np.random.default_rng(epoch)
-                self.eval_epoch(state.params, "train",
-                                self.dm.train_eval_batches(te_rng), logger)
+                te_batches = (self._device_stream(
+                    self.dm.train, self.train_store,
+                    self.dm.train_eval_index_batches(te_rng))
+                    if self.train_store is not None
+                    else self.dm.train_eval_batches(te_rng))
+                self.eval_epoch(state.params, "train", te_batches, logger)
             M.print_epoch_status("train", self.metrics, start)
             logger.log(self.metrics, "train", self.start_time,
                        end_of_epoch=True)

@@ -8,8 +8,14 @@ one eval step of each package, at small width with the same weights
 through the flax bridge, on a batch of its training chains: the masks carry
 the NaN angles and the missing atoms. Gates: MSE within 1e-5, the dRMSD
 family and RMSD within the project's 1e-3 A (the two NeRF builders compose
-in different orders).
+in different orders). Then one epoch of each package's CLI on its training
+chains (``--train_only``), each on its default data path, the device store, from the
+same weights at dropout 0: the NaN angles and missing atoms reach the
+training losses through the masks; the CSV files have the same columns and
+rows, and the losses agree within the A/B bound of tests/test_torch_loop.py
+(2e-5 relative plus 1e-6 absolute).
 """
+import csv
 import os
 
 import jax
@@ -18,6 +24,7 @@ import pytest
 import torch
 
 from protein_transformer_tpu.config import TrainConfig as JConfig
+from protein_transformer_tpu.training import cli as jcli
 from protein_transformer_tpu.data.dataset import collate as jcollate
 from protein_transformer_tpu.data.dataset import load_dataset as jload
 from protein_transformer_tpu.training.trainer import Trainer as JTrainer
@@ -25,6 +32,7 @@ from protein_transformer_tpu_torch.config import TrainConfig as TConfig
 from protein_transformer_tpu_torch.data.dataset import collate, load_dataset
 from protein_transformer_tpu_torch.models.flax_import import (
     flax_to_state_dict)
+from protein_transformer_tpu_torch.training import cli as tcli
 from protein_transformer_tpu_torch.training.trainer import (
     METRIC_KEYS, Trainer as TTrainer, unpack_metrics)
 
@@ -98,3 +106,47 @@ def test_eval_step_on_real_chains_matches_jax(loaded, tmp_path):
         assert np.isfinite(got[key]), key
         assert abs(got[key] - want[key]) <= gate, (key, got[key], want[key])
     assert got["drmsd-full"] > 0 and got["mse-full"] > 0
+
+
+CLI = ["--data", DEV_DATA, "-m", "conv-enc|5,3|1,1", "-dm", "32", "-dih",
+       "64", "-nh", "2", "-nl", "1", "-do", "0", "-e", "1", "-b", "1",
+       "--repeat_train", "3", "--bins", "1", "-l", "combined", "-opt", "adam",
+       "-lr", "1e-3", "--cluster", "True", "--log_structure_step", "0",
+       "-lvs", "0", "--train_only"]
+
+
+def read_csv(path):
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    return rows[0], rows[1:]
+
+
+def test_one_cli_epoch_on_real_chains_matches_jax(loaded, tmp_path,
+                                                  monkeypatch):
+    argv = CLI + ["--out_dir", str(tmp_path)]
+    # the JAX CLI's weights: its trainer draws them from the seed alone
+    jtr = JTrainer(jcli.config_from_args(argv + ["--name", "w"]),
+                   data=loaded[1], use_mesh=False)
+    params = jax.tree_util.tree_map(np.asarray, jtr.init_state().params)
+    built = []
+
+    def bridged(self, generator):
+        built.append(self.use_device_data)
+        return self.state_from(flax_to_state_dict(params, self.model))
+
+    monkeypatch.setattr(TTrainer, "init_state", bridged)
+    tcli.main(argv + ["--name", "port", "--device", "cpu"])
+    # one device: the JAX CLI's default mesh spans the eight virtual CPU
+    # devices of the test process, which only makes its compile slower
+    jcli.main(argv + ["--name", "jax", "--mesh_shape", "1"])
+    assert built == [True]
+    header, rows = read_csv(tmp_path / "port" / "port.train")
+    jheader, jrows = read_csv(tmp_path / "jax" / "jax.train")
+    assert header == jheader and len(rows) == len(jrows)
+    modes = [r[6:8] for r in rows]
+    assert modes == [r[6:8] for r in jrows]
+    assert modes.count(["train", "batch"]) >= 2
+    got = np.array([r[:6] for r in rows], float)
+    assert np.isfinite(got).all() and (got[:, :3] > 0).all()
+    np.testing.assert_allclose(got, np.array([r[:6] for r in jrows], float),
+                               rtol=2e-5, atol=1e-6)

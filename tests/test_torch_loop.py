@@ -8,7 +8,8 @@
 * the check that the monitored split is one the run evaluates;
 * two epochs of ``Trainer.train`` against the JAX ``Trainer.train`` on one
   tiny synthetic dataset (dropout 0, the same weights through the bridge,
-  host batches, train plus two validation splits plus test): every epoch
+  each package's default data path, the device store, train plus two
+  validation splits plus test): every epoch
   metric within 2e-5 relative (the per-step bound of the five-step A/B in
   tests/test_torch_train.py) plus 1e-6 absolute, the same plateau and
   early-stopping state, the same checkpoints written after each epoch, CSV
@@ -306,10 +307,7 @@ def test_config_from_args_matches_jax_on_shared_fields():
 
 NOT_PORTED = {
     "wandb": (["--use_wandb", "True"], "wandb logging"),
-    "adbs": (["-adbs", "True"], "batch-size probe"),
-    "device-data": (["--device_data", "true"], "device-resident data store"),
     "bfloat16": (["--compute_dtype", "bfloat16"], "bfloat16 compute"),
-    "profile": (["--profile_dir", "p"], "profiler traces"),
     "mesh": (["--mesh_shape", "2", "2", "--mesh_axes", "data", "model"],
              "device meshes"),
 }
@@ -331,6 +329,11 @@ NOW_PORTED = {
     "enc-dec": (["-m", "enc-dec", "-fctf", "0.5", "-fsstf", "0.25"],
                 dict(model="enc-dec", add_sos_eos=True,
                      fraction_complete_tf=0.5, fraction_subseq_tf=0.25)),
+    "adbs": (["-adbs", "True"],
+             dict(automatically_determine_batch_size=True)),
+    "device-data": (["--device_data", "true", "--device_data_max_mb", "64"],
+                    dict(device_data="true", device_data_max_mb=64)),
+    "profile": (["--profile_dir", "p"], dict(profile_dir="p")),
 }
 
 
@@ -426,9 +429,9 @@ def loop_ab(data, tmp_path_factory):
     """Two epochs of Trainer.train in both packages from the same weights."""
     out = tmp_path_factory.mktemp("loop")
     jtr = JTrainer(JConfig(**LOOP, name="jax", out_dir=str(out),
-                           device_data="false", log_structure_step=0,
-                           log_val_struct_step=0), data=data, use_mesh=False)
-    assert not jtr.use_device_data
+                           log_structure_step=0, log_val_struct_step=0),
+                   data=data, use_mesh=False)
+    assert jtr.use_device_data
     jbatch = next(jtr.dm.train_batches(np.random.default_rng(0)))
     assert jbatch.seq.shape == (48, 44)
     params = flax_params(jtr, jbatch)
@@ -439,6 +442,7 @@ def loop_ab(data, tmp_path_factory):
 
     ttr = port_trainer(data, out, log_structure_step=0,
                        log_val_struct_step=0)
+    assert ttr.use_device_data
     recording_saves(ttr, tsaves)
     state = ttr.train(ttr.state_from(flax_to_state_dict(params, ttr.model)))
     return dict(jtr=jtr, ttr=ttr, state=state, jsaves=jsaves, tsaves=tsaves,
