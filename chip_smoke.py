@@ -9,7 +9,8 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
 2. build: compiles the five kernel libraries from this checkout at once,
    one nvcc each: csrc/drmsd_fwd.cu (K1a), csrc/drmsd_train.cu (K1b, K1c),
    csrc/drmsd_variants.cu (K4a, K4b, K4c), csrc/sidechain.cu (K2a, K2b)
-   and csrc/attention.cu (K3a and the flash backward);
+   and csrc/attention.cu (K3a and the flash backward, float32 and bf16
+   instances);
 3. kernels against their plain PyTorch versions on the card.
    dRMSD (K1a, K1b, K1c), ~70% of atoms valid and one protein all masked,
    at B=8 x N = 600, 768, 3584, 7000 and at the training step's B=16 x
@@ -177,7 +178,24 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    --profile_dir, whose Chrome trace must parse and hold the epoch's CPU
    operations (its count of device kernel events is printed, and a trace
    without any is named as the profiler's known empty-trace fault); one
-   epoch under PTT_LOOP_PROFILE=1, whose report must name every phase.
+   epoch under PTT_LOOP_PROFILE=1, whose report must name every phase;
+16. bf16 (--compute_dtype bfloat16). Right after phase 8, K3a-bf16 and the
+   bf16 backward (csrc/attention.cu's bf16 instances) against their plain
+   versions on phase 8's cases and at D = 32 and 128, the outputs handed
+   out NaN-filled by the allocator: O, dQ, dK and dV of the kernel and of
+   the plain version each within 1e-2 of the largest entry of an fp32 run
+   on the same bf16 values, and within that of each other; everything
+   finite, the same bits twice; times beside plain and the library's bf16
+   call, device-only times, the bound at two bytes an element and 989
+   TFLOP/s. At the end, the flagship in bf16: train epochs of 5 steps
+   (dropout 0.1, the store) interleaved with fp32 ones, ms per step, device
+   operations and device ms; float32 parameters that move; flash training
+   at dropout 0 with K3a-bf16 and the bf16 backward launched 6 times each a
+   step; one MSE step of bf16 flash, bf16 materialised and fp32 from the
+   same weights, the two bf16 arms held within twice the materialised
+   arm's distance from fp32 plus 1e-2; one CLI epoch with --compute_dtype
+   bfloat16 --attention_impl flash (K3a-bf16 6 times an eval step) and
+   predict.main on its run (K3a-bf16 12 times, K2a twice, 32 PDB files).
 
 It prints the time the run took, then the kernel table as one JSON line,
 and as its last line {"ok": true, "device": {...}}. It needs one CUDA
@@ -282,6 +300,7 @@ ARMS = {"all": ("cuda", "cuda"), "drmsd": ("cuda", "torch"),
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_SPECIAL_PER_S = 132 * 16 * 1.98e9
 # fp32 operations per valid pair i < j. K1a: per distance 3 subtractions, 5
 # for the squared norm, max, rsqrt, a product (11), twice; the difference and
@@ -346,14 +365,16 @@ cuda_ms = bench_drmsd_kernel.event_ms
 
 
 def bound(n_bytes: float, flops: float, tensor_flops: float = 0.0,
-          special: float = 0.0) -> tuple[float, str]:
+          special: float = 0.0,
+          tensor_peak: float = PEAK_TF32_FLOPS) -> tuple[float, str]:
     """(ms, "bytes" | "operations" | "special functions"): the least time
     the card could take to move n_bytes, do flops fp32 operations outside
-    the tensor cores, tensor_flops TF32 operations inside them and special
-    special-function operations, and which of the three it is."""
+    the tensor cores, tensor_flops operations inside them at tensor_peak
+    (TF32 unless given) and special special-function operations, and which
+    of the three it is."""
     times = {"bytes": n_bytes / PEAK_BYTES_PER_S,
              "operations": max(flops / PEAK_FP32_FLOPS,
-                               tensor_flops / PEAK_TF32_FLOPS),
+                               tensor_flops / tensor_peak),
              "special functions": special / PEAK_SPECIAL_PER_S}
     by = max(times, key=times.get)
     return 1e3 * times[by], by
@@ -365,15 +386,18 @@ device_ms = bench_drmsd_kernel.device_ms
 device_records = bench_drmsd_kernel.device_records
 
 
-def attention_bound(name: str, shape, pairs: int,
-                    with_stats: bool = False) -> tuple[float, str]:
+def attention_bound(name: str, shape, pairs: int, with_stats: bool = False,
+                    elem: int = 4) -> tuple[float, str]:
     """``bound`` of a flash kernel at (B, H, L, D) = ``shape`` for
-    ``pairs`` weighted (query, key) pairs. Bytes: each (B, H, L, D) tensor
-    and each (B, H, L) statistic read or written once, and the mask. K3a
-    reads q, k, v and writes O, and m and l ``with_stats``; the backward
-    reads q, k, v, dO, O, m and l and writes dQ, dK and dV."""
+    ``pairs`` weighted (query, key) pairs, on tensors of ``elem`` bytes an
+    element (4: the float32 instance, whose products count at the TF32
+    rate; 2: the bf16 instance, at the bf16 rate, one product a pair-term
+    where the fp32 instance takes three). Bytes: each (B, H, L, D) tensor
+    and each (B, H, L) float32 statistic read or written once, and the
+    mask. K3a reads q, k, v and writes O, and m and l ``with_stats``; the
+    backward reads q, k, v, dO, O, m and l and writes dQ, dK and dV."""
     bsz, heads, length, dim = shape
-    tensor = 4 * bsz * heads * length * dim
+    tensor = elem * bsz * heads * length * dim
     stats = 4 * bsz * heads * length
     n_bytes = {"flash_attn_fwd": 4 * tensor + (2 * stats if with_stats
                                                else 0),
@@ -381,7 +405,9 @@ def attention_bound(name: str, shape, pairs: int,
         + bsz * length
     fp32_d, tensor_d = ATTENTION_FLOPS_PER_PAIR[name]
     return bound(n_bytes, fp32_d * dim * pairs, tensor_d * dim * pairs,
-                 special=SPECIAL_PER_PAIR[name] * pairs)
+                 special=SPECIAL_PER_PAIR[name] * pairs,
+                 tensor_peak=PEAK_BF16_FLOPS if elem == 2
+                 else PEAK_TF32_FLOPS)
 
 
 def profile_steps(fn, steps: int = 3) -> tuple[float, float]:
@@ -708,10 +734,12 @@ def sidechain_grads(inputs, impl):
     return crd.detach(), grads
 
 
-def poison_allocator(dev):
+def poison_allocator(dev, dtype=torch.float32):
     """Leave NaNs where the caching allocator hands out the next blocks, so
-    that an output entry a kernel fails to write shows."""
-    torch.full((64 << 20,), float("nan"), device=dev)
+    that an output entry a kernel fails to write shows: 256 MB of ``dtype``
+    NaNs (bf16 ones read as NaN in a float32 or a bf16 output)."""
+    elem = torch.finfo(dtype).bits // 8
+    torch.full(((256 << 20) // elem,), float("nan"), device=dev, dtype=dtype)
     torch.cuda.synchronize()
 
 
@@ -915,25 +943,30 @@ def random_weights(trainer, dev):
     return params
 
 
-COUNTERS = {"drmsd_fwd": D.drmsd_stats_cuda,
-            "drmsd_fwd_grad": D.drmsd_stats_grad_cuda,
-            "drmsd_grad_b": D.drmsd_grad_b_cuda,
-            "sidechain_fwd": S.sidechain_fwd_cuda,
-            "sidechain_bwd": S.sidechain_bwd_cuda,
-            "flash_attn_fwd": A.flash_attn_fwd_cuda,
-            "flash_attn_bwd": A.flash_attn_bwd_cuda,
-            "drmsd_fwd_sqrt1": V.drmsd_stats_sqrt1_cuda,
-            "drmsd_fwd_mxu": V.drmsd_stats_mxu_cuda,
-            "drmsd_grad_a_mxu": V.drmsd_grad_a_mxu_cuda}
+# kernel -> (its wrapper, the wrapper's counter of that kernel's launches):
+# the flash wrappers count their float32 and their bf16 instance apart
+COUNTERS = {"drmsd_fwd": (D.drmsd_stats_cuda, "launches"),
+            "drmsd_fwd_grad": (D.drmsd_stats_grad_cuda, "launches"),
+            "drmsd_grad_b": (D.drmsd_grad_b_cuda, "launches"),
+            "sidechain_fwd": (S.sidechain_fwd_cuda, "launches"),
+            "sidechain_bwd": (S.sidechain_bwd_cuda, "launches"),
+            "flash_attn_fwd": (A.flash_attn_fwd_cuda, "launches"),
+            "flash_attn_bwd": (A.flash_attn_bwd_cuda, "launches"),
+            "flash_attn_fwd_bf16": (A.flash_attn_fwd_cuda, "launches_bf16"),
+            "flash_attn_bwd_bf16": (A.flash_attn_bwd_cuda, "launches_bf16"),
+            "drmsd_fwd_sqrt1": (V.drmsd_stats_sqrt1_cuda, "launches"),
+            "drmsd_fwd_mxu": (V.drmsd_stats_mxu_cuda, "launches"),
+            "drmsd_grad_a_mxu": (V.drmsd_grad_a_mxu_cuda, "launches")}
 
 
 def reset_launches() -> None:
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    for fn, counter in COUNTERS.values():
+        setattr(fn, counter, 0)
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in COUNTERS.items()}
+    return {name: getattr(fn, counter)
+            for name, (fn, counter) in COUNTERS.items()}
 
 
 def launched(**counts) -> dict:
@@ -1169,19 +1202,20 @@ def gradient_distances(grads, ref_grads, flipped=None):
     return out
 
 
-def hold_steps(first, second, labels, entry_tol, norm_tol=None):
-    """Hold one step (see ``one_step``) against another: the loss within 1e-4
-    relative, each parameter's gradient within entry_tol of the second's
-    largest entry and, where norm_tol is given, within norm_tol of its L2
-    norm. The entry-wise gate leaves out the hidden units whose ReLU differs
-    between the two steps (none where the two run the same model code); the
-    norm gate leaves out nothing."""
+def hold_steps(first, second, labels, entry_tol, norm_tol=None,
+               loss_tol=1e-4):
+    """Hold one step (see ``one_step``) against another: the loss within
+    loss_tol relative, each parameter's gradient within entry_tol of the
+    second's largest entry and, where norm_tol is given, within norm_tol of
+    its L2 norm. The entry-wise gate leaves out the hidden units whose ReLU
+    differs between the two steps (none where the two run the same model
+    code); the norm gate leaves out nothing."""
     (k_loss, k_grads, k_passed, loss_name), (p_loss, p_grads, p_passed, _) \
         = first, second
     require(np.isfinite(k_loss) and abs(k_loss - p_loss)
-            <= 1e-4 * abs(p_loss),
+            <= loss_tol * abs(p_loss),
             f"one-step loss: {labels[0]} {k_loss} vs {labels[1]} {p_loss} "
-            "within 1e-4 relative")
+            f"within {loss_tol} relative")
     flipped = flipped_units(k_passed, p_passed)
     n_flipped = sum(int(units.sum()) for units in flipped.values())
     dist = gradient_distances(k_grads, p_grads, flipped)
@@ -1387,12 +1421,12 @@ def phase_cli(dev, card, out_dir):
     return launches, 1e3 * seconds / n
 
 
-def head_split(rng, dev, shape, gains=(1.0, 1.0, 1.0)):
+def head_split(rng, dev, shape, gains=(1.0, 1.0, 1.0), dtype=torch.float32):
     """Normal tensors of standard deviation ``gains`` as the model makes q,
-    k and v: (B, H, L, D) views of (B, L, H * D) memory."""
+    k and v: (B, H, L, D) views of (B, L, H * D) memory, in ``dtype``."""
     bsz, heads, length, dim = shape
     return [torch.from_numpy(rng.normal(0, gain, (bsz, length, heads * dim))
-                             .astype(np.float32)).to(dev)
+                             .astype(np.float32)).to(dev, dtype)
             .reshape(bsz, length, heads, dim).transpose(1, 2)
             for gain in gains]
 
@@ -1403,6 +1437,71 @@ def attention_grads(q, k, v, valid, d_out, scale, impl):
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = A.flash_self_attention(*leaves, valid, sm_scale=scale, impl=impl)
     return out.detach(), torch.autograd.grad(out, leaves, d_out)
+
+
+def attention_timings(q, k, v, valid, d_out, scale, bwd_args, shape,
+                      n_valid, elem=4):
+    """({kernel: (kernel ms, plain ms, bound ms, what bounds it, library
+    ms, device ms or None, library device ms or None)}, weighted pairs) of
+    K3a and the backward on one case, the instance of q's dtype (``elem``
+    bytes an element; the bf16 rows are named with "_bf16"): each kernel's
+    wrapper as its main path calls it, the plain version (autograd through
+    it for the backward) and the library call with the same boolean mask
+    (its forward, and autograd's one backward through it), by CUDA events;
+    at the table's shapes also on the device alone; each bound from this
+    run's valid keys."""
+    bsz, heads, length, dim = shape
+    suffix = "_bf16" if elem == 2 else ""
+    fwd, bwd = "flash_attn_fwd" + suffix, "flash_attn_bwd" + suffix
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    key_mask = valid[:, None, None, :]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    plain_out = A.flash_self_attention_torch(*leaves, valid, sm_scale=scale)
+    lib_out = sdpa(*leaves, attn_mask=key_mask, scale=scale)
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                return fn()
+        return run
+
+    def backward(out):
+        return lambda: torch.autograd.grad(out, leaves, d_out,
+                                           retain_graph=True)
+
+    # the forward as its main path calls it: with the row statistics where
+    # a gradient follows (the training step's shape), else without
+    with_stats = shape == ATTENTION_TRAIN_CASE
+
+    def forward():
+        return A.flash_attn_fwd_cuda(q, k, v, valid, scale,
+                                     with_stats=with_stats)
+
+    library_forward = no_grad(lambda: sdpa(q, k, v, attn_mask=key_mask,
+                                           scale=scale))
+    times = {
+        fwd: (cuda_ms(forward),
+              cuda_ms(no_grad(lambda: A.flash_self_attention_torch(
+                  q, k, v, valid, sm_scale=scale))),
+              cuda_ms(library_forward)),
+        bwd: (cuda_ms(lambda: A.flash_attn_bwd_cuda(*bwd_args)),
+              cuda_ms(backward(plain_out)),
+              cuda_ms(backward(lib_out)))}
+    # what this run's data needs: every query row of a batch row weighs its
+    # valid keys, or all L keys where there is none
+    keys = np.where(n_valid > 0, n_valid, length)
+    pairs = heads * length * int(keys.sum())
+    dev_ms = lib_dev_ms = dict.fromkeys(times)
+    if shape in (ATTENTION_PREDICT_CASE, ATTENTION_TRAIN_CASE):
+        dev_ms = {fwd: device_ms(forward),
+                  bwd: device_ms(lambda: A.flash_attn_bwd_cuda(*bwd_args))}
+        lib_dev_ms = {fwd: device_ms(library_forward),
+                      bwd: device_ms(backward(lib_out))}
+    return {name: (t[0], t[1],
+                   *attention_bound(name.removesuffix(suffix), shape, pairs,
+                                    with_stats, elem),
+                   t[2], dev_ms[name], lib_dev_ms[name])
+            for name, t in times.items()}, pairs
 
 
 def attention_case(dev, card, rng, shape):
@@ -1458,68 +1557,13 @@ def attention_case(dev, card, rng, shape):
             and all(torch.equal(a, b) for a, b in zip(b_grads2, b_grads)),
             f"a second call gives the same bits, {where}")
 
-    # times: each kernel's wrapper, autograd through plain, and the library
-    # call with the same boolean mask
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    key_mask = valid[:, None, None, :]
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    plain_out = A.flash_self_attention_torch(*leaves, valid, sm_scale=scale)
-    lib_out = sdpa(*leaves, attn_mask=key_mask, scale=scale)
-
-    def no_grad(fn):
-        def run():
-            with torch.no_grad():
-                return fn()
-        return run
-
-    def backward(out):
-        return lambda: torch.autograd.grad(out, leaves, d_out,
-                                           retain_graph=True)
-
-    # the forward as its main path calls it: with the row statistics where
-    # a gradient follows (the training step's shape), else without
-    with_stats = shape == ATTENTION_TRAIN_CASE
-
-    def forward():
-        return A.flash_attn_fwd_cuda(q, k, v, valid, scale,
-                                     with_stats=with_stats)
-
-    times = {
-        "flash_attn_fwd": (
-            cuda_ms(forward),
-            cuda_ms(no_grad(lambda: A.flash_self_attention_torch(
-                q, k, v, valid, sm_scale=scale))),
-            cuda_ms(no_grad(lambda: sdpa(q, k, v, attn_mask=key_mask,
-                                         scale=scale)))),
-        "flash_attn_bwd": (
-            cuda_ms(lambda: A.flash_attn_bwd_cuda(*bwd_args)),
-            cuda_ms(backward(plain_out)),
-            cuda_ms(backward(lib_out)))}
+    timings, pairs = attention_timings(q, k, v, valid, d_out, scale,
+                                       bwd_args, shape, n_valid)
     pair = [cuda_ms(lambda: attention_grads(q, k, v, valid, d_out, scale,
                                             impl)) for impl in ("cuda",
                                                                 "torch")]
-    # what this run's data needs: every query row of a batch row weighs its
-    # valid keys, or all L keys where there is none
-    keys = np.where(n_valid > 0, n_valid, length)
-    pairs = heads * length * int(keys.sum())
     errs = {"flash_attn_fwd": err, "flash_attn_bwd": max(b_errs)}
-    dev_ms = lib_dev_ms = dict.fromkeys(times)
-    if shape in (ATTENTION_PREDICT_CASE, ATTENTION_TRAIN_CASE):
-        dev_ms = {
-            "flash_attn_fwd": device_ms(forward),
-            "flash_attn_bwd": device_ms(
-                lambda: A.flash_attn_bwd_cuda(*bwd_args))}
-        # the library call's device time: its forward, and autograd's one
-        # backward through it (dQ, dK and dV)
-        lib_dev_ms = {
-            "flash_attn_fwd": device_ms(no_grad(lambda: sdpa(
-                q, k, v, attn_mask=key_mask, scale=scale))),
-            "flash_attn_bwd": device_ms(backward(lib_out))}
-    out = {}
-    for name, t in times.items():
-        out[name] = (errs[name], t[0], t[1],
-                     *attention_bound(name, shape, pairs, with_stats),
-                     t[2], dev_ms[name], lib_dev_ms[name])
+    out = {name: (errs[name], *t) for name, t in timings.items()}
     print(f"[kernel] attention {where}: |d O| {err:.3e}, |d dQ| "
           f"{g_errs[0]:.3e}, |d dK| {g_errs[1]:.3e}, |d dV| {g_errs[2]:.3e} "
           f"(max|g| {max(float(g.abs().max()) for g in p_grads):.3e}); the "
@@ -2401,6 +2445,283 @@ def phase_tools(dev, card, out_dir):
           f"({card}):\n{report.rstrip()}")
 
 
+# (B, H, L, D) of the bf16 instances: phase 8's cases and the two head
+# dimensions that those leave out
+BF16_ATTENTION_CASES = ATTENTION_CASES + ((2, 3, 130, 32), (2, 2, 70, 128))
+# A bf16 result against a reference on the same bf16-valued inputs, over the
+# reference's largest entry: bf16 keeps 8 bits of mantissa (2^-9 = 2e-3
+# relative a rounding), and O and each gradient take a few roundings (the
+# inputs' products are exact; P, dS and the output are rounded).
+BF16_TOL = 1e-2
+BF16 = torch.bfloat16
+
+
+def bf16_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    want = want.float()
+    return (float((got.float() - want).abs().max())
+            / max(float(want.abs().max()), 1e-30))
+
+
+def attention_bf16_case(dev, card, rng, shape):
+    """K3a-bf16 and the bf16 backward against their plain versions and an
+    fp32 run on the same bf16 values, at one (B, H, L, D); returns
+    {kernel: (error, kernel ms, plain ms, bound ms, what bounds it, library
+    ms, device ms or None, library device ms or None)}."""
+    bsz, heads, length, dim = shape
+    where = f"bf16 B={bsz} H={heads} L={length} D={dim}"
+    q, k, v = head_split(rng, dev, shape, gains=(3.0, 1.0, 1.0), dtype=BF16)
+    d_out = head_split(rng, dev, shape, dtype=BF16)[0]
+    n_valid = rng.integers(1, length + 1, bsz)
+    n_valid[0] = length
+    if bsz > 1:
+        n_valid[-1] = 0  # a batch row with no valid key, as collate pads
+    valid = torch.from_numpy(
+        np.arange(length)[None, :] < n_valid[:, None]).to(dev)
+    scale = 1.0 / math.sqrt(dim)
+
+    poison_allocator(dev, BF16)
+    got, k_grads = attention_grads(q, k, v, valid, d_out, scale, "cuda")
+    want, p_grads = attention_grads(q, k, v, valid, d_out, scale, "torch")
+    # the fp32 function on the same (bf16-valued) inputs
+    ref, r_grads = attention_grads(q.float(), k.float(), v.float(), valid,
+                                   d_out.float(), scale, "torch")
+    poison_allocator(dev, BF16)
+    out, m, l = A.flash_attn_fwd_cuda(q, k, v, valid, scale, with_stats=True)
+    bwd_args = (q, k, v, valid, d_out, out, m, l, scale)
+    poison_allocator(dev, BF16)
+    b_grads = A.flash_attn_bwd_cuda(*bwd_args)
+    b_plain = A.flash_attn_bwd_torch(*bwd_args)
+    torch.cuda.synchronize()
+    require(got.dtype == out.dtype == BF16 and all(
+        g.dtype == BF16 for g in (*k_grads, *b_grads)),
+        f"bf16 outputs and gradients, {where}")
+    require(torch.isfinite(got).all().item() and torch.equal(got, out)
+            and all(torch.isfinite(g).all().item()
+                    for g in (*k_grads, *b_grads)),
+            f"values and gradients finite, the all-pad row included, {where}")
+    # the kernel table's error: kernel against plain, absolute
+    abs_errs = {"flash_attn_fwd_bf16": float((got.float() - want.float())
+                                             .abs().max()),
+                "flash_attn_bwd_bf16": max(
+                    float((b.float() - p.float()).abs().max())
+                    for b, p in zip(b_grads, b_plain))}
+    errs = {"O": (bf16_err(got, ref), bf16_err(want, ref),
+                  bf16_err(got, want))}
+    for name, g, b, p, r in zip("qkv", k_grads, b_grads, b_plain, r_grads):
+        errs["d" + name.upper()] = (max(bf16_err(g, r), bf16_err(b, r)),
+                                    bf16_err(p, r), bf16_err(b, p))
+    for what, (kernel, plain, apart) in errs.items():
+        require(max(kernel, plain, apart) <= BF16_TOL,
+                f"{what}: kernel {kernel:.3e} and plain {plain:.3e} from the "
+                f"fp32 run, {apart:.3e} apart, of its largest entry, within "
+                f"{BF16_TOL}, {where}")
+    got2, k_grads2 = attention_grads(q, k, v, valid, d_out, scale, "cuda")
+    b_grads2 = A.flash_attn_bwd_cuda(*bwd_args)
+    require(torch.equal(got2, got)
+            and all(torch.equal(a, b) for a, b in zip(k_grads2, k_grads))
+            and all(torch.equal(a, b) for a, b in zip(b_grads2, b_grads)),
+            f"a second call gives the same bits, {where}")
+
+    timings, pairs = attention_timings(q, k, v, valid, d_out, scale,
+                                       bwd_args, shape, n_valid, elem=2)
+    out = {name: (abs_errs[name], *t) for name, t in timings.items()}
+    print(f"[bf16] attention {where}: of the largest entry, kernel / plain "
+          f"from the fp32 run on the same values, kernel from plain: "
+          + ", ".join(f"{what} {e[0]:.2e} / {e[1]:.2e}, {e[2]:.2e}"
+                      for what, e in errs.items())
+          + f" (gate {BF16_TOL}); all finite, same bits twice; kernel vs "
+          "plain vs library (bf16 sdpa) ms: "
+          + ", ".join(f"{name} {v[1]:.4f} vs {v[2]:.4f} vs {v[5]:.4f}"
+                      for name, v in out.items())
+          + f"; {pairs} weighted pairs, bounds in ms: "
+          + ", ".join(f"{name} {v[3]:.5f} by {v[4]}"
+                      for name, v in out.items())
+          + "".join(f"; {name} device-only {v[6]:.4f} ms ({v[3] / v[6]:.2f}"
+                    f" of its bound), library {v[7]:.4f}"
+                    for name, v in out.items() if v[6] is not None)
+          + f" (median of {TIMED_RUNS}; {card})")
+    return out
+
+
+def phase_bf16_kernels(dev, card):
+    rng = np.random.default_rng(12)
+    return {case: attention_bf16_case(dev, card, rng, case)
+            for case in BF16_ATTENTION_CASES}
+
+
+def params_moved(before, after) -> bool:
+    """Every parameter still float32, and every one that the loss reaches
+    moved (the attention key bias has a gradient of exactly zero)."""
+    return all(after[k].dtype == torch.float32 for k in after) and all(
+        not torch.equal(before[k], after[k].detach())
+        for k in after if not k.endswith("attn.wk.bias"))
+
+
+def phase_bf16(dev, card, out_dir):
+    """--compute_dtype bfloat16 at the flagship width: train steps beside
+    fp32 ones, flash training at dropout 0 against the bf16 materialised
+    branch, then a CLI epoch with flash attention and predict from its run.
+    Returns the launches of the flash training epoch and of predict."""
+    data = make_dataset(n_train=16, n_eval=16, min_len=255, max_len=256,
+                        seed=1, device=dev)
+    for split in [k for k in data if k.startswith("valid-")]:
+        if split != "valid-10":
+            del data[split]
+    kw = dict(optimizer="adam", lr_scheduling="noam", max_seq_len=256,
+              repeat_train=FLASH_TRAIN_REPEAT)
+    trainers = {dtype: Trainer(flagship("all", out_dir, name=f"bf16-{dtype}",
+                                        compute_dtype=dtype, **kw),
+                               device=dev, data=data)
+                for dtype in ("bfloat16", "float32")}
+    params = random_weights(trainers["bfloat16"], dev)
+    states = {dtype: tr.state_from(params) for dtype, tr in trainers.items()}
+    for dtype, tr in trainers.items():  # warm-up epoch, both
+        states[dtype] = train_epoch_timed(tr, states[dtype])[0]
+    before = {k: v.detach().clone() for k, v in states["bfloat16"].params
+              .items()}
+    reset_launches()
+    states["bfloat16"], seconds, steps, _ = train_epoch_timed(
+        trainers["bfloat16"], states["bfloat16"])
+    launches = read_launches()
+    require(launches == launched(drmsd_fwd_grad=2 * steps,
+                                 sidechain_fwd=steps, sidechain_bwd=steps),
+            f"bf16 training launches {launches} for {steps} steps at "
+            "dropout 0.1 (materialised attention)")
+    require(params_moved(before, states["bfloat16"].params),
+            "bf16 training keeps float32 parameters and moves them")
+    times = {"bfloat16": [seconds / steps], "float32": []}
+    for dtype in ("float32", "float32", "bfloat16", "bfloat16", "float32"):
+        states[dtype], sec, n, _ = train_epoch_timed(trainers[dtype],
+                                                     states[dtype])
+        times[dtype].append(sec / n)
+    idx = next(trainers["bfloat16"].dm.train_index_batches(
+        np.random.default_rng(0)))
+    profiles = {}
+    for dtype, tr in trainers.items():
+        def step(dtype=dtype, tr=tr):
+            states[dtype] = tr.train_step(
+                states[dtype], stored_batch(tr, "train", idx))[0]
+        profiles[dtype] = profile_steps(step)
+    print(f"[bf16] train step, {MODEL}, d_model 512 x 6 layers, dropout "
+          f"0.1, {steps} steps of B=16 x L=256 an epoch, {data_path(trainers['bfloat16'])}"
+          f": ms/step "
+          + ", ".join(f"{dtype} {1e3 * statistics.median(t):.2f} "
+                      f"({profiles[dtype][0]:.0f} device operations, "
+                      f"{profiles[dtype][1]:.2f} device ms a step)"
+                      for dtype, t in times.items())
+          + f", medians of 3 epochs, interleaved; launches "
+          f"{json.dumps(launches)} ({card})")
+
+    # flash training at dropout 0: the bf16 backward instance counted
+    flash = Trainer(flagship("all", out_dir, name="bf16-flash",
+                             compute_dtype="bfloat16", attention_impl="flash",
+                             **{**kw, "dropout": 0.0}), device=dev, data=data)
+    state = train_epoch_timed(flash, flash.state_from(params))[0]
+    reset_launches()
+    state, seconds, steps, _ = train_epoch_timed(flash, state)
+    flash_launches = read_launches()
+    expected = launched(drmsd_fwd_grad=2 * steps, sidechain_fwd=steps,
+                        sidechain_bwd=steps, flash_attn_fwd_bf16=6 * steps,
+                        flash_attn_bwd_bf16=6 * steps)
+    require(flash_launches == expected,
+            f"bf16 flash training launches {flash_launches}: expected "
+            f"{expected}")
+    print(f"[bf16] flash training at dropout 0: {steps} steps, "
+          f"{1e3 * seconds / steps:.2f} ms/step; launches "
+          f"{json.dumps(flash_launches)} ({card})")
+    # One MSE step from identical weights: flash against the materialised
+    # branch, both bf16, and each against the fp32 step. The two bf16 arms
+    # round P (unnormalised in the kernel, normalised in the branch) and
+    # sum in other orders: each is its own bf16 approximation of the fp32
+    # step, and bf16 moves a gradient by several per cent of its norm (read
+    # on the CPU at small width: up to 9e-2 in L2, 0.2 of the largest entry,
+    # the embedding's). So the limits come from the materialised branch's
+    # own distance from fp32, as phase 10's combined-loss gates come from
+    # float64: the two bf16 arms within twice its worst distance plus 1e-2
+    # (entries and L2, the loss likewise relative plus 1e-4), and every
+    # gradient of the flash arm no farther from fp32 than twice the
+    # materialised arm's plus 1e-2 (L2).
+    labels = ("bf16 flash", "bf16 materialised")
+    flash_step, xla_step, fp32_step = (
+        one_step(dev, data, params, out_dir, "all", attention_impl=impl,
+                 compute_dtype=dtype, name=f"ab-{impl}-{dtype}", loss="mse")
+        for impl, dtype in (("flash", "bfloat16"), ("xla", "bfloat16"),
+                            ("xla", "float32")))
+    far = {label: gradient_distances(step[1], fp32_step[1])
+           for label, step in zip(labels, (flash_step, xla_step))}
+    own = far[labels[1]].values()
+    hold_steps(flash_step, xla_step, labels,
+               entry_tol=2 * max(d[0] for d in own) + 1e-2,
+               norm_tol=2 * max(d[1] for d in own) + 1e-2,
+               loss_tol=2 * abs(xla_step[0] - fp32_step[0])
+               / abs(xla_step[0]) + 1e-4)
+    for name, (_, d_flash) in far[labels[0]].items():
+        limit = 2 * far[labels[1]][name][1] + 1e-2
+        require(d_flash <= limit,
+                f"{name} gradient: bf16 flash {d_flash:.3e} (L2) from the "
+                f"fp32 step, limit {limit:.3e}")
+    print("[bf16] MSE step, distance of the gradients from the fp32 step "
+          "(largest entry, L2; worst parameter): "
+          + ", ".join(f"{label} {max(d[0] for d in dist.values()):.3e}, "
+                      f"{d:.3e} ({name})" for label, dist, (d, name) in (
+                          (label, dist, max((d[1], name)
+                                            for name, d in dist.items()))
+                          for label, dist in far.items()))
+          + f"; losses {flash_step[0]:.6f} / {xla_step[0]:.6f} / fp32 "
+          f"{fp32_step[0]:.6f} ({card})")
+
+    # the CLI: one epoch with flash attention, then predict from its run
+    data_file = os.path.join(out_dir, "bf16_data.pt")
+    torch.save(data, data_file)
+    argv = ["--data", data_file, "--name", "bf16", "--out_dir", out_dir,
+            "-m", MODEL, "-dm", "512", "-dih", "2048", "-nh", "8", "-nl", "6",
+            "-do", "0.1", "-l", "combined", "-opt", "adam",
+            "--lr_scheduling", "noam", "-b", "8", "--cluster", "True",
+            "--log_structure_step", "0", "-lvs", "0", "--attention_impl",
+            "flash", "--compute_dtype", "bfloat16", "-e", "1"]
+    cfg = cli.config_from_args(argv)
+    dm = DataModule(data, cfg)
+    steps = len(list(dm.train_index_batches(np.random.default_rng(0))))
+    n_eval = sum(len(list(dm.eval_index_batches(s))) for s in dm.eval_splits)
+    reset_launches()
+    run_cli(argv)
+    cli_launches = read_launches()
+    expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * steps,
+                        sidechain_fwd=steps + n_eval, sidechain_bwd=steps,
+                        flash_attn_fwd_bf16=6 * n_eval)
+    require(cli_launches == expected,
+            f"bf16 CLI launches {cli_launches}: expected {expected}")
+    run_dir = os.path.join(out_dir, "bf16")
+    with open(os.path.join(run_dir, "config.json")) as f:
+        require(json.load(f)["config"]["compute_dtype"] == "bfloat16",
+                "config.json keeps compute_dtype bfloat16")
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        paths = predict.main([run_dir, "--data", data_file, "--split",
+                              "test", "--n", "16", "--batch", "8", "--out",
+                              os.path.join(out_dir, "preds_bf16")])
+    seconds = time.perf_counter() - t0
+    predict_launches = read_launches()
+    require(predict_launches == launched(flash_attn_fwd_bf16=12,
+                                         sidechain_fwd=2),
+            f"bf16 predict launches {predict_launches}: expected K3a-bf16 "
+            "6 x 2 and K2a twice")
+    require(len(paths) == 32, "16 pred/true pairs")
+    for path in paths:
+        _, _, res_nums, xyz = parse_pdb_atoms(path)
+        require(len(res_nums) > 0 and np.isfinite(xyz).all(),
+                f"{os.path.basename(path)} is well formed")
+    print(f"[bf16] CLI epoch ({steps} train steps, {n_eval} eval steps of "
+          f"B=8 x L=256) and predict.main for 16 proteins in "
+          f"{seconds:.2f} s, 32 PDB files; launches of the CLI "
+          f"{json.dumps(cli_launches)}, of predict "
+          f"{json.dumps(predict_launches)} ({card})")
+    return flash_launches, predict_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this smoke run "
@@ -2415,6 +2736,7 @@ def main() -> int:
     variant_table, variant_errs, bench_launches = phase_variants(dev, card)
     sc_table, sc_errs = phase_sidechain_kernel(dev, card)
     attn_table = phase_attention_kernel(dev, card)
+    bf16_table = phase_bf16_kernels(dev, card)
     phase_goldens(dev)
     with tempfile.TemporaryDirectory() as out_dir:
         eval_launches = phase_slice(dev, card, out_dir)
@@ -2426,6 +2748,8 @@ def main() -> int:
         phase_data_path(dev, card, out_dir)
         phase_dev_data(dev, card, out_dir)
         phase_tools(dev, card, out_dir)
+        bf16_flash_launches, bf16_predict_launches = phase_bf16(dev, card,
+                                                                out_dir)
     source = "protein_transformer_tpu_torch/csrc/"
     replaces = "protein_transformer_tpu/ops/"
     rows = []
@@ -2461,23 +2785,30 @@ def main() -> int:
                      "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None})
     flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
-    for name, line, case, launches in (
+    for name, line, case, launches, kernels in (
             ("flash_attn_fwd", 331, ATTENTION_PREDICT_CASE,
-             predict_launches["flash_attn_fwd"]),
+             predict_launches["flash_attn_fwd"], attn_table),
             # the backward replaces the dK/dV and the dQ bodies together
             ("flash_attn_bwd", 796, ATTENTION_TRAIN_CASE,
-             flash_launches["flash_attn_bwd"]),
+             flash_launches["flash_attn_bwd"], attn_table),
             ("flash_attn_bwd", 1146, ATTENTION_TRAIN_CASE,
-             flash_launches["flash_attn_bwd"])):
+             flash_launches["flash_attn_bwd"], attn_table),
+            # the bf16 instances of the same TPU kernels
+            ("flash_attn_fwd_bf16", 331, ATTENTION_PREDICT_CASE,
+             bf16_predict_launches["flash_attn_fwd_bf16"], bf16_table),
+            ("flash_attn_bwd_bf16", 796, ATTENTION_TRAIN_CASE,
+             bf16_flash_launches["flash_attn_bwd_bf16"], bf16_table),
+            ("flash_attn_bwd_bf16", 1146, ATTENTION_TRAIN_CASE,
+             bf16_flash_launches["flash_attn_bwd_bf16"], bf16_table)):
         _, k_ms, p_ms, b_ms, b_by, lib_ms, d_ms, lib_d_ms = \
-            attn_table[case][name]
+            kernels[case][name]
         rows.append({"name": name, "route": "cuda",
                      "source": source + "attention.cu",
                      "replaces": f"{flash}:{line}",
                      "reached_from": f"{replaces}attention.py:63",
                      "launches": launches,
                      "max_abs_err": max(t[name][0]
-                                        for t in attn_table.values()),
+                                        for t in kernels.values()),
                      "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms, "library_device_ms": lib_d_ms})

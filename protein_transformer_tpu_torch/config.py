@@ -12,6 +12,7 @@ from typing import Optional, Sequence
 from protein_transformer_tpu_torch.protein.constants import MAX_SEQ_LEN
 
 LOSSES = ("mse", "drmsd", "lndrmsd", "combined")
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 @dataclasses.dataclass
@@ -90,6 +91,10 @@ class TrainConfig:
 
     max_seq_len: int = MAX_SEQ_LEN
     bucket_sizes: Sequence[int] = (64, 128, 192, 256, 320, 384, 448, 512)
+    # The dtype the model computes in (models/transformer.py): float32, or
+    # bfloat16 with the parameters, the output head and the losses kept in
+    # float32, as the JAX package's flax modules cast them.
+    compute_dtype: str = "float32"           # float32 | bfloat16
     # dRMSD pair sweep: cuda (hand-written kernel) | torch (plain) | auto
     # (cuda for a CUDA device, torch otherwise).
     drmsd_impl: str = "auto"
@@ -117,12 +122,15 @@ class TrainConfig:
     add_sos_eos: bool = False
 
     def finalize(self) -> "TrainConfig":
-        """Apply the reference's derived-config rules: check the loss, default
-        the monitored metric to 'train-<loss>' and split it into its mode
-        and metric, and unpack a 'conv-enc|k1,k2|r1,r2' name into the conv
-        fields."""
+        """Apply the reference's derived-config rules: check the loss and the
+        compute dtype, default the monitored metric to 'train-<loss>' and
+        split it into its mode and metric, and unpack a 'conv-enc|k1,k2|
+        r1,r2' name into the conv fields."""
         if self.loss not in LOSSES:
             raise ValueError(f"loss must be one of {LOSSES}")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}; "
+                             f"got {self.compute_dtype!r}")
         if not self.early_stopping_metric:
             self.early_stopping_metric = f"train-{self.loss}"
         parts = self.early_stopping_metric.split("-")

@@ -124,6 +124,9 @@
 // q, k, v, o and the gradients are addressed by strides (batch, head, row;
 // elements of a row adjacent), so the (B, L, H, D) memory of the model's
 // head split is read and written in place. D is one of 16, 32, 64, 128.
+//
+// Each kernel has a float32 instance (above) and a bf16 instance (the
+// section "the bf16 instances" below), one C entry point each.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -131,6 +134,7 @@
 #include <cfloat>
 #include <cstdint>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 using namespace tf32;
@@ -823,6 +827,570 @@ flash_attn_bwd_kernel(const BwdArgs args) {
     bwd_dq_role<D>(args, smem, x - args.kv_blocks);
 }
 
+// ------------------------------------------------------- the bf16 instances
+//
+// K3a and the backward on bf16 q, k, v, computing what the TPU flash kernel
+// computes on bf16 inputs (jax/experimental/pallas/ops/tpu/flash_attention.py:
+// S = Q K^T with fp32 accumulation :396, the scale and the online softmax in
+// fp32, P = exp(s - m) cast to bf16 before P V :471, O accumulated in fp32
+// and written in bf16 :477; in the backward dV = P^T dO :900, dP = dO V^T
+// :909, dS = scale * P o (dP - delta) in fp32 and cast to bf16 for dK = dS^T
+// Q :918 and dQ = dS K :1258, delta = sum_d dO o O in fp32 :274). m and l
+// stay fp32. Every product is one mma.sync m16n8k16 with bf16 operands and
+// fp32 accumulators (mma_bf16.cuh): one product where the fp32 instances
+// take three split-TF32 ones, and half the bytes of shared memory and of
+// the registers that hold an operand.
+//
+// The frame is the fp32 instances': 128-thread blocks, 16 query (or key)
+// rows a warp, the masking contract and the key-tile skip, strided
+// head-split views, no atomics. What differs:
+//   * tiles stay bf16 in shared memory, rows of D + 8 elements (a row
+//     stride of 4 mod 32 words: every 32-bit fragment load of a warp and
+//     every ldmatrix phase hits 32 banks), and they are the operands as
+//     they land: no split.
+//   * K3a keys its tiles by 64 at every D, with two buffers: the next live
+//     tile is in flight by cp.async while the warps multiply this one. Q's
+//     fragments stay in registers (D / 4 of them).
+//   * P (and in the backward P and dS) leave the accumulators as the left
+//     operand of the next product without a permutation: two neighbouring
+//     n8 tiles of S, packed to bf16 pairs, are the m16n8k16 left operand
+//     over those 16 keys (bf16::acc_as_left). V (dO, Q, K as right operands
+//     of P V, P^T dO, dS^T Q, dS K) is read by ldmatrix's transposing load.
+//   * what bounds them: bytes, as for the fp32 instances, at half the bytes
+//     of q, k, v, O and the gradients (chip_smoke.py::attention_bound).
+
+constexpr int kBfKeys = 64;  // keys of a K3a-bf16 tile
+
+using bf16_t = __nv_bfloat16;
+
+// The valid-key bits of 64-key tile `tile` (bit j: key 64 tile + j).
+__device__ __forceinline__ unsigned long long tile_bits64(
+    const unsigned* bits, int tile, int n_words) {
+  const int w0 = 2 * tile;
+  unsigned long long out = bits[w0];
+  if (w0 + 1 < n_words)
+    out |= static_cast<unsigned long long>(bits[w0 + 1]) << 32;
+  return out;
+}
+
+// next_live_tile for 64-key tiles.
+__device__ __forceinline__ int next_live_tile64(int from, int n_tiles,
+                                                bool row_valid,
+                                                const unsigned* bits,
+                                                int n_words) {
+  if (!row_valid) return from;
+  for (int tile = from; tile < n_tiles; ++tile)
+    if (tile_bits64(bits, tile, n_words) != 0) return tile;
+  return n_tiles;
+}
+
+// Rows row0 .. row0 + 63 of a strided bf16 (L, D) matrix into a tile
+// [64][D + 8] by cp.async, 8 elements a copy; rows beyond n_rows become
+// zeros.
+template <int D>
+__device__ __forceinline__ void stage_async_bf16(bf16_t* dst,
+                                                 const bf16_t* src,
+                                                 long long stride, int row0,
+                                                 int n_rows) {
+  constexpr int kVecs = D / 8;
+  for (int idx = threadIdx.x; idx < kTile * kVecs; idx += kFwdThreads) {
+    const int r = idx / kVecs, c = (idx % kVecs) * 8;
+    const bool inside = row0 + r < n_rows;
+    cp_async16(dst + r * (D + 8) + c,
+               inside ? src + (row0 + r) * stride + c : src, inside);
+  }
+}
+
+// In bytes: Q [64][D + 8], two buffers of K and V [64][D + 8], and the
+// batch row's valid-key bits, ceil(L / 32) words.
+template <int D>
+int fwd_bf16_smem_bytes(int length) {
+  return 5 * kTile * (D + 8) * 2 + (length + 31) / 32 * 4;
+}
+
+// K3a-bf16. Grid (ceil(L / 64), B * H). m_out and l_out may be null.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads)
+flash_attn_fwd_bf16_kernel(const bf16_t* __restrict__ q,
+                           const bf16_t* __restrict__ k,
+                           const bf16_t* __restrict__ v,
+                           const unsigned char* __restrict__ valid,
+                           bf16_t* __restrict__ o, float* __restrict__ m_out,
+                           float* __restrict__ l_out, int n_heads, int length,
+                           float scale, Strides sq, Strides sk, Strides sv,
+                           Strides so) {
+  constexpr int S = D + 8, NT = kBfKeys / 8, KT = D / 16, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16_t* q_s = reinterpret_cast<bf16_t*>(smem_raw);
+  bf16_t* kv_s = q_s + kTile * S;  // [buffer][K, V][64][S]
+  unsigned* row_bits = reinterpret_cast<unsigned*>(kv_s + 4 * kTile * S);
+
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wrow = tid / 32 * 16;
+  const int b = blockIdx.y / n_heads, h = blockIdx.y % n_heads;
+  const int q0 = blockIdx.x * kTile;
+  const bool rows_inside = q0 + wrow < length;
+  const bf16_t* k_bh = k + b * sk.b + h * sk.h;
+  const bf16_t* v_bh = v + b * sv.b + h * sv.h;
+  const unsigned char* valid_b = valid + static_cast<long long>(b) * length;
+  const int n_tiles = (length + kBfKeys - 1) / kBfKeys;
+  const int n_words = (length + 31) / 32;
+
+  stage_async_bf16<D>(q_s, q + b * sq.b + h * sq.h, sq.l, q0, length);
+  bool any = false;
+  for (int c = tid / 32; c < n_words; c += kFwdWarps) {
+    const int key = 32 * c + lane;
+    const unsigned bits =
+        __ballot_sync(0xffffffffu, key < length && valid_b[key] != 0);
+    if (lane == 0) row_bits[c] = bits;
+    any |= bits != 0;
+  }
+  const bool row_valid = __syncthreads_or(any);
+  int tile = next_live_tile64(0, n_tiles, row_valid, row_bits, n_words);
+  int buf = 0;
+  if (tile < n_tiles) {
+    stage_async_bf16<D>(kv_s, k_bh, sk.l, tile * kBfKeys, length);
+    stage_async_bf16<D>(kv_s + kTile * S, v_bh, sv.l, tile * kBfKeys,
+                        length);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qa[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) bf16::left<S>(q_s, wrow, 16 * kk, g, t,
+                                                qa[kk]);
+
+  float acc[DT][4] = {};
+  float m_run[2] = {-FLT_MAX, -FLT_MAX};
+  float l_part[2] = {0.f, 0.f};  // this lane's share of each row's sum
+  while (tile < n_tiles) {
+    const int k0 = tile * kBfKeys;
+    const bf16_t* k_s = kv_s + buf * 2 * kTile * S;
+    const bf16_t* v_s = k_s + kTile * S;
+    const int next = next_live_tile64(tile + 1, n_tiles, row_valid, row_bits,
+                                      n_words);
+    if (next < n_tiles) {  // the other buffer: read by no warp since the
+                           // barrier that ended the last tile
+      bf16_t* nk = kv_s + (buf ^ 1) * 2 * kTile * S;
+      stage_async_bf16<D>(nk, k_bh, sk.l, next * kBfKeys, length);
+      stage_async_bf16<D>(nk + kTile * S, v_bh, sv.l, next * kBfKeys,
+                          length);
+    }
+    cp_async_commit();
+
+    if (rows_inside) {
+      float s[NT][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t b0, b1;
+          bf16::right_t<S>(k_s, 8 * j, 16 * kk, g, t, &b0, &b1);
+          bf16::mma(s[j], qa[kk], b0, b1);
+        }
+      const unsigned long long bits = tile_bits64(row_bits, tile, n_words);
+      const int n_inside = length - k0;
+      float top[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const float x = (bits >> col) & 1ull ? s[j][e] * scale
+                          : col < n_inside    ? -FLT_MAX
+                                              : -CUDART_INF_F;
+          s[j][e] = x;
+          top[e >> 1] = fmaxf(top[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        top[i] = fmaxf(top[i], __shfl_xor_sync(0xffffffffu, top[i], 1));
+        top[i] = fmaxf(top[i], __shfl_xor_sync(0xffffffffu, top[i], 2));
+        const float m_new = fmaxf(m_run[i], top[i]);
+        alpha[i] = expf(m_run[i] - m_new);
+        m_run[i] = m_new;
+        l_part[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+#pragma unroll
+      for (int jj = 0; jj < NT / 2; ++jj) {
+        // l sums the fp32 probabilities; P V takes them rounded to bf16
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& x = s[2 * jj + half][e];
+            x = expf(x - m_run[e >> 1]);
+            l_part[e >> 1] += x;
+          }
+        uint32_t pa[4];
+        bf16::acc_as_left(s[2 * jj], s[2 * jj + 1], pa);
+#pragma unroll
+        for (int n = 0; n < KT; ++n) {
+          uint32_t vb[4];
+          bf16::right_rows<S>(v_s, 16 * jj, 16 * n, lane, vb);
+          bf16::mma(acc[2 * n], pa, vb[0], vb[1]);
+          bf16::mma(acc[2 * n + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    buf ^= 1;
+    tile = next;
+  }
+
+  if (!rows_inside) return;
+  float l_row[2], inv_l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_part[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_row[i] = l;
+    inv_l[i] = 1.0f / l;
+  }
+  bf16_t* o_bh = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + wrow + g + 8 * i;
+    if (row >= length) continue;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      *reinterpret_cast<uint32_t*>(o_bh + row * so.l + 8 * n + 2 * t) =
+          bf16::pack(acc[n][2 * i] * inv_l[i], acc[n][2 * i + 1] * inv_l[i]);
+    if (m_out != nullptr && t == 0) {
+      const long long at = static_cast<long long>(blockIdx.y) * length + row;
+      m_out[at] = m_run[i];
+      l_out[at] = l_row[i];
+    }
+  }
+}
+
+// The backward's bf16 instance: the fp32 instance's two roles and grid.
+// Shared memory: the block's own two tiles and the two staged tiles of the
+// looped axis, bf16 [64][D + 8] each, m, 1 / l and delta of 64 query rows,
+// and 64 key flags.
+template <int D>
+constexpr int bwd_bf16_smem_bytes() {
+  return 4 * kTile * (D + 8) * 2 + 3 * kTile * 4 + kTile;
+}
+
+struct BwdBf16Args {
+  const bf16_t* q;
+  const bf16_t* k;
+  const bf16_t* v;
+  const unsigned char* valid;
+  const bf16_t* d_o;
+  const bf16_t* o;
+  const float* m;
+  const float* l;
+  bf16_t* d_q;
+  bf16_t* d_k;
+  bf16_t* d_v;
+  Strides sq, sk, sv, sdo, so, sdq, sdk, sdv;
+  int n_heads, length;
+  int kv_blocks;  // blocks 0 .. kv_blocks - 1 take the dK/dV role
+  float scale;
+};
+
+// Rows row0 .. row0 + 63 of a strided bf16 (L, D) matrix into a tile
+// [64][D + 8], rows beyond n_rows as zeros. With `o`, also delta[r] =
+// sum_d src[r][d] o[r][d] in fp32: the D / 8 threads of a row are adjacent
+// lanes and add their partials in a fixed shuffle tree, so both roles get
+// delta with the same bits.
+template <int D>
+__device__ __forceinline__ void stage_bwd_bf16(
+    bf16_t* dst, const bf16_t* src, long long stride, int row0, int n_rows,
+    const bf16_t* o = nullptr, long long o_stride = 0,
+    float* delta = nullptr) {
+  constexpr int kVecs = D / 8;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int idx = threadIdx.x; idx < kTile * kVecs; idx += kBwdThreads) {
+    const int r = idx / kVecs, c = (idx % kVecs) * 8;
+    const bool inside = row0 + r < n_rows;
+    const uint4 x = inside ? *reinterpret_cast<const uint4*>(
+                                 src + (row0 + r) * stride + c)
+                           : zero;
+    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = x;
+    if (o != nullptr) {
+      const uint4 y = inside ? *reinterpret_cast<const uint4*>(
+                                   o + (row0 + r) * o_stride + c)
+                             : zero;
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+      const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+      float part = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float2 a = bf16::unpack(xs[w]), bb = bf16::unpack(ys[w]);
+        part = __fmaf_rn(a.x, bb.x, part);
+        part = __fmaf_rn(a.y, bb.y, part);
+      }
+#pragma unroll
+      for (int off = kVecs / 2; off > 0; off >>= 1)
+        part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, off));
+      if (c == 0) delta[r] = part;
+    }
+  }
+}
+
+// m and 1 / l of query rows q0 .. q0 + 63 into shared memory; rows beyond L
+// get m = 0 and 1 / l = 0, which make every probability 0.
+__device__ __forceinline__ void stage_stats(const float* m, const float* l,
+                                            long long bh, int length, int q0,
+                                            float* m_s, float* inv_l_s) {
+  const int tid = threadIdx.x;
+  if (tid < kTile) {
+    const bool inside = q0 + tid < length;
+    const long long i = bh * length + q0 + tid;
+    m_s[tid] = inside ? m[i] : 0.f;
+    inv_l_s[tid] = inside ? 1.f / l[i] : 0.f;
+  }
+}
+
+// The dQ role, bf16: 64 query rows of one (b, h); loops over the key tiles
+// that hold a valid key.
+template <int D>
+__device__ __forceinline__ void bwd_bf16_dq_role(const BwdBf16Args& a,
+                                                 unsigned char* smem,
+                                                 int tile) {
+  constexpr int S = D + 8, NT = kBwdChunk<D> / 8, KT = D / 16, DT = D / 8;
+  bf16_t* q_s = reinterpret_cast<bf16_t*>(smem);
+  bf16_t* do_s = q_s + kTile * S;
+  bf16_t* k_s = do_s + kTile * S;
+  bf16_t* v_s = k_s + kTile * S;
+  float* m_s = reinterpret_cast<float*>(v_s + kTile * S);
+  float* inv_l_s = m_s + kTile;
+  float* delta_s = inv_l_s + kTile;
+  unsigned char* flag_s = reinterpret_cast<unsigned char*>(delta_s + kTile);
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wrow = tid / 32 * 16;
+  const int bh = blockIdx.y, b = bh / a.n_heads, h = bh % a.n_heads;
+  const int length = a.length, q0 = tile * kTile;
+  const bf16_t* k_bh = a.k + b * a.sk.b + h * a.sk.h;
+  const bf16_t* v_bh = a.v + b * a.sv.b + h * a.sv.h;
+
+  stage_bwd_bf16<D>(q_s, a.q + b * a.sq.b + h * a.sq.h, a.sq.l, q0, length);
+  stage_bwd_bf16<D>(do_s, a.d_o + b * a.sdo.b + h * a.sdo.h, a.sdo.l, q0,
+                    length, a.o + b * a.so.b + h * a.so.h, a.so.l, delta_s);
+  stage_stats(a.m, a.l, bh, length, q0, m_s, inv_l_s);
+  __syncthreads();
+  float m_row[2], inv_l[2], delta_row[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = wrow + g + 8 * i;
+    m_row[i] = m_s[r];
+    inv_l[i] = inv_l_s[r];
+    delta_row[i] = delta_s[r];
+  }
+  float acc[DT][4] = {};
+
+  for (int k0 = 0; k0 < length; k0 += kTile) {
+    unsigned char flag = kKeyOutside;
+    if (tid < kTile) {
+      flag = key_flag(a.valid, b, length, k0 + tid);
+      flag_s[tid] = flag;
+    }
+    if (!__syncthreads_or(flag == kKeyValid)) continue;
+    stage_bwd_bf16<D>(k_s, k_bh, a.sk.l, k0, length);
+    stage_bwd_bf16<D>(v_s, v_bh, a.sv.l, k0, length);
+    __syncthreads();
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += 8 * NT) {
+      float s[NT][4] = {}, dp[NT][4] = {};
+#pragma unroll 2
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t aq[4], ado[4];
+        bf16::left<S>(q_s, wrow, 16 * kk, g, t, aq);
+        bf16::left<S>(do_s, wrow, 16 * kk, g, t, ado);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t b0, b1;
+          bf16::right_t<S>(k_s, c0 + 8 * j, 16 * kk, g, t, &b0, &b1);
+          bf16::mma(s[j], aq, b0, b1);
+          bf16::right_t<S>(v_s, c0 + 8 * j, 16 * kk, g, t, &b0, &b1);
+          bf16::mma(dp[j], ado, b0, b1);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const unsigned char f = flag_s[c0 + 8 * j + 2 * t + (e & 1)];
+          const float p = expf(masked_score(s[j][e], a.scale, f) - m_row[i])
+                          * inv_l[i];
+          // dS scaled before it is rounded to bf16, as the TPU kernel does
+          s[j][e] = f == kKeyValid
+                        ? p * (dp[j][e] - delta_row[i]) * a.scale : 0.0f;
+        }
+#pragma unroll
+      for (int jj = 0; jj < NT / 2; ++jj) {
+        uint32_t a_ds[4];
+        bf16::acc_as_left(s[2 * jj], s[2 * jj + 1], a_ds);
+#pragma unroll
+        for (int n = 0; n < KT; ++n) {
+          uint32_t kb[4];
+          bf16::right_rows<S>(k_s, c0 + 16 * jj, 16 * n, lane, kb);
+          bf16::mma(acc[2 * n], a_ds, kb[0], kb[1]);
+          bf16::mma(acc[2 * n + 1], a_ds, kb[2], kb[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  bf16_t* dq_bh = a.d_q + b * a.sdq.b + h * a.sdq.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + wrow + g + 8 * i;
+    if (row >= length) continue;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      *reinterpret_cast<uint32_t*>(dq_bh + row * a.sdq.l + 8 * n + 2 * t) =
+          bf16::pack(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+// The dK/dV role, bf16: 64 key rows of one (b, h), the score tile held
+// transposed (rows are keys, columns queries); loops over every query tile.
+template <int D>
+__device__ __forceinline__ void bwd_bf16_dkv_role(const BwdBf16Args& a,
+                                                  unsigned char* smem,
+                                                  int tile) {
+  constexpr int S = D + 8, NT = kBwdChunk<D> / 8, KT = D / 16, DT = D / 8;
+  bf16_t* k_s = reinterpret_cast<bf16_t*>(smem);
+  bf16_t* v_s = k_s + kTile * S;
+  bf16_t* q_s = v_s + kTile * S;
+  bf16_t* do_s = q_s + kTile * S;
+  float* m_s = reinterpret_cast<float*>(do_s + kTile * S);
+  float* inv_l_s = m_s + kTile;
+  float* delta_s = inv_l_s + kTile;
+  unsigned char* flag_s = reinterpret_cast<unsigned char*>(delta_s + kTile);
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wrow = tid / 32 * 16;
+  const int bh = blockIdx.y, b = bh / a.n_heads, h = bh % a.n_heads;
+  const int length = a.length, k0 = tile * kTile;
+  const bf16_t* q_bh = a.q + b * a.sq.b + h * a.sq.h;
+  const bf16_t* do_bh = a.d_o + b * a.sdo.b + h * a.sdo.h;
+  const bf16_t* o_bh = a.o + b * a.so.b + h * a.so.h;
+  bf16_t* dk_bh = a.d_k + b * a.sdk.b + h * a.sdk.h;
+  bf16_t* dv_bh = a.d_v + b * a.sdv.b + h * a.sdv.h;
+
+  // as the fp32 role: a tile without a valid key, in a batch row that has
+  // one, weighs nothing and its rows are zero
+  bool row_valid = false;
+  for (int j = tid; j < length; j += kBwdThreads)
+    row_valid |= a.valid[static_cast<long long>(b) * length + j] != 0;
+  unsigned char flag = kKeyOutside;
+  if (tid < kTile) {
+    flag = key_flag(a.valid, b, length, k0 + tid);
+    flag_s[tid] = flag;
+  }
+  const bool tile_valid = __syncthreads_or(flag == kKeyValid);
+  if (__syncthreads_or(row_valid) && !tile_valid) {
+    constexpr int kVecs = D / 8;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int idx = tid; idx < kTile * kVecs; idx += kBwdThreads) {
+      const int row = k0 + idx / kVecs, c = (idx % kVecs) * 8;
+      if (row >= length) continue;
+      *reinterpret_cast<uint4*>(dk_bh + row * a.sdk.l + c) = zero;
+      *reinterpret_cast<uint4*>(dv_bh + row * a.sdv.l + c) = zero;
+    }
+    return;
+  }
+  stage_bwd_bf16<D>(k_s, a.k + b * a.sk.b + h * a.sk.h, a.sk.l, k0, length);
+  stage_bwd_bf16<D>(v_s, a.v + b * a.sv.b + h * a.sv.h, a.sv.l, k0, length);
+  unsigned char key_f[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) key_f[i] = flag_s[wrow + g + 8 * i];
+  float acc_k[DT][4] = {}, acc_v[DT][4] = {};
+
+  for (int q0 = 0; q0 < length; q0 += kTile) {
+    stage_bwd_bf16<D>(q_s, q_bh, a.sq.l, q0, length);
+    stage_bwd_bf16<D>(do_s, do_bh, a.sdo.l, q0, length, o_bh, a.so.l,
+                      delta_s);
+    stage_stats(a.m, a.l, bh, length, q0, m_s, inv_l_s);
+    __syncthreads();
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += 8 * NT) {
+      float s[NT][4] = {}, dp[NT][4] = {};
+#pragma unroll 2
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t ak[4], av[4];
+        bf16::left<S>(k_s, wrow, 16 * kk, g, t, ak);
+        bf16::left<S>(v_s, wrow, 16 * kk, g, t, av);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t b0, b1;
+          bf16::right_t<S>(q_s, c0 + 8 * j, 16 * kk, g, t, &b0, &b1);
+          bf16::mma(s[j], ak, b0, b1);
+          bf16::right_t<S>(do_s, c0 + 8 * j, 16 * kk, g, t, &b0, &b1);
+          bf16::mma(dp[j], av, b0, b1);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * j + 2 * t + (e & 1);
+          const unsigned char f = key_f[e >> 1];
+          const float p = expf(masked_score(s[j][e], a.scale, f) - m_s[col])
+                          * inv_l_s[col];
+          dp[j][e] = f == kKeyValid
+                         ? p * (dp[j][e] - delta_s[col]) * a.scale : 0.0f;
+          s[j][e] = p;
+        }
+#pragma unroll
+      for (int jj = 0; jj < NT / 2; ++jj) {
+        uint32_t a_p[4], a_ds[4];
+        bf16::acc_as_left(s[2 * jj], s[2 * jj + 1], a_p);
+        bf16::acc_as_left(dp[2 * jj], dp[2 * jj + 1], a_ds);
+#pragma unroll
+        for (int n = 0; n < KT; ++n) {
+          uint32_t rb[4];
+          bf16::right_rows<S>(do_s, c0 + 16 * jj, 16 * n, lane, rb);
+          bf16::mma(acc_v[2 * n], a_p, rb[0], rb[1]);
+          bf16::mma(acc_v[2 * n + 1], a_p, rb[2], rb[3]);
+          bf16::right_rows<S>(q_s, c0 + 16 * jj, 16 * n, lane, rb);
+          bf16::mma(acc_k[2 * n], a_ds, rb[0], rb[1]);
+          bf16::mma(acc_k[2 * n + 1], a_ds, rb[2], rb[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + wrow + g + 8 * i;
+    if (row >= length) continue;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      *reinterpret_cast<uint32_t*>(dv_bh + row * a.sdv.l + 8 * n + 2 * t) =
+          bf16::pack(acc_v[n][2 * i], acc_v[n][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dk_bh + row * a.sdk.l + 8 * n + 2 * t) =
+          bf16::pack(acc_k[n][2 * i], acc_k[n][2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attn_bwd_bf16_kernel(const BwdBf16Args args) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  const int x = static_cast<int>(blockIdx.x);
+  if (x < args.kv_blocks)
+    bwd_bf16_dkv_role<D>(args, smem_bytes, x);
+  else
+    bwd_bf16_dq_role<D>(args, smem_bytes, x - args.kv_blocks);
+}
+
 inline Strides strides_at(const long long* st, int tensor) {
   return Strides{st[3 * tensor], st[3 * tensor + 1], st[3 * tensor + 2]};
 }
@@ -865,6 +1433,37 @@ int launch_bwd(const BwdArgs& args, int batch, int q_blocks,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_fwd_bf16(const bf16_t* q, const bf16_t* k, const bf16_t* v,
+                    const unsigned char* valid, bf16_t* o, float* m_out,
+                    float* l_out, int batch, int n_heads, int length,
+                    float scale, const long long* st, cudaStream_t stream) {
+  auto kernel = flash_attn_fwd_bf16_kernel<D>;
+  const int smem = fwd_bf16_smem_bytes<D>(length);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((length + kTile - 1) / kTile, batch * n_heads);
+  kernel<<<grid, kFwdThreads, smem, stream>>>(
+      q, k, v, valid, o, m_out, l_out, n_heads, length, scale,
+      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+      strides_at(st, 3));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_bf16(const BwdBf16Args& args, int batch, int q_blocks,
+                    cudaStream_t stream) {
+  auto kernel = flash_attn_bwd_bf16_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_bf16_smem_bytes<D>());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(args.kv_blocks + q_blocks, batch * args.n_heads);
+  kernel<<<grid, kBwdThreads, bwd_bf16_smem_bytes<D>(), stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Calls `launch<D>(args...)` for the head dimension given at run time.
@@ -882,8 +1481,9 @@ const char* attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Every tensor is float32 of shape (B, H, L, D) with adjacent elements along
-// D, 16-byte aligned rows, and strides in elements for batch, head and row:
+// Every tensor is float32 (bf16 for the _bf16 functions; m, l stay float32)
+// of shape (B, H, L, D) with adjacent elements along D, 16-byte aligned
+// rows, and strides in elements for batch, head and row:
 // `strides` is a host array of three per tensor, in the order given at each
 // function. valid is (B, L), one byte per key (0 masked, else valid),
 // contiguous; m, l and delta are (B, H, L), contiguous. D is 16, 32, 64 or
@@ -927,6 +1527,51 @@ int flash_attn_bwd(const float* q, const float* k, const float* v,
                      strides_at(strides, 6), strides_at(strides, 7),
                      n_heads, length, d_k != nullptr ? n_tiles : 0, scale};
   ATTENTION_DISPATCH(head_dim, launch_bwd, args, batch,
+                     d_q != nullptr ? n_tiles : 0,
+                     static_cast<cudaStream_t>(stream))
+}
+
+// The bf16 instances: arguments as flash_attn_fwd and flash_attn_bwd, with
+// q, k, v, dO, O and the outputs bf16 (m and l float32).
+int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
+                        const unsigned char* valid, void* o, float* m_out,
+                        float* l_out, int batch, int n_heads, int length,
+                        int head_dim, float scale, const long long* strides,
+                        void* stream) {
+  if (bad_shape(batch, n_heads, length, head_dim)
+      || (m_out == nullptr) != (l_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ATTENTION_DISPATCH(head_dim, launch_fwd_bf16,
+                     static_cast<const bf16_t*>(q),
+                     static_cast<const bf16_t*>(k),
+                     static_cast<const bf16_t*>(v), valid,
+                     static_cast<bf16_t*>(o), m_out, l_out, batch, n_heads,
+                     length, scale, strides,
+                     static_cast<cudaStream_t>(stream))
+}
+
+int flash_attn_bwd_bf16(const void* q, const void* k, const void* v,
+                        const unsigned char* valid, const void* d_o,
+                        const void* o, const float* m, const float* l,
+                        void* d_q, void* d_k, void* d_v, int batch,
+                        int n_heads, int length, int head_dim, float scale,
+                        const long long* strides, void* stream) {
+  if (bad_shape(batch, n_heads, length, head_dim)
+      || (d_k == nullptr) != (d_v == nullptr)
+      || (d_q == nullptr && d_k == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = (length + kTile - 1) / kTile;
+  const BwdBf16Args args{
+      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+      static_cast<const bf16_t*>(v), valid,
+      static_cast<const bf16_t*>(d_o), static_cast<const bf16_t*>(o), m, l,
+      static_cast<bf16_t*>(d_q), static_cast<bf16_t*>(d_k),
+      static_cast<bf16_t*>(d_v), strides_at(strides, 0),
+      strides_at(strides, 1), strides_at(strides, 2), strides_at(strides, 3),
+      strides_at(strides, 4), strides_at(strides, 5), strides_at(strides, 6),
+      strides_at(strides, 7), n_heads, length,
+      d_k != nullptr ? n_tiles : 0, scale};
+  ATTENTION_DISPATCH(head_dim, launch_bwd_bf16, args, batch,
                      d_q != nullptr ? n_tiles : 0,
                      static_cast<cudaStream_t>(stream))
 }

@@ -5,7 +5,8 @@ between the (optional) embedding and the attention stack, with per-layer
 channel reductions. Without an embedding the input is one-hot and the
 positional encoding comes after the convolutions. torch's Conv1d works on
 (B, C, L), so the stack is transposed in and out of the JAX package's
-(B, L, C) layout.
+(B, L, C) layout. With a compute ``dtype`` the one-hot input and the
+convolutions are in it too, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from torch import nn
 from protein_transformer_tpu_torch.models.encoder_only import (
     AngleProjection, key_padding_mask)
 from protein_transformer_tpu_torch.models.transformer import (
-    Dropout, Embeddings, EncoderLayer, PositionalEncoding)
+    Conv, Dropout, Embeddings, EncoderLayer, PositionalEncoding)
 
 
 def conv_out_size(d_model: int, d_in: int, use_embedding: bool,
@@ -57,19 +58,20 @@ class ConvEncoderOnlyTransformer(nn.Module):
                  use_tanh_out: bool = True, use_embedding: bool = True,
                  conv_out_matches_dm: bool = True, dropout: float = 0.1,
                  pad_id: int = 20, prenorm: bool = True,
-                 attn_impl: str = "xla"):
+                 attn_impl: str = "xla", dtype=None):
         super().__init__()
         self.pad_id = pad_id
         self.vocab_size = vocab_size
         self.use_embedding = use_embedding
+        self.dtype = dtype
         d_attn = conv_out_size(d_model, vocab_size, use_embedding,
                                conv_dim_reductions, conv_out_matches_dm)
         if use_embedding:
-            self.embeddings = Embeddings(vocab_size, d_model)
-            self.pe = PositionalEncoding(d_model, max_len, dropout)
+            self.embeddings = Embeddings(vocab_size, d_model, dtype)
+            self.pe = PositionalEncoding(d_model, max_len, dropout, dtype)
             self.dropout = Dropout(dropout)
         else:
-            self.pe = PositionalEncoding(d_attn, max_len, dropout)
+            self.pe = PositionalEncoding(d_attn, max_len, dropout, dtype)
         convs = []
         for k, din, dout in conv_layer_dims(
                 d_model, vocab_size, use_embedding, conv_kernel_sizes,
@@ -77,10 +79,11 @@ class ConvEncoderOnlyTransformer(nn.Module):
             if k % 2 != 1:
                 raise ValueError(f"conv kernel size {k} must be odd to "
                                  "preserve length")
-            convs.append(nn.Conv1d(din, dout, k, padding=k // 2))
+            convs.append(Conv(din, dout, k, dtype))
         self.convs = nn.ModuleList(convs)
         self.layers = nn.ModuleList(
-            [EncoderLayer(d_attn, d_ff, n_heads, dropout, prenorm, attn_impl)
+            [EncoderLayer(d_attn, d_ff, n_heads, dropout, prenorm, attn_impl,
+                          dtype)
              for _ in range(n_layers)])
         self.head = AngleProjection(d_attn, angle_means, use_tanh_out)
 
@@ -91,7 +94,8 @@ class ConvEncoderOnlyTransformer(nn.Module):
             # Reference quirk: x + PE(x), where PE(x) already adds x.
             x = self.dropout(x + self.pe(x))
         else:
-            x = nn.functional.one_hot(ids.long(), self.vocab_size).float()
+            x = nn.functional.one_hot(ids.long(), self.vocab_size).to(
+                self.dtype or torch.float32)
         x = x.transpose(1, 2)
         for conv in self.convs:
             x = conv(x)

@@ -31,7 +31,9 @@ they are drawn on the host.
 The output projection starts with a tiny-gain Xavier weight and the raw
 angle means as bias, though a tanh follows (the reference's choice). The
 decoder's attention is causal or cross, so ``attn_impl`` reaches the
-encoder's key-padding self-attention only.
+encoder's key-padding self-attention only. Encoder and decoder compute in
+``dtype`` (models/transformer.py); the projection, its tanh and the fed-back
+predictions stay in float32, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -61,7 +63,8 @@ class Transformer(nn.Module):
                  d_model: int, d_ff: int, max_len: int, vocab_size: int,
                  angle_means, dropout: float = 0.1, pad_id: int = 20,
                  prenorm: bool = True, fraction_complete_tf: float = 1.0,
-                 fraction_subseq_tf: float = 1.0, attn_impl: str = "xla"):
+                 fraction_subseq_tf: float = 1.0, attn_impl: str = "xla",
+                 dtype=None):
         super().__init__()
         d_out = NUM_PREDICTED_ANGLES * 2
         self.pad_id = pad_id
@@ -70,9 +73,9 @@ class Transformer(nn.Module):
         self.sampling_generator: torch.Generator | None = None
         self.encoder = Encoder(vocab_size, d_model, d_ff, n_heads,
                                n_enc_layers, max_len, dropout, prenorm,
-                               attn_impl)
+                               attn_impl, dtype)
         self.decoder = Decoder(d_out, d_model, d_ff, n_heads, n_dec_layers,
-                               max_len, dropout, prenorm)
+                               max_len, dropout, prenorm, dtype)
         self.output_projection = nn.Linear(d_model, d_out)
         with torch.no_grad():
             nn.init.xavier_uniform_(self.output_projection.weight,
@@ -95,7 +98,8 @@ class Transformer(nn.Module):
 
     def _decode(self, dec_input, enc_out, causal, src_mask):
         out = self.decoder(dec_input, enc_out, causal, src_mask)
-        return torch.tanh(self.output_projection(out))
+        return torch.tanh(self.output_projection(
+            out.to(self.output_projection.weight.dtype)))
 
     def forward_tf(self, ids, tgt_angles):
         src_mask, causal = self._masks(ids)
@@ -143,7 +147,8 @@ class Transformer(nn.Module):
             enc_out = self.encoder(ids, src_mask)
             bsz, length = ids.shape
             work = torch.full((bsz, length, NUM_PREDICTED_ANGLES * 2),
-                              SOS_VALUE, dtype=enc_out.dtype,
+                              SOS_VALUE,
+                              dtype=self.output_projection.weight.dtype,
                               device=ids.device)
             for t in range(1, length):
                 out = self._decode(work, enc_out, causal, src_mask)

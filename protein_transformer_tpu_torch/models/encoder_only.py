@@ -3,7 +3,8 @@
 embed -> PE -> N encoder layers -> Linear(dm -> 24) -> tanh (optional). The
 output head starts at the dataset's mean angles: zero weight and
 arctanh(angle_means) bias, so the untrained model predicts the mean
-structure.
+structure. The trunk computes in ``dtype`` (models/transformer.py), the head
+in float32 whatever that is.
 """
 from __future__ import annotations
 
@@ -24,7 +25,9 @@ def angle_mean_bias(angle_means, use_tanh: bool) -> np.ndarray:
 
 
 class AngleProjection(nn.Module):
-    """Zero-weight output head with the angle-mean bias and optional tanh."""
+    """Zero-weight output head with the angle-mean bias and optional tanh.
+    It computes in its parameters' dtype whatever the trunk's: the angles
+    feed the geometric losses, which need full precision."""
 
     def __init__(self, dim: int, angle_means, use_tanh_out: bool = True):
         super().__init__()
@@ -36,7 +39,8 @@ class AngleProjection(nn.Module):
                 angle_mean_bias(angle_means, use_tanh_out)))
 
     def forward(self, x):
-        out = self.output_projection(x)
+        out = self.output_projection(
+            x.to(self.output_projection.weight.dtype))
         return torch.tanh(out) if self.use_tanh_out else out
 
 
@@ -53,11 +57,11 @@ class EncoderOnlyTransformer(nn.Module):
                  max_len: int, vocab_size: int, angle_means,
                  use_tanh_out: bool = True, dropout: float = 0.1,
                  pad_id: int = 20, prenorm: bool = True,
-                 attn_impl: str = "xla"):
+                 attn_impl: str = "xla", dtype=None):
         super().__init__()
         self.pad_id = pad_id
         self.encoder = Encoder(vocab_size, d_model, d_ff, n_heads, n_layers,
-                               max_len, dropout, prenorm, attn_impl)
+                               max_len, dropout, prenorm, attn_impl, dtype)
         self.head = AngleProjection(d_model, angle_means, use_tanh_out)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:

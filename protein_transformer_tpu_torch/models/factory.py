@@ -6,6 +6,7 @@ output tanh.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from protein_transformer_tpu_torch.models.conv_encoder import (
@@ -34,8 +35,14 @@ def resolve_attention_impl(impl: str) -> str:
     return impl
 
 
+# cfg.compute_dtype -> the modules' ``dtype``: None computes in the
+# parameters' dtype (float32), bfloat16 casts as the flax modules do
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
 def make_model(cfg, angle_means) -> nn.Module:
-    """Build the model cfg names (on the CPU; the caller moves it)."""
+    """Build the model cfg names (on the CPU; the caller moves it). The
+    parameters are float32 whatever ``cfg.compute_dtype``."""
     name = cfg.model
     common = dict(
         n_layers=cfg.n_layers, n_heads=cfg.n_heads, d_model=cfg.d_model,
@@ -43,7 +50,8 @@ def make_model(cfg, angle_means) -> nn.Module:
         angle_means=[float(a) for a in angle_means],
         use_tanh_out="linear-out" not in name, dropout=cfg.dropout,
         pad_id=cfg.pad_id, prenorm=not cfg.postnorm,
-        attn_impl=resolve_attention_impl(cfg.attention_impl))
+        attn_impl=resolve_attention_impl(cfg.attention_impl),
+        dtype=COMPUTE_DTYPES[cfg.compute_dtype])
     if name.startswith("enc-only"):
         return EncoderOnlyTransformer(**common)
     if "conv-enc" in name:

@@ -21,8 +21,35 @@ Port of protein_transformer_tpu/models/transformer.py:
 Layer norms use eps 1e-6, flax's default (torch's is 1e-5). Dropout sits
 where the JAX modules have it, is inactive in ``eval()`` mode, and draws its
 masks from an explicit ``torch.Generator`` that the trainer owns and seeds
-(``set_dropout_generator``), never from torch's global one. The port
-computes in fp32 throughout (the JAX package's bf16 option is not ported).
+(``set_dropout_generator``), never from torch's global one.
+
+**Compute dtype.** Every module takes ``dtype``: None computes in the
+parameters' own dtype (float32 as built; float64 for a reference run after
+``model.double()``), and ``torch.bfloat16`` is the JAX package's
+``--compute_dtype bfloat16``. The parameters stay float32 either way, and
+each module casts them inside its forward where the flax module does
+(explicit ``.to(dtype)``, not ``torch.autocast``, so that the float32
+islands are the same), so gradients land in float32 on float32 parameters:
+
+* ``Dense`` / ``Conv`` (flax ``nn.Dense`` / ``nn.Conv(dtype=...)``): input,
+  weight and bias in bf16, the product rounded to bf16 and the bias added
+  in bf16; ReLU and dropout then run in bf16;
+* ``Embeddings``: the table cast to bf16 and gathered, then scaled by
+  sqrt(dim) rounded to bf16 (22.625 at dim 512), as flax computes it;
+* ``PositionalEncoding``: the table in bf16, the add and dropout in bf16;
+* attention: bf16 q, k, v. The materialised branch takes the scores in
+  fp32 from the bf16 operands (flax's ``preferred_element_type=float32``: a
+  product of two bf16 values is exact in fp32, so the fp32 product of the
+  upcast operands is that function), the scale, mask, softmax and dropout
+  in fp32, then the probabilities cast to bf16 for P V; the flash branch
+  hands bf16 q, k, v to the bf16 kernels and gets bf16 O back;
+* ``LayerNorm`` (flax ``nn.LayerNorm(dtype=bf16)``): statistics, scale and
+  bias in fp32 on the input promoted to fp32, the result cast to bf16; the
+  residual add in bf16.
+
+The output heads (``encoder_only.AngleProjection``, the encoder-decoder's
+projection) compute in their parameters' dtype, float32, whatever the
+trunk's dtype.
 """
 from __future__ import annotations
 
@@ -30,6 +57,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from protein_transformer_tpu_torch.ops import attention
@@ -78,30 +106,95 @@ def sinusoidal_positions(max_len: int, dim: int) -> np.ndarray:
     return pe
 
 
-class PositionalEncoding(nn.Module):
-    """Returns dropout(x + pe)."""
+def cast(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t`` in the compute dtype; as it is where that is None."""
+    return t if dtype is None else t.to(dtype)
 
-    def __init__(self, dim: int, max_len: int, dropout: float = 0.1):
+
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` as flax's
+    ``nn.Dense(dtype=...)``: input, weight and bias cast, the product
+    rounded to that dtype and the bias added in it (two roundings, as flax
+    takes them). None: the plain ``nn.Linear``."""
+
+    def __init__(self, d_in: int, d_out: int, compute_dtype=None):
+        super().__init__(d_in, d_out)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+class Conv(nn.Conv1d):
+    """Length-preserving ``nn.Conv1d`` on (B, C, L), computing in
+    ``compute_dtype`` as flax's ``nn.Conv(dtype=...)``: the convolution
+    rounded to that dtype, then the bias added in it."""
+
+    def __init__(self, d_in: int, d_out: int, kernel: int,
+                 compute_dtype=None):
+        super().__init__(d_in, d_out, kernel, padding=kernel // 2)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return (self._conv_forward(x.to(dt), self.weight.to(dt), None)
+                + self.bias.to(dt)[:, None])
+
+
+class LayerNorm(nn.LayerNorm):
+    """Layer norm with flax's eps. With a ``compute_dtype`` (flax's
+    ``nn.LayerNorm(dtype=...)``): statistics, scale and bias in fp32 on the
+    input promoted to fp32, the result cast to ``compute_dtype``."""
+
+    def __init__(self, dim: int, compute_dtype=None):
+        super().__init__(dim, eps=LAYER_NORM_EPS)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.compute_dtype)
+
+
+class PositionalEncoding(nn.Module):
+    """Returns dropout(x + pe), pe in the compute dtype."""
+
+    def __init__(self, dim: int, max_len: int, dropout: float = 0.1,
+                 dtype=None):
         super().__init__()
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_positions(max_len, dim)),
             persistent=False)
         self.dropout = Dropout(dropout)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.dropout(x + self.pe[None, : x.shape[1]])
+        return self.dropout(x + cast(self.pe[None, : x.shape[1]],
+                                     self.dtype))
 
 
 class Embeddings(nn.Module):
-    """Token embedding scaled by sqrt(dim)."""
+    """Token embedding scaled by sqrt(dim). With a compute dtype the table
+    is cast before the gather and the scale is sqrt(dim) in that dtype, as
+    flax computes ``emb * sqrt(asarray(dim, emb.dtype))``."""
 
-    def __init__(self, vocab_size: int, dim: int):
+    def __init__(self, vocab_size: int, dim: int, dtype=None):
         super().__init__()
         self.embed = nn.Embedding(vocab_size, dim)
-        self.scale = math.sqrt(dim)
+        self.dtype = dtype
+        self.scale = (math.sqrt(dim) if dtype is None else
+                      float(torch.tensor(float(dim), dtype=dtype).sqrt()))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embed(ids) * self.scale
+        if self.dtype is None:
+            return self.embed(ids) * self.scale
+        return F.embedding(ids, self.embed.weight.to(self.dtype)) * self.scale
 
 
 class MultiHeadedAttention(nn.Module):
@@ -115,10 +208,13 @@ class MultiHeadedAttention(nn.Module):
     .flash_self_attention``, and takes the materialised branch anywhere
     else, so one setting serves a whole model. That is the meaning of the
     setting, as in the JAX package, not a fallback: on a CUDA tensor the
-    flash path launches its kernels or raises."""
+    flash path launches its kernels or raises. With a ``dtype`` the
+    projections compute in it, and so do the flash kernels; the
+    materialised branch takes its scores and softmax in fp32 (module
+    docstring)."""
 
     def __init__(self, dim: int, n_heads: int, dropout: float = 0.1,
-                 impl: str = "xla"):
+                 impl: str = "xla", dtype=None):
         super().__init__()
         if dim % n_heads:
             raise ValueError(f"d_model {dim} is not divisible by {n_heads} "
@@ -128,10 +224,11 @@ class MultiHeadedAttention(nn.Module):
                              f"of {ATTENTION_IMPLS}")
         self.impl = impl
         self.n_heads = n_heads
-        self.wq = nn.Linear(dim, dim)
-        self.wk = nn.Linear(dim, dim)
-        self.wv = nn.Linear(dim, dim)
-        self.wo = nn.Linear(dim, dim)
+        self.dtype = dtype
+        self.wq = Dense(dim, dim, dtype)
+        self.wk = Dense(dim, dim, dtype)
+        self.wv = Dense(dim, dim, dtype)
+        self.wo = Dense(dim, dim, dtype)
         self.dropout = Dropout(dropout)
 
     def forward(self, q_in, k_in, v_in, mask=None):
@@ -150,21 +247,25 @@ class MultiHeadedAttention(nn.Module):
             out = attention.flash_self_attention(
                 q, k, v, mask[:, 0, 0, :], sm_scale=1.0 / math.sqrt(dk))
             return self.wo(out.transpose(1, 2).reshape(bsz, lq, dim))
+        if self.dtype is not None:
+            # fp32 scores from the compute-dtype operands
+            q, k = q.float(), k.float()
         scores = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(dk)
         if mask is not None:
             scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
         probs = self.dropout(torch.softmax(scores, dim=-1))
-        out = torch.matmul(probs, v)
+        out = torch.matmul(cast(probs, self.dtype), v)
         return self.wo(out.transpose(1, 2).reshape(bsz, lq, dim))
 
 
 class PositionwiseFeedForward(nn.Module):
     """ReLU MLP with dropout on the hidden layer."""
 
-    def __init__(self, dim: int, hidden: int, dropout: float = 0.1):
+    def __init__(self, dim: int, hidden: int, dropout: float = 0.1,
+                 dtype=None):
         super().__init__()
-        self.w_1 = nn.Linear(dim, hidden)
-        self.w_2 = nn.Linear(hidden, dim)
+        self.w_1 = Dense(dim, hidden, dtype)
+        self.w_2 = Dense(hidden, dim, dtype)
         self.dropout = Dropout(dropout)
 
     def forward(self, x):
@@ -174,9 +275,10 @@ class PositionwiseFeedForward(nn.Module):
 class SublayerConnection(nn.Module):
     """prenorm: x + dropout(f(norm(x))); postnorm: norm(x + dropout(f(x)))."""
 
-    def __init__(self, dim: int, dropout: float = 0.1, prenorm: bool = True):
+    def __init__(self, dim: int, dropout: float = 0.1, prenorm: bool = True,
+                 dtype=None):
         super().__init__()
-        self.norm = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.norm = LayerNorm(dim, dtype)
         self.dropout = Dropout(dropout)
         self.prenorm = prenorm
 
@@ -190,12 +292,14 @@ class EncoderLayer(nn.Module):
     """Self-attention + feed-forward encoder layer."""
 
     def __init__(self, dim: int, dff: int, n_heads: int, dropout: float = 0.1,
-                 prenorm: bool = True, attn_impl: str = "xla"):
+                 prenorm: bool = True, attn_impl: str = "xla", dtype=None):
         super().__init__()
-        self.attn = MultiHeadedAttention(dim, n_heads, dropout, attn_impl)
-        self.ff = PositionwiseFeedForward(dim, dff, dropout)
+        self.attn = MultiHeadedAttention(dim, n_heads, dropout, attn_impl,
+                                         dtype)
+        self.ff = PositionwiseFeedForward(dim, dff, dropout, dtype)
         self.sublayer = nn.ModuleList(
-            [SublayerConnection(dim, dropout, prenorm) for _ in range(2)])
+            [SublayerConnection(dim, dropout, prenorm, dtype)
+             for _ in range(2)])
 
     def forward(self, x, mask):
         x = self.sublayer[0](x, lambda y: self.attn(y, y, y, mask))
@@ -207,13 +311,14 @@ class Encoder(nn.Module):
 
     def __init__(self, vocab_size: int, dim: int, dff: int, n_heads: int,
                  n_layers: int, max_len: int, dropout: float = 0.1,
-                 prenorm: bool = True, attn_impl: str = "xla"):
+                 prenorm: bool = True, attn_impl: str = "xla", dtype=None):
         super().__init__()
-        self.embeddings = Embeddings(vocab_size, dim)
-        self.pe = PositionalEncoding(dim, max_len, dropout)
+        self.embeddings = Embeddings(vocab_size, dim, dtype)
+        self.pe = PositionalEncoding(dim, max_len, dropout, dtype)
         self.dropout = Dropout(dropout)
         self.layers = nn.ModuleList(
-            [EncoderLayer(dim, dff, n_heads, dropout, prenorm, attn_impl)
+            [EncoderLayer(dim, dff, n_heads, dropout, prenorm, attn_impl,
+                          dtype)
              for _ in range(n_layers)])
 
     def forward(self, ids, mask):
@@ -230,13 +335,15 @@ class DecoderLayer(nn.Module):
     feed-forward."""
 
     def __init__(self, dim: int, dff: int, n_heads: int, dropout: float = 0.1,
-                 prenorm: bool = True):
+                 prenorm: bool = True, dtype=None):
         super().__init__()
-        self.attn = MultiHeadedAttention(dim, n_heads, dropout)
-        self.cross_attn = MultiHeadedAttention(dim, n_heads, dropout)
-        self.ff = PositionwiseFeedForward(dim, dff, dropout)
+        self.attn = MultiHeadedAttention(dim, n_heads, dropout, dtype=dtype)
+        self.cross_attn = MultiHeadedAttention(dim, n_heads, dropout,
+                                               dtype=dtype)
+        self.ff = PositionwiseFeedForward(dim, dff, dropout, dtype)
         self.sublayer = nn.ModuleList(
-            [SublayerConnection(dim, dropout, prenorm) for _ in range(3)])
+            [SublayerConnection(dim, dropout, prenorm, dtype)
+             for _ in range(3)])
 
     def forward(self, x, enc_out, tgt_mask, src_mask):
         x = self.sublayer[0](x, lambda y: self.attn(y, y, y, tgt_mask))
@@ -250,13 +357,13 @@ class Decoder(nn.Module):
 
     def __init__(self, d_out: int, dim: int, dff: int, n_heads: int,
                  n_layers: int, max_len: int, dropout: float = 0.1,
-                 prenorm: bool = True):
+                 prenorm: bool = True, dtype=None):
         super().__init__()
-        self.embed = nn.Linear(d_out, dim)
-        self.pe = PositionalEncoding(dim, max_len, dropout)
+        self.embed = Dense(d_out, dim, dtype)
+        self.pe = PositionalEncoding(dim, max_len, dropout, dtype)
         self.dropout = Dropout(dropout)
         self.layers = nn.ModuleList(
-            [DecoderLayer(dim, dff, n_heads, dropout, prenorm)
+            [DecoderLayer(dim, dff, n_heads, dropout, prenorm, dtype)
              for _ in range(n_layers)])
 
     def forward(self, tgt, enc_out, tgt_mask, src_mask):

@@ -36,7 +36,21 @@ the model's head split makes of (B, L, H * D) memory are read in place, and
 O and the gradients are written in that same memory layout: the merge of the
 heads after the attention is a view, not a copy. A wrapper copies only a
 tensor whose last dimension is not adjacent in memory or whose rows are not
-16-byte aligned. Head dimensions 16, 32, 64 and 128; float32.
+16-byte aligned. Head dimensions 16, 32, 64 and 128.
+
+**Two instances, by dtype.** q, k, v (and dO and O) are all float32 or all
+bfloat16; anything else (float16, mixed dtypes) raises TypeError. The
+bfloat16 instances compute what the TPU flash kernel computes on bf16
+inputs: S = Q K^T with fp32 accumulation, the scale and the online softmax
+in fp32, P = exp(s - m) rounded to bf16 before P V, O accumulated in fp32
+and written in bf16; m and l stay float32. Their backward takes dP = dO V^T
+from bf16 operands, dS = scale * P o (dP - delta) in fp32 with delta = sum_d
+dO o O in fp32, and dV = P^T dO, dK = dS^T Q and dQ = dS K from P and dS
+rounded to bf16, the gradients written in bf16. The plain versions below
+take the same casts (a product of two bf16 values is exact in fp32, so the
+fp32 product of the upcast operands is the bf16 product with fp32
+accumulation). Each instance counts its own launches: ``launches`` of a
+wrapper for float32, ``launches_bf16`` for bfloat16.
 
 A kernel wrapper takes CUDA tensors only and raises on anything else; a
 kernel that fails to build or to launch raises. ``flash_self_attention`` is
@@ -54,6 +68,9 @@ from protein_transformer_tpu_torch.ops import _build
 
 HEAD_DIMS = (16, 32, 64, 128)
 IMPLS = ("auto", "cuda", "torch")
+# the dtypes of q, k, v that have a kernel instance -> the C entry points'
+# suffix
+DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
 def resolve_impl(impl: str, device: torch.device) -> str:
@@ -71,12 +88,21 @@ def flash_self_attention_torch(q: torch.Tensor, k: torch.Tensor,
                                sm_scale: float) -> torch.Tensor:
     """Plain PyTorch version of K3a and, through autograd, of the backward:
     the materialised masked softmax in fp32, under the module's masking
-    contract. q, k, v (B, H, L, D); valid (B, L) bool; returns (B, H, L, D).
-    """
+    contract. q, k, v (B, H, L, D); valid (B, L) bool; returns (B, H, L, D)
+    in q's dtype. For bfloat16 the scores come in fp32 from the bf16
+    operands and the probabilities are cast to bf16 for P V (fp32 sums, one
+    rounding of O), as the model's materialised branch computes it."""
+    low = q.dtype == torch.bfloat16
+    if low:
+        q, k = q.float(), k.float()
     scores = torch.matmul(q, k.transpose(-2, -1)) * sm_scale
     scores = scores.masked_fill(~valid.bool()[:, None, None, :],
                                 torch.finfo(torch.float32).min)
-    return torch.matmul(torch.softmax(scores, dim=-1), v)
+    probs = torch.softmax(scores, dim=-1)
+    if low:
+        return torch.matmul(probs.to(torch.bfloat16).float(),
+                            v.float()).to(torch.bfloat16)
+    return torch.matmul(probs, v)
 
 
 @functools.cache
@@ -86,10 +112,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
-    lib.flash_attn_fwd.argtypes = [p] * 7 + [i] * 4 + [f, strides, p]
-    lib.flash_attn_bwd.argtypes = [p] * 11 + [i] * 4 + [f, strides, p]
-    for fn in (lib.flash_attn_fwd, lib.flash_attn_bwd):
-        fn.restype = ctypes.c_int
+    for suffix in DTYPES.values():
+        fwd = getattr(lib, "flash_attn_fwd" + suffix)
+        bwd = getattr(lib, "flash_attn_bwd" + suffix)
+        fwd.argtypes = [p] * 7 + [i] * 4 + [f, strides, p]
+        bwd.argtypes = [p] * 11 + [i] * 4 + [f, strides, p]
+        fwd.restype = bwd.restype = ctypes.c_int
     lib.attention_error_string.argtypes = [ctypes.c_int]
     lib.attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -98,8 +126,9 @@ def _lib() -> ctypes.CDLL:
 def _rows_in_place(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when the kernels can address it (adjacent elements along
     D, every row 16-byte aligned), else a contiguous copy."""
+    per_16_bytes = 16 // t.element_size()
     if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
-            and all(s % 4 == 0 for s in t.stride()[:-1]):
+            and all(s % per_16_bytes == 0 for s in t.stride()[:-1]):
         return t
     return t.contiguous()
 
@@ -114,10 +143,10 @@ def _head_layout(shape, like: torch.Tensor) -> torch.Tensor:
 
 def _check_cuda(fn: str, valid: torch.Tensor, stats: dict,
                 **tensors: torch.Tensor) -> tuple[int, int, int, int]:
-    """What every kernel wrapper takes: float32 (B, H, L, D) tensors of one
-    shape on one CUDA device, D in HEAD_DIMS, a contiguous bool (B, L) mask
-    and contiguous float32 (B, H, L) row statistics.
-    Returns (B, H, L, D)."""
+    """What every kernel wrapper takes: (B, H, L, D) tensors of one shape
+    and one dtype, float32 or bfloat16, on one CUDA device, D in HEAD_DIMS,
+    a contiguous bool (B, L) mask and contiguous float32 (B, H, L) row
+    statistics. Returns (B, H, L, D)."""
     first = next(iter(tensors.values()))
     device, shape = first.device, tuple(first.shape)
     if device.type != "cuda":
@@ -134,8 +163,13 @@ def _check_cuda(fn: str, valid: torch.Tensor, stats: dict,
         if t.device != device or tuple(t.shape) != shape:
             raise ValueError(f"{fn}: {name} is {tuple(t.shape)} on "
                              f"{t.device}, expected {shape} on {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{fn} takes float32 {name}; got {t.dtype}")
+        if t.dtype not in DTYPES:
+            raise TypeError(f"{fn} takes float32 or bfloat16 {name}; got "
+                            f"{t.dtype}")
+        if t.dtype != first.dtype:
+            raise TypeError(f"{fn} takes one dtype for all of "
+                            f"{', '.join(tensors)}; {name} is {t.dtype}, "
+                            f"not {first.dtype}")
     if valid.device != device or valid.dtype != torch.bool \
             or tuple(valid.shape) != (bsz, length) \
             or not valid.is_contiguous():
@@ -151,10 +185,12 @@ def _check_cuda(fn: str, valid: torch.Tensor, stats: dict,
 
 
 def _launch(fn: str, device, pointers, ints, scale, strided) -> None:
-    """Call ``fn`` of the library on the current stream of ``device`` with
-    the element strides (batch, head, row) of the ``strided`` tensors; raise
-    on a non-zero CUDA error code."""
+    """Call ``fn`` of the library (the instance of the ``strided`` tensors'
+    dtype) on the current stream of ``device`` with the element strides
+    (batch, head, row) of those tensors; raise on a non-zero CUDA error
+    code."""
     lib = _lib()
+    fn += DTYPES[strided[0].dtype]
     flat = [s for t in strided for s in t.stride()[:3]]
     strides = (ctypes.c_longlong * len(flat))(*flat)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -166,17 +202,27 @@ def _launch(fn: str, device, pointers, ints, scale, strided) -> None:
                            + lib.attention_error_string(err).decode())
 
 
+def _count(wrapper, dtype) -> None:
+    """One launch more of ``wrapper``'s instance for ``dtype``."""
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
+
 def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         valid: torch.Tensor, sm_scale: float,
                         with_stats: bool = False):
     """K3a: (O, m, l) from the CUDA kernel, one launch for the whole batch.
 
-    q, k, v: (B, H, L, D) float32 on one CUDA device, D in HEAD_DIMS; valid:
-    (B, L) bool, contiguous. O comes back (B, H, L, D) in (B, L, H, D)
-    memory. m and l, each query row's running maximum and sum, (B, H, L),
-    are written only ``with_stats``, else both are None. Raises for any
-    other input, and if the kernel fails to build or launch. Adds one to
-    ``flash_attn_fwd_cuda.launches`` per launch."""
+    q, k, v: (B, H, L, D), all float32 or all bfloat16, on one CUDA device,
+    D in HEAD_DIMS; valid: (B, L) bool, contiguous. O comes back (B, H, L,
+    D) in q's dtype and (B, L, H, D) memory. m and l, each query row's
+    running maximum and sum, (B, H, L) float32, are written only
+    ``with_stats``, else both are None. Raises for any other input, and if
+    the kernel fails to build or launch. Adds one per launch to
+    ``flash_attn_fwd_cuda.launches`` (the float32 instance) or
+    ``.launches_bf16``."""
     shape = _check_cuda("flash_attn_fwd_cuda", valid, {}, q=q, k=k, v=v)
     q, k, v = _rows_in_place(q), _rows_in_place(k), _rows_in_place(v)
     out = _head_layout(shape, q)
@@ -191,18 +237,25 @@ def flash_attn_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              out.data_ptr(), m.data_ptr() if with_stats else None,
              l.data_ptr() if with_stats else None),
             shape, sm_scale, (q, k, v, out))
-    flash_attn_fwd_cuda.launches += 1
+    _count(flash_attn_fwd_cuda, q.dtype)
     return out, m, l
 
 
-flash_attn_fwd_cuda.launches = 0
+flash_attn_fwd_cuda.launches = flash_attn_fwd_cuda.launches_bf16 = 0
 
 
 def flash_attn_bwd_torch(q, k, v, valid, d_out, out, m, l,
                          sm_scale: float):
     """Plain version of the backward kernel, (dQ, dK, dV): the
     probabilities recomputed from the forward's row statistics as
-    exp(s - m) / l, delta = sum_d dO o O, dS zero on masked keys."""
+    exp(s - m) / l, delta = sum_d dO o O, dS zero on masked keys. For
+    bfloat16 inputs every product takes its operands in bf16 and sums in
+    fp32, P and dS (scaled, as the TPU kernel scales it) are rounded to bf16
+    before the products that take them, and the gradients come back in
+    bf16."""
+    low = q.dtype == torch.bfloat16
+    if low:
+        q, k, v, d_out, out = (t.float() for t in (q, k, v, d_out, out))
     scores = torch.matmul(q, k.transpose(-2, -1)) * sm_scale
     key = valid.bool()[:, None, None, :]
     scores = scores.masked_fill(~key, torch.finfo(torch.float32).min)
@@ -210,9 +263,19 @@ def flash_attn_bwd_torch(q, k, v, valid, d_out, out, m, l,
     dp = torch.matmul(d_out, v.transpose(-2, -1))
     delta = (d_out * out).sum(-1)
     ds = torch.where(key, p * (dp - delta[..., None]), 0.0)
-    return (torch.matmul(ds, k) * sm_scale,
-            torch.matmul(ds.transpose(-2, -1), q) * sm_scale,
-            torch.matmul(p.transpose(-2, -1), d_out))
+    if not low:
+        return (torch.matmul(ds, k) * sm_scale,
+                torch.matmul(ds.transpose(-2, -1), q) * sm_scale,
+                torch.matmul(p.transpose(-2, -1), d_out))
+
+    def bf16(t):
+        return t.to(torch.bfloat16)
+
+    ds = bf16(ds * sm_scale).float()
+    p = bf16(p).float()
+    return (bf16(torch.matmul(ds, k)),
+            bf16(torch.matmul(ds.transpose(-2, -1), q)),
+            bf16(torch.matmul(p.transpose(-2, -1), d_out)))
 
 
 def flash_attn_bwd_cuda(q, k, v, valid, d_out, out, m, l, sm_scale: float, *,
@@ -221,11 +284,12 @@ def flash_attn_bwd_cuda(q, k, v, valid, d_out, out, m, l, sm_scale: float, *,
     (B, H, L, D) in (B, L, H, D) memory, from one launch.
 
     q, k, v, valid as ``flash_attn_fwd_cuda`` takes them; d_out the
-    cotangent of O and out the forward's O, (B, H, L, D); m, l the
-    forward's row statistics, (B, H, L) float32, contiguous. ``want_dq`` and
-    ``want_dkv`` pick the gradients (at least one). Raises for any other
-    input, and if the kernel fails to build or launch. Adds one to
-    ``flash_attn_bwd_cuda.launches`` per launch."""
+    cotangent of O and out the forward's O, (B, H, L, D) in q's dtype; m, l
+    the forward's row statistics, (B, H, L) float32, contiguous. The
+    gradients come back in q's dtype. ``want_dq`` and ``want_dkv`` pick the
+    gradients (at least one). Raises for any other input, and if the kernel
+    fails to build or launch. Adds one per launch to
+    ``flash_attn_bwd_cuda.launches`` (float32) or ``.launches_bf16``."""
     if not (want_dq or want_dkv):
         raise ValueError("flash_attn_bwd_cuda: want_dq or want_dkv must be "
                          "set")
@@ -244,11 +308,11 @@ def flash_attn_bwd_cuda(q, k, v, valid, d_out, out, m, l, sm_scale: float, *,
              *(None if g is None else g.data_ptr() for g in grads)),
             shape, sm_scale,
             (q, k, v, d_out, out, *(q if g is None else g for g in grads)))
-    flash_attn_bwd_cuda.launches += 1
+    _count(flash_attn_bwd_cuda, q.dtype)
     return d_q, d_k, d_v
 
 
-flash_attn_bwd_cuda.launches = 0
+flash_attn_bwd_cuda.launches = flash_attn_bwd_cuda.launches_bf16 = 0
 
 
 class FlashSelfAttention(torch.autograd.Function):
@@ -258,7 +322,8 @@ class FlashSelfAttention(torch.autograd.Function):
     Forward: K3a with the row statistics; saves q, k, v, the mask, O, m and
     l (never the probabilities). Backward: one launch of the backward
     kernel, asking for dQ when q needs a gradient and for dK and dV when k
-    or v does."""
+    or v does. The instance follows q's dtype; autograd hands the cotangent
+    in O's dtype, the same."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid, sm_scale):
@@ -285,10 +350,11 @@ def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Masked-softmax self-attention without the probabilities in device
     memory, differentiable in q, k and v.
 
-    q, k, v: (B, H, L, D) float32. valid: (B, L) bool, True at real
-    positions. Returns (B, H, L, D). impl "cuda" runs the kernels (float32
-    CUDA tensors with D in HEAD_DIMS only: anything else raises), "torch"
-    the plain version, "auto" picks by q's device.
+    q, k, v: (B, H, L, D), all float32 or all bfloat16. valid: (B, L) bool,
+    True at real positions. Returns (B, H, L, D) in q's dtype. impl "cuda"
+    runs the kernels (CUDA tensors of those dtypes with D in HEAD_DIMS only:
+    anything else raises; a bfloat16 tensor never goes to the float32
+    instance), "torch" the plain version, "auto" picks by q's device.
 
     The kernel path goes through ``FlashSelfAttention`` only when autograd
     will want a gradient: inside a Function's forward grad mode is always

@@ -28,6 +28,10 @@ session on one card:
     python -m protein_transformer_tpu_torch.tools.bench_attention
     PYTHONPATH=<other checkout> python <this file>
 
+``--dtype bfloat16`` times the bf16 instances instead: the same inputs
+rounded to bf16, the library call on them, and the training step under
+``compute_dtype="bfloat16"`` (a checkout without bf16 kernels raises).
+
 Prints one line per measurement with the card's name and power limit, then
 the results as one JSON object. Needs a CUDA device and raises without one.
 """
@@ -57,15 +61,17 @@ CASES = (((8, 8, 256, 64), "ragged"), ((16, 8, 256, 64), "ragged"),
 MODEL = "conv-enc|21,11,3|1,1,1"
 
 
-def attention_inputs(device, shape, seed, mask="ragged"):
-    """q, k, v (head-split views; standard deviations 3, 1, 1), dO and the
-    mask: ragged valid lengths, or with ``mask="train"`` every row full;
-    the first batch row full and the last with no valid key."""
+def attention_inputs(device, shape, seed, mask="ragged",
+                     dtype=torch.float32):
+    """q, k, v (head-split views in ``dtype``; standard deviations 3, 1,
+    1), dO and the mask: ragged valid lengths, or with ``mask="train"``
+    every row full; the first batch row full and the last with no valid
+    key."""
     bsz, heads, length, dim = shape
     rng = np.random.default_rng(seed)
     q, k, v, d_out = (
         torch.from_numpy(rng.normal(0, gain, (bsz, length, heads * dim))
-                         .astype(np.float32)).to(device)
+                         .astype(np.float32)).to(device, dtype)
         .reshape(bsz, length, heads, dim).transpose(1, 2)
         for gain in (3.0, 1.0, 1.0, 1.0))
     n_valid = (rng.integers(1, length + 1, bsz) if mask == "ragged"
@@ -82,13 +88,15 @@ def kernel_name(key: str) -> str:
     return re.split(r"[<(]", key.split("::", 1)[-1])[0].strip()
 
 
-def attention_times(device, shape, mask, seed=0) -> dict:
+def attention_times(device, shape, mask, seed=0,
+                    dtype=torch.float32) -> dict:
     """Device ms of K3a (without and with m and l), of the library's
     forward, of the backward through ``FlashSelfAttention`` and of the
     library's backward at one (B, H, L, D) and mask, the device operations
     of one backward and, with the one backward kernel, the device ms of each
     of its roles alone."""
-    q, k, v, d_out, valid = attention_inputs(device, shape, seed, mask)
+    q, k, v, d_out, valid = attention_inputs(device, shape, seed, mask,
+                                             dtype)
     scale = 1.0 / math.sqrt(shape[-1])
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = A.flash_self_attention(*leaves, valid, sm_scale=scale, impl="cuda")
@@ -129,9 +137,10 @@ def attention_times(device, shape, mask, seed=0) -> dict:
     return times
 
 
-def train_step_profile(device, steps: int = 3) -> dict:
+def train_step_profile(device, steps: int = 3,
+                       compute_dtype: str = "float32") -> dict:
     """Device operations and device ms per flagship training step at
-    dropout 0 with flash attention."""
+    dropout 0 with flash attention, computing in ``compute_dtype``."""
     data = make_dataset(n_train=16, n_eval=2, min_len=255, max_len=256,
                         seed=0, device=device)
     with tempfile.TemporaryDirectory() as out_dir:
@@ -141,7 +150,9 @@ def train_step_profile(device, steps: int = 3) -> dict:
             bucket_sizes=(256,), batch_size=8, max_seq_len=256, dropout=0.0,
             attention_impl="flash", drmsd_impl="cuda", sidechain_impl="cuda",
             log_structure_step=0, log_val_struct_step=0, out_dir=out_dir,
-            name="bench-attention")
+            name="bench-attention",
+            **({} if compute_dtype == "float32"
+               else {"compute_dtype": compute_dtype}))
         trainer = Trainer(cfg, device=device, data=data)
         gen = torch.Generator().manual_seed(0)
         params = trainer.init_params(gen)
@@ -164,16 +175,21 @@ def train_step_profile(device, steps: int = 3) -> dict:
 
 
 def main(argv=None) -> dict:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(
-        argv)
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--dtype", choices=["float32", "bfloat16"],
+                        default="float32",
+                        help="the kernel instance and the step's compute "
+                             "dtype to time")
+    args = parser.parse_args(argv)
+    dtype = getattr(torch, args.dtype)
     device = cuda_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_label()
-    print(f"# port at {A.__file__}")
-    results = {"card": card, "attention": {}}
+    print(f"# port at {A.__file__}, {args.dtype}")
+    results = {"card": card, "dtype": args.dtype, "attention": {}}
     for shape, mask in CASES:
-        t = attention_times(device, shape, mask)
+        t = attention_times(device, shape, mask, dtype=dtype)
         results["attention"]["x".join(map(str, shape)) + " " + mask] = t
         roles = (f"; dQ role alone {t['dq_role_device_ms']:.4f} ms, dK/dV "
                  f"role alone {t['dkv_role_device_ms']:.4f} ms"
@@ -187,7 +203,7 @@ def main(argv=None) -> dict:
               f"{', '.join(t['backward_kernels'])}){roles}, library backward "
               f"{t['library_backward_device_ms']:.4f} ms, on the device "
               f"({card})")
-    t = train_step_profile(device)
+    t = train_step_profile(device, compute_dtype=args.dtype)
     results["flash_train_step"] = t
     print(f"flash train step, B x L = {t['batch']}: "
           f"{t['device_ops']:.1f} device operations, "

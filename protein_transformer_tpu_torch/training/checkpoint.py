@@ -166,17 +166,14 @@ def import_run(exported_dir: str, run_dir: str,
     choices reset to "auto": their JAX values name TPU implementations) and
     ``checkpoints/<modifier>`` with its sidecar; returns ``run_dir``.
 
-    Settings of the JAX run that the port has no field for are dropped when
-    they only say how that run was executed (logging, profiling, the mesh,
-    the data store). The one that decides what the restored model computes
-    is refused as the training CLI refuses it: a compute dtype other than
-    float32 raises NotImplementedError."""
+    Settings of the JAX run that the port has no field for are dropped: they
+    only say how that run was executed (logging, profiling, the mesh, the
+    data store). The compute dtype is kept: a bfloat16 run's parameters are
+    float32 as a float32 run's, and the imported model computes in bf16."""
     from protein_transformer_tpu_torch.config import TrainConfig
     from protein_transformer_tpu_torch.models.factory import make_model
-    from protein_transformer_tpu_torch.training.cli import check_ported
     with open(os.path.join(exported_dir, "config.json")) as f:
         saved = json.load(f)
-    check_ported(saved["config"], only=("compute_dtype",))
     cfg = TrainConfig.from_dict(saved["config"])
     cfg.drmsd_impl = cfg.sidechain_impl = "auto"
     cfg = cfg.finalize()

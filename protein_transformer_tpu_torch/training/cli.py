@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Mapping, Optional, Sequence
+from typing import Mapping
 
 from protein_transformer_tpu_torch.config import TrainConfig
 
@@ -123,7 +123,9 @@ def create_parser() -> argparse.ArgumentParser:
                      default="auto",
                      help="sidechain build: as --drmsd_impl")
     gpu.add_argument("--compute_dtype", choices=["float32", "bfloat16"],
-                     default="float32")
+                     default="float32",
+                     help="the dtype the model computes in; parameters, "
+                          "output head and losses stay float32")
     gpu.add_argument("--mesh_shape", type=int, nargs="+", default=[-1])
     gpu.add_argument("--mesh_axes", type=str, nargs="+", default=["data"])
     gpu.add_argument("--attention_impl", choices=["auto", "xla", "flash"],
@@ -148,26 +150,21 @@ def create_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(settings: Mapping, only: Optional[Sequence[str]] = None
-                 ) -> None:
+def check_ported(settings: Mapping) -> None:
     """Raise NotImplementedError for a setting that asks for a part of the
     system that the port does not have yet. ``settings`` maps setting names
     to values: the parsed flags, or the saved config of a run (a setting
-    that is absent counts as not asked for). ``only`` limits the check to
-    the named rows of the table."""
+    that is absent counts as not asked for)."""
     get = settings.get
-    asked = {
-        "use_wandb": (get("use_wandb"), "--use_wandb True",
-                      "wandb logging (training/wandb_logging.py)"),
-        "compute_dtype": (get("compute_dtype", "float32") != "float32",
-                          "--compute_dtype bfloat16", "bfloat16 compute"),
-        "mesh": (list(get("mesh_shape", [-1])) != [-1]
-                 or list(get("mesh_axes", ["data"])) != ["data"],
-                 "--mesh_shape / --mesh_axes",
-                 "device meshes and multi-GPU runs (parallel/)"),
-    }
-    for name in (asked if only is None else only):
-        wanted, flag, part = asked[name]
+    asked = (
+        (get("use_wandb"), "--use_wandb True",
+         "wandb logging (training/wandb_logging.py)"),
+        (list(get("mesh_shape", [-1])) != [-1]
+         or list(get("mesh_axes", ["data"])) != ["data"],
+         "--mesh_shape / --mesh_axes",
+         "device meshes and multi-GPU runs (parallel/)"),
+    )
+    for wanted, flag, part in asked:
         if wanted:
             raise NotImplementedError(
                 f"{flag}: {part} is not in the PyTorch port yet")

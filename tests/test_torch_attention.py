@@ -466,6 +466,17 @@ def test_resolve_attention_impl_and_factory():
         {**cfg.to_dict(), "prng_impl": "auto"}).attention_impl == "flash"
 
 
+@pytest.mark.parametrize("impl", ["Flash", "pallas"])
+def test_factory_refuses_an_unknown_attention_setting(impl):
+    """A setting that is neither xla nor flash (nor auto) is refused when the
+    model is built, never run as the materialised branch without a word."""
+    cfg = TrainConfig(model="conv-enc|5,3|2,2", d_model=16, d_ff=32,
+                      n_heads=2, n_layers=1, max_seq_len=24,
+                      attention_impl=impl).finalize()
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        make_model(cfg, np.zeros(24, np.float32))
+
+
 def model_pair(name, attn_impl):
     from protein_transformer_tpu.models import conv_encoder as jconv
     from protein_transformer_tpu.models import encoder_only as jenc

@@ -307,7 +307,6 @@ def test_config_from_args_matches_jax_on_shared_fields():
 
 NOT_PORTED = {
     "wandb": (["--use_wandb", "True"], "wandb logging"),
-    "bfloat16": (["--compute_dtype", "bfloat16"], "bfloat16 compute"),
     "mesh": (["--mesh_shape", "2", "2", "--mesh_axes", "data", "model"],
              "device meshes"),
 }
@@ -334,6 +333,8 @@ NOW_PORTED = {
     "device-data": (["--device_data", "true", "--device_data_max_mb", "64"],
                     dict(device_data="true", device_data_max_mb=64)),
     "profile": (["--profile_dir", "p"], dict(profile_dir="p")),
+    "bfloat16": (["--compute_dtype", "bfloat16"],
+                 dict(compute_dtype="bfloat16")),
 }
 
 

@@ -15,6 +15,7 @@
 The port side runs on the CPU (``--device cpu``) and never imports JAX:
 only this test file does.
 """
+import dataclasses
 import importlib.util
 import json
 import os
@@ -27,6 +28,7 @@ import torch
 from protein_transformer_tpu.protein import pdb as jpdb
 from protein_transformer_tpu_torch import predict as tpredict
 from protein_transformer_tpu_torch.data import synthetic as tsyn
+from protein_transformer_tpu_torch.models.factory import make_model
 from protein_transformer_tpu_torch.ops import attention as A
 from protein_transformer_tpu_torch.protein import pdb as tpdb
 from protein_transformer_tpu_torch.protein.vocab import STD_AAS
@@ -209,8 +211,62 @@ def test_imported_checkpoint_holds_the_exported_parameters(runs):
         tpredict.load_run(run_dir, "latest", device="cpu")
 
 
+def with_setting(run_dir, dest, key, value):
+    """A copy of ``run_dir`` whose config.json sets ``key`` to ``value``."""
+    shutil.copytree(run_dir, dest)
+    cfg_path = os.path.join(dest, "config.json")
+    with open(cfg_path) as f:
+        saved = json.load(f)
+    assert key in saved["config"]
+    saved["config"][key] = value
+    with open(cfg_path, "w") as f:
+        json.dump(saved, f)
+    return str(dest)
+
+
+def test_import_takes_a_bfloat16_run(runs, tmp_path):
+    """A run trained with --compute_dtype bfloat16 holds float32 parameters,
+    as a float32 run does, so its export imports them unchanged; the
+    imported model computes in bf16 and gives the JAX bf16 model's outputs
+    from the same parameters (the JAX model op by op, as its flax modules
+    cast), held by tests/test_torch_bf16.py's gate against bf16's own
+    error."""
+    from protein_transformer_tpu import predict as jpredict
+    from test_torch_bf16 import hold_to_jax_bf16
+    exported = with_setting(runs["exported"], tmp_path / "exported",
+                            "compute_dtype", "bfloat16")
+    run_dir = tckpt.import_run(exported, str(tmp_path / "run"))
+    cfg, model = tpredict.load_run(run_dir, device="cpu")
+    assert cfg.compute_dtype == "bfloat16"
+    with np.load(os.path.join(exported, "best.npz")) as z:
+        wq = z["params/params/Encoder_0/EncoderLayer_0/"
+               "MultiHeadedAttention_0/wq/kernel"]
+    state = model.state_dict()
+    assert {v.dtype for v in state.values()} == {torch.float32}
+    assert np.array_equal(state["encoder.layers.0.attn.wq.weight"].numpy(),
+                          wq.T)
+    seen = []
+    model.encoder.layers[0].ff.w_1.register_forward_hook(
+        lambda _m, _in, out: seen.append(out.dtype))
+    ids = np.random.default_rng(0).integers(0, 20, (2, 24)).astype(np.int32)
+    ids[1, 15:] = 20
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids))
+    assert seen == [torch.bfloat16] and got.dtype == torch.float32
+    jax_run = with_setting(str(runs["root"] / "jrun"), tmp_path / "jrun",
+                           "compute_dtype", "bfloat16")
+    jcfg, jmodel, params = jpredict.load_run(jax_run)
+    assert jcfg.compute_dtype == "bfloat16"
+    want = np.asarray(jmodel.apply({"params": params["params"]}, ids))
+    fp32_model = make_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                            np.zeros(24, np.float32))
+    fp32_model.load_state_dict(state)
+    with torch.no_grad():
+        fp32 = fp32_model.eval()(torch.from_numpy(ids)).numpy()
+    hold_to_jax_bf16(got.numpy(), want, fp32, ids != 20)
+
+
 @pytest.mark.parametrize("key,value,match", [
-    ("compute_dtype", "bfloat16", (NotImplementedError, "bfloat16 compute")),
     ("model", "enc-dec", (KeyError, "which the model does not have")),
     ("mesh_shape", [4], None), ("use_wandb", True, None)])
 def test_import_refuses_what_changes_the_models_results(runs, tmp_path, key,
