@@ -10,7 +10,9 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    one nvcc each: csrc/drmsd_fwd.cu (K1a), csrc/drmsd_train.cu (K1b, K1c),
    csrc/drmsd_variants.cu (K4a, K4b, K4c), csrc/sidechain.cu (K2a, K2b)
    and csrc/attention.cu (K3a and the flash backward, float32 and bf16
-   instances);
+   instances); prints each bf16 kernel's registers and spill bytes for
+   every head dimension from the build's ptxas -v, and fails on a spill at
+   D = 64;
 3. kernels against their plain PyTorch versions on the card.
    dRMSD (K1a, K1b, K1c), ~70% of atoms valid and one protein all masked,
    at B=8 x N = 600, 768, 3584, 7000 and at the training step's B=16 x
@@ -180,16 +182,20 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    without any is named as the profiler's known empty-trace fault); one
    epoch under PTT_LOOP_PROFILE=1, whose report must name every phase;
 16. bf16 (--compute_dtype bfloat16). Right after phase 8, K3a-bf16 and the
-   bf16 backward (csrc/attention.cu's bf16 instances) against their plain
-   versions on phase 8's cases and at D = 32 and 128, the outputs handed
-   out NaN-filled by the allocator: O, dQ, dK and dV of the kernel and of
-   the plain version each within 1e-2 of the largest entry of an fp32 run
-   on the same bf16 values, and within that of each other; everything
-   finite, the same bits twice; times beside plain and the library's bf16
-   call, device-only times, the bound at two bytes an element and 989
-   TFLOP/s. At the end, the flagship in bf16: train epochs of 5 steps
-   (dropout 0.1, the store) interleaved with fp32 ones, ms per step, device
-   operations and device ms; float32 parameters that move; flash training
+   bf16 backward (csrc/attention.cu's bf16 instances: wgmma products, TMA
+   staging) against their plain versions on phase 8's cases and at D = 32
+   and 128, then at every D in {16, 32, 64, 128} and L in {1, 70, 130, 256,
+   500} with a masked first key tile, the outputs handed out NaN-filled by
+   the allocator: O, dQ, dK and dV of the kernel and of the plain version
+   each within 1e-2 of the largest entry of an fp32 run on the same bf16
+   values, and within that of each other (at one key, where dQ and dK are
+   zero and every version returns a rounding residue, of the cancelled
+   term's); everything finite, the same bits twice; at the first seven
+   cases times beside plain and the library's bf16 call, device-only times,
+   the bound at two bytes an element and 989 TFLOP/s. At the end, the
+   flagship in bf16: train epochs of 5 steps (dropout 0.1, the store)
+   interleaved with fp32 ones, ms per step, device operations and device
+   ms; float32 parameters that move; flash training
    at dropout 0 with K3a-bf16 and the bf16 backward launched 6 times each a
    step; one MSE step of bf16 flash, bf16 materialised and fp32 from the
    same weights, the two bf16 arms held within twice the materialised
@@ -210,6 +216,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import sys
 import tempfile
@@ -436,6 +443,22 @@ def phase_device():
     return dev, card
 
 
+def kernel_resources(log: str, kernels) -> dict:
+    """{(kernel, D): (registers, spill store bytes, spill load bytes)} of
+    each instance of ``kernels`` (templated on D) in a ptxas -v log."""
+    out = {}
+    for entry in log.split("Compiling entry function")[1:]:
+        name = re.search("(" + "|".join(kernels) + r")ILi(\d+)E", entry)
+        if name is None:
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        out[name[1], int(name[2])] = (int(regs[1]), int(spills[1]),
+                                      int(spills[2]))
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
@@ -445,6 +468,17 @@ def phase_build():
     print(f"[build] {', '.join(LIBRARIES)} built and loaded in "
           f"{time.perf_counter() - t0:.2f} s ("
           + ", ".join(os.path.relpath(lib, ROOT) for lib in libs) + ")")
+    resources = kernel_resources(_build.ptxas_log("attention"), BF16_KERNELS)
+    require(sorted(resources) == sorted(
+        (kernel, dim) for kernel in BF16_KERNELS for dim in A.HEAD_DIMS),
+        f"ptxas reports every bf16 kernel at every D ({sorted(resources)})")
+    for (kernel, dim), (regs, stores, loads) in sorted(resources.items()):
+        print(f"[build] {kernel}<{dim}>: {regs} registers, {stores} bytes "
+              f"spill stores, {loads} bytes spill loads (ptxas -v)")
+    require(all(stores == loads == 0 for (_, dim), (_, stores, loads)
+                in resources.items() if dim == 64),
+            "no bf16 kernel spills at D = 64")
+    return resources
 
 
 def drmsd_from(s, c):
@@ -2445,9 +2479,19 @@ def phase_tools(dev, card, out_dir):
           f"({card}):\n{report.rstrip()}")
 
 
+# the bf16 instances' kernels, as ptxas names their templates
+BF16_KERNELS = ("flash_attn_fwd_bf16_kernel", "flash_attn_bwd_bf16_kernel")
 # (B, H, L, D) of the bf16 instances: phase 8's cases and the two head
-# dimensions that those leave out
-BF16_ATTENTION_CASES = ATTENTION_CASES + ((2, 3, 130, 32), (2, 2, 70, 128))
+# dimensions that those leave out, timed; then, checked only, every head
+# dimension at lengths that end inside a tile of 64 and of 32 keys (1, 70,
+# 130, 500) or on one (256), with row 1's first 64 keys masked (half its
+# keys at L <= 64) and a valid key after them.
+# tests/test_torch_bf16.py::test_bf16_kernels_match_plain_on_card holds the
+# same cases.
+BF16_TIMED_CASES = ATTENTION_CASES + ((2, 3, 130, 32), (2, 2, 70, 128))
+BF16_ATTENTION_CASES = BF16_TIMED_CASES + tuple(
+    (4, 2, length, dim) for dim in (16, 32, 64, 128)
+    for length in (1, 70, 130, 256, 500))
 # A bf16 result against a reference on the same bf16-valued inputs, over the
 # reference's largest entry: bf16 keeps 8 bits of mantissa (2^-9 = 2e-3
 # relative a rounding), and O and each gradient take a few roundings (the
@@ -2456,18 +2500,20 @@ BF16_TOL = 1e-2
 BF16 = torch.bfloat16
 
 
-def bf16_err(got, want) -> float:
-    """max |got - want| over the largest |want|."""
+def bf16_err(got, want, like=None) -> float:
+    """max |got - want| over the largest |want| (or of ``like``)."""
     want = want.float()
+    like = want if like is None else like
     return (float((got.float() - want).abs().max())
-            / max(float(want.abs().max()), 1e-30))
+            / max(float(like.abs().max()), 1e-30))
 
 
 def attention_bf16_case(dev, card, rng, shape):
     """K3a-bf16 and the bf16 backward against their plain versions and an
     fp32 run on the same bf16 values, at one (B, H, L, D); returns
     {kernel: (error, kernel ms, plain ms, bound ms, what bounds it, library
-    ms, device ms or None, library device ms or None)}."""
+    ms, device ms or None, library device ms or None)}, or {kernel:
+    (error,)} for a case outside BF16_TIMED_CASES."""
     bsz, heads, length, dim = shape
     where = f"bf16 B={bsz} H={heads} L={length} D={dim}"
     q, k, v = head_split(rng, dev, shape, gains=(3.0, 1.0, 1.0), dtype=BF16)
@@ -2476,8 +2522,14 @@ def attention_bf16_case(dev, card, rng, shape):
     n_valid[0] = length
     if bsz > 1:
         n_valid[-1] = 0  # a batch row with no valid key, as collate pads
-    valid = torch.from_numpy(
-        np.arange(length)[None, :] < n_valid[:, None]).to(dev)
+    keys = np.arange(length)
+    valid = keys[None, :] < n_valid[:, None]
+    timed = shape in BF16_TIMED_CASES
+    if not timed:
+        # a key tile without a valid key before the first valid one
+        hole = 64 if length > 64 else length // 2
+        valid[1] = (keys >= hole) & (keys <= rng.integers(hole, length))
+    valid = torch.from_numpy(valid).to(dev)
     scale = 1.0 / math.sqrt(dim)
 
     poison_allocator(dev, BF16)
@@ -2508,9 +2560,20 @@ def attention_bf16_case(dev, card, rng, shape):
                     for b, p in zip(b_grads, b_plain))}
     errs = {"O": (bf16_err(got, ref), bf16_err(want, ref),
                   bf16_err(got, want))}
+    # at one key P = 1, so dS = P (dP - delta) and with it dQ and dK are
+    # zero, and every version returns the rounding residue of dP - delta
+    # (the plain ones too): there the largest entry has no scale, and in
+    # the untimed cases at L = 1 the residue is held to that of the
+    # cancelled term, scale dP K (dQ) or scale dP Q (dK); the timed (1, 1,
+    # 1, 16) keeps the largest entry, which its residues meet
+    d_p = (d_out.float() * v.float()).sum(-1, keepdim=True)
+    likes = ({"q": scale * d_p * k.float(), "k": scale * d_p * q.float()}
+             if length == 1 and not timed else {})
     for name, g, b, p, r in zip("qkv", k_grads, b_grads, b_plain, r_grads):
-        errs["d" + name.upper()] = (max(bf16_err(g, r), bf16_err(b, r)),
-                                    bf16_err(p, r), bf16_err(b, p))
+        like = likes.get(name)
+        errs["d" + name.upper()] = (
+            max(bf16_err(g, r, like), bf16_err(b, r, like)),
+            bf16_err(p, r, like), bf16_err(b, p, like))
     for what, (kernel, plain, apart) in errs.items():
         require(max(kernel, plain, apart) <= BF16_TOL,
                 f"{what}: kernel {kernel:.3e} and plain {plain:.3e} from the "
@@ -2523,14 +2586,19 @@ def attention_bf16_case(dev, card, rng, shape):
             and all(torch.equal(a, b) for a, b in zip(b_grads2, b_grads)),
             f"a second call gives the same bits, {where}")
 
+    accuracy = (f"[bf16] attention {where}: of the largest entry, kernel / "
+                "plain from the fp32 run on the same values, kernel from "
+                "plain: " + ", ".join(f"{what} {e[0]:.2e} / {e[1]:.2e}, "
+                                      f"{e[2]:.2e}"
+                                      for what, e in errs.items())
+                + f" (gate {BF16_TOL}); all finite, same bits twice")
+    if not timed:
+        print(accuracy + f" ({card})")
+        return {name: (err,) for name, err in abs_errs.items()}
     timings, pairs = attention_timings(q, k, v, valid, d_out, scale,
                                        bwd_args, shape, n_valid, elem=2)
     out = {name: (abs_errs[name], *t) for name, t in timings.items()}
-    print(f"[bf16] attention {where}: of the largest entry, kernel / plain "
-          f"from the fp32 run on the same values, kernel from plain: "
-          + ", ".join(f"{what} {e[0]:.2e} / {e[1]:.2e}, {e[2]:.2e}"
-                      for what, e in errs.items())
-          + f" (gate {BF16_TOL}); all finite, same bits twice; kernel vs "
+    print(accuracy + "; kernel vs "
           "plain vs library (bf16 sdpa) ms: "
           + ", ".join(f"{name} {v[1]:.4f} vs {v[2]:.4f} vs {v[5]:.4f}"
                       for name, v in out.items())
@@ -2731,7 +2799,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev, card = phase_device()
-    phase_build()
+    resources = phase_build()
     table, structured = phase_kernel(dev, card)
     variant_table, variant_errs, bench_launches = phase_variants(dev, card)
     sc_table, sc_errs = phase_sidechain_kernel(dev, card)
@@ -2812,6 +2880,12 @@ def main() -> int:
                      "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms, "library_device_ms": lib_d_ms})
+        if name.endswith("_bf16"):  # ptxas -v, each head dimension
+            rows[-1]["ptxas"] = {
+                str(dim): dict(zip(("registers", "spill_stores",
+                                    "spill_loads"), res))
+                for (kernel, dim), res in sorted(resources.items())
+                if kernel == name + "_kernel"}
     # no one PyTorch call computes a masked pair statistic: no library time
     for name, line in (("drmsd_fwd_sqrt1", 42), ("drmsd_fwd_mxu", 84),
                        ("drmsd_grad_a_mxu", 105)):

@@ -7,7 +7,8 @@ interface; it may include the ``csrc/*.cuh`` headers. It is compiled with
 ``ctypes``. The library's file name carries a hash of the source, the
 headers and the flags, so an edited source or header is rebuilt and a stale
 library is never loaded. A failed build raises; nothing falls back to a
-plain version.
+plain version. What ``ptxas -v`` says of each kernel (registers, shared
+memory, spills) is kept beside the library (``ptxas_log``).
 
 Nothing here runs at import time: the CPU tests import this module on
 machines that have no CUDA toolkit.
@@ -27,7 +28,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -66,8 +67,19 @@ def build(name: str) -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build {src.name} "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
+    _log_path(out).write_text(proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def _log_path(lib: Path) -> Path:
+    return lib.with_name(lib.name + ".ptxas.txt")
+
+
+def ptxas_log(name: str) -> str:
+    """What ptxas printed when ``build(name)`` compiled the library: each
+    kernel's registers, shared memory and spill bytes."""
+    return _log_path(build(name)).read_text()
 
 
 @functools.cache

@@ -125,10 +125,12 @@ def _lib() -> ctypes.CDLL:
 
 def _rows_in_place(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when the kernels can address it (adjacent elements along
-    D, every row 16-byte aligned), else a contiguous copy."""
+    D, every row 16-byte aligned, no broadcast dimension: the bf16
+    kernels' tensor maps take no stride of 0), else a contiguous copy."""
     per_16_bytes = 16 // t.element_size()
     if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
-            and all(s % per_16_bytes == 0 for s in t.stride()[:-1]):
+            and all(s % per_16_bytes == 0 and (s > 0 or n == 1)
+                    for s, n in zip(t.stride()[:-1], t.shape[:-1])):
         return t
     return t.contiguous()
 
