@@ -201,7 +201,29 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    same weights, the two bf16 arms held within twice the materialised
    arm's distance from fp32 plus 1e-2; one CLI epoch with --compute_dtype
    bfloat16 --attention_impl flash (K3a-bf16 6 times an eval step) and
-   predict.main on its run (K3a-bf16 12 times, K2a twice, 32 PDB files).
+   predict.main on its run (K3a-bf16 12 times, K2a twice, 32 PDB files);
+17. wandb and the dataset tools. (a) The CLI at the flagship width for two
+   epochs on the device store with --use_wandb True and a recording wandb
+   module in sys.modules (the card's machine has neither the package nor
+   a network): the logged keys and the summaries are those of
+   ``expected_wandb_keys``, which tests/test_torch_wandb.py holds equal to
+   the JAX package's; one train row and one pair of angle histograms a
+   step; each epoch one finite histogram of every parameter and of its
+   gradient; the launches of the steps plus the gradient probe's (K1b
+   twice, K2a and K2b once an epoch). Then train epochs with wandb on and
+   off, interleaved: ms a step, device operations and device ms a step,
+   no stream synchronisation in an epoch with wandb on; the probe alone
+   (its launches, ms, device operations, device ms) and watch_params'
+   host time. (b) Synthetic proteins built on the card, written as PDB
+   files (a structure cache, CASP targets) with ProteinNet text naming
+   them; scripts.proteinnet_to_dataset (no fetch) builds the dataset:
+   measured angles within 1e-5 rad^2 per angle (MSE) of those that built
+   the files; one CLI epoch on it; scripts.dataset_item_to_pdb --rebuild
+   of its longest item on the card, K2a once: within 1e-3 A of a float64
+   plain build of the same angles, and within 5e-2 A of the true structure
+   (the files' three decimals move the measured angles by ~1e-3 rad); the
+   rebuilt file holds the rebuild; scripts.export_embeddings_to_tsv on the
+   CLI run writes the model's embedding table and its labels.
 
 It prints the time the run took, then the kernel table as one JSON line,
 and as its last line {"ok": true, "device": {...}}. It needs one CUDA
@@ -222,6 +244,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -233,13 +256,13 @@ from protein_transformer_tpu_torch.data.dataset import (
     DataModule, collate, load_dataset)
 from protein_transformer_tpu_torch.data.device_store import plan_batch
 from protein_transformer_tpu_torch.data.synthetic import (
-    OUT_OF_TABLE_IDS, atom_mask_case, make_dataset, sidechain_case,
-    with_every_type)
+    OUT_OF_TABLE_IDS, atom_mask_case, make_dataset, random_angles,
+    sidechain_case, with_every_type)
 from protein_transformer_tpu_torch.device import cuda_device
 from protein_transformer_tpu_torch.models.conv_encoder import (
     ConvEncoderOnlyTransformer)
 from protein_transformer_tpu_torch.models.flax_import import (
-    load_flax_params, params_from_flat_keys)
+    flax_names, load_flax_params, params_from_flat_keys)
 from protein_transformer_tpu_torch.ops import _build
 from protein_transformer_tpu_torch.ops import attention as A
 from protein_transformer_tpu_torch.ops import drmsd as D
@@ -248,11 +271,17 @@ from protein_transformer_tpu_torch.ops import sidechain as S
 from protein_transformer_tpu_torch.protein import geometry as G
 from protein_transformer_tpu_torch.protein.geometry import (
     build_coords_batch, inverse_trig_transform)
-from protein_transformer_tpu_torch.protein.pdb import parse_pdb_atoms
+from protein_transformer_tpu_torch.protein.measure import pdb_to_record
+from protein_transformer_tpu_torch.protein.pdb import (
+    PdbWriter, parse_pdb_atoms)
+from protein_transformer_tpu_torch.protein.vocab import STD_AAS, VOCAB
+from protein_transformer_tpu_torch.scripts import (
+    dataset_item_to_pdb, export_embeddings_to_tsv, proteinnet_to_dataset)
 from protein_transformer_tpu_torch.tools import bench_drmsd_kernel
 from protein_transformer_tpu_torch.tools.bench_geometry import (
     sync_count, sync_sites)
 from protein_transformer_tpu_torch.training import batch_probe, cli
+from protein_transformer_tpu_torch.training import wandb_logging as W
 from protein_transformer_tpu_torch.training.checkpoint import (
     CheckpointManager)
 from protein_transformer_tpu_torch.training.trainer import Trainer
@@ -2790,6 +2819,433 @@ def phase_bf16(dev, card, out_dir):
     return flash_launches, predict_launches
 
 
+# ---------------------------------------------------------------- phase 17
+
+# The names training/wandb_logging.py logs and the summaries it writes;
+# tests/test_torch_wandb.py holds ``expected_wandb_keys`` of a CLI run equal
+# to what the JAX package's wandb_logging gives for that run.
+WANDB_TRAIN_BATCH = (
+    "Train Batch RMSE", "Train Batch DRMSD", "Train Batch ln-DRMSD",
+    "Train Batch Combined Loss", "Train Batch Speed", "Batch size",
+    "Train Batch DRMSD Backbone", "Train Batch ln-DRMSD Backbone",
+    "Train Batch RMSE Backbone", "Train Batch RMSE Sidechain",
+    "Learning Rate")
+WANDB_ANGLE_HISTOGRAMS = ("Predicted Angles (sin cos)",
+                          "Predicted Angles (radians)")
+WANDB_EPOCH = ("RMSE", "RMSD", "DRMSD", "ln-DRMSD", "Combined Loss",
+               "ln-DRMSD Backbone", "DRMSD Backbone", "RMSE Backbone",
+               "RMSE Sidechain")
+WANDB_VALID_AVG = ("RMSE", "RMSD", "DRMSD", "ln-DRMSD", "Combined Loss")
+WANDB_FINAL_EPOCH = ("drmsd", "mse", "rmsd", "comb", "speed")
+WANDB_STRUCTURE = ("mol", "3d", "scene", "align_rmsd")
+
+
+def expected_wandb_keys(modes, flax_paths, modifiers, structures=()):
+    """(logged keys, summary keys) of a training run with --use_wandb True
+    that evaluates ``modes`` (train, the validation splits it has, test),
+    has parameters at ``flax_paths``, writes the checkpoints ``modifiers``
+    and logs structures under the names ``structures``."""
+    valid = [m for m in modes if m.startswith("valid")]
+    logged = {*WANDB_TRAIN_BATCH, *WANDB_ANGLE_HISTOGRAMS}
+    logged |= {f"{kind}/params/{path}" for kind in ("parameters",
+                                                     "gradients")
+               for path in flax_paths}
+    logged |= {f"{mode.title()} Epoch {k}" for mode in modes
+               if mode != "train" for k in WANDB_EPOCH}
+    if valid:
+        logged |= {f"Valid-Avg Epoch {k}" for k in WANDB_VALID_AVG}
+    logged |= {f"{name}_{k}" for name in structures for k in WANDB_STRUCTURE}
+    summary = {"stopped_training_early", "max_batch_size",
+               "avg_training_speed"}
+    if valid:
+        summary.add("avg_evaluation_speed")
+    summary |= {f"{m}_validation_{k}" for m in modifiers
+                for k in ("loss", "epoch")}
+    summary |= {f"final_epoch_{mode}_{k}" for mode in modes
+                for k in WANDB_FINAL_EPOCH}
+    return logged, summary
+
+
+class RecordingRun:
+    """A wandb run that keeps what it is given."""
+
+    def __init__(self, **init):
+        self.init, self.summary, self.logged, self.saved = init, {}, [], []
+        self.finished = False
+        self.config = types.SimpleNamespace(update=lambda *a, **kw: None)
+
+    def log(self, payload, commit=True):
+        self.logged.append(payload)
+
+    def save(self, path, base_path=None, policy=None):
+        self.saved.append(path)
+
+    def finish(self):
+        self.finished = True
+
+    def keys(self) -> set:
+        return {k for payload in self.logged for k in payload}
+
+
+class Recorded:
+    """wandb's Histogram, Molecule, Object3D and Image: what they were
+    given (a file is read at once, as wandb reads it)."""
+
+    def __init__(self, data=None, np_histogram=None, **kw):
+        self.data = data.read() if hasattr(data, "read") else data
+        self.np_histogram = np_histogram
+
+
+@contextlib.contextmanager
+def recording_wandb():
+    """A ``wandb`` module that records (the card's machine has neither the
+    package nor a network) in ``sys.modules`` while the block runs; yields
+    the runs its ``init`` makes."""
+    runs = []
+    fake = types.ModuleType("wandb")
+    fake.init = lambda **kw: runs.append(RecordingRun(**kw)) or runs[-1]
+    for name in ("Histogram", "Molecule", "Object3D", "Image"):
+        setattr(fake, name, type(name, (Recorded,), {}))
+    before = sys.modules.get("wandb")
+    sys.modules["wandb"] = fake
+    try:
+        yield runs
+    finally:
+        if before is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = before
+
+
+@contextlib.contextmanager
+def made_trainers():
+    """Yields the list of the Trainers made inside the block."""
+    made, init = [], Trainer.__init__
+
+    def keep(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    Trainer.__init__ = keep
+    try:
+        yield made
+    finally:
+        Trainer.__init__ = init
+
+
+def check_histograms(payload, model, prefix) -> None:
+    """One finite histogram of every parameter's numel under ``prefix``."""
+    params = dict(model.named_parameters())
+    for name, path in flax_names(model).items():
+        counts, edges = payload[f"{prefix}/params/{path}"].np_histogram
+        require(np.isfinite(edges).all()
+                and counts.sum() == params[name].numel(),
+                f"{prefix} histogram of {path}: finite, every entry counted")
+
+
+def phase_wandb(dev, card, out_dir):
+    """--use_wandb True at the flagship width through the CLI on the device
+    store, with a recording wandb module; then a train epoch with wandb on
+    and off, interleaved, and the gradient probe alone. Returns the probe's
+    launches."""
+    data = make_dataset(n_train=16, n_eval=8, min_len=255, max_len=256,
+                        seed=6, device=dev)
+    for split in [k for k in data if k.startswith("valid-")]:
+        if split != "valid-10":
+            del data[split]
+    data_file = os.path.join(out_dir, "wandb_data.pt")
+    torch.save(data, data_file)
+    argv = ["--data", data_file, "--name", "wandb", "--out_dir", out_dir,
+            "-m", MODEL, "-dm", "512", "-dih", "2048", "-nh", "8", "-nl", "6",
+            "-do", "0.1", "-l", "combined", "-opt", "adam",
+            "--lr_scheduling", "noam", "-b", "8", "--repeat_train",
+            str(TRAIN_REPEAT), "--cluster", "True", "--use_wandb", "True",
+            "--log_structure_step", "1000", "-lvs", "0", "-e", "2"]
+    dm = DataModule(data, cli.config_from_args(argv))
+    n_eval = 2 * len(list(dm.eval_index_batches("valid-10"))) + len(
+        list(dm.eval_index_batches("test")))
+    with recording_wandb() as runs, made_trainers() as made, \
+            timed_train_epochs() as epochs:
+        reset_launches()
+        run_cli(argv)
+        launches = read_launches()
+    (run,), (tr,) = runs, made
+    steps = sum(n for _, n, _ in epochs)
+    # every step's launches, the probe's (K1b twice, K2a and K2b once, as a
+    # train step) at the end of each of the 2 epochs, the eval steps', and
+    # K2a once for the structure logged at step 0
+    expected = launched(drmsd_fwd=2 * n_eval,
+                        drmsd_fwd_grad=2 * (steps + 2),
+                        sidechain_fwd=steps + 2 + n_eval + 1,
+                        sidechain_bwd=steps + 2)
+    require(epochs.paths == ["device store"] * 2 and launches == expected,
+            f"wandb CLI launches {launches}: expected {expected} for "
+            f"{steps} train steps on the store, 2 probes and {n_eval} eval "
+            "steps")
+    names = flax_names(tr.model)
+    modes = ["train", "valid-10", "test"]
+    want_logged, want_summary = expected_wandb_keys(
+        modes, names.values(), ["best"], structures=["train"])
+    require(run.keys() == want_logged,
+            f"the logged keys: missing {sorted(want_logged - run.keys())}, "
+            f"extra {sorted(run.keys() - want_logged)}")
+    require(set(run.summary) == want_summary,
+            f"the summary keys: missing "
+            f"{sorted(want_summary - set(run.summary))}, extra "
+            f"{sorted(set(run.summary) - want_summary)}")
+    rows = [p for p in run.logged if "Train Batch RMSE" in p]
+    angles = [p for p in run.logged if WANDB_ANGLE_HISTOGRAMS[0] in p]
+    hists = [p for p in run.logged
+             if any(k.startswith("parameters/") for k in p)]
+    require(len(rows) == len(angles) == steps and len(hists) == 2,
+            f"{len(rows)} train rows and {len(angles)} angle histograms for "
+            f"{steps} steps; {len(hists)} histogram payloads for 2 epochs")
+    for payload in hists:
+        require(len(payload) == 2 * len(names), "one parameter and one "
+                "gradient histogram per parameter")
+        for prefix in ("parameters", "gradients"):
+            check_histograms(payload, tr.model, prefix)
+    require(run.finished and run.init["project"] == "protein-transformer-tpu"
+            and os.path.isfile(os.path.join(out_dir, "wandb", "MODEL.txt")),
+            "the run was opened, finished, and MODEL.txt written")
+
+    # a train epoch with wandb on and off, interleaved, on the store
+    kw = dict(optimizer="adam", lr_scheduling="noam", max_seq_len=256,
+              repeat_train=TRAIN_REPEAT)
+    trainers = {flag: Trainer(flagship("all", out_dir, name=f"wandb-{flag}",
+                                       use_wandb=flag == "on", **kw),
+                              device=dev, data=data)
+                for flag in ("on", "off")}
+    trainers["on"].wandb_run = on_run = RecordingRun()
+    params = random_weights(trainers["on"], dev)
+    states = {flag: tr.state_from(params) for flag, tr in trainers.items()}
+    with recording_wandb():
+        for flag, tr in trainers.items():  # warm-up epochs
+            states[flag] = train_epoch_timed(tr, states[flag])[0]
+        times = {"on": [], "off": []}
+        for flag in ("on", "off", "off", "on", "on", "off"):
+            states[flag], sec, n, _ = train_epoch_timed(trainers[flag],
+                                                        states[flag])
+            times[flag].append(1e3 * sec / n)
+        report = {}
+        for flag, tr in trainers.items():
+            def epoch(flag=flag, tr=tr):
+                states[flag] = TRAIN_EPOCH(tr, states[flag])
+            ops, dev_ms = profile_steps(epoch, steps=1)
+            report[flag] = (statistics.median(times[flag]), ops / n,
+                            dev_ms / n, sync_sites(epoch))
+        n_rows = sum("Train Batch RMSE" in p for p in on_run.logged)
+        require(n_rows == sum(WANDB_ANGLE_HISTOGRAMS[0] in p
+                            for p in on_run.logged) > 0,
+                "each step on the cadence logs its row and its histograms")
+        on = trainers["on"]
+        reset_launches()
+        grads = on._probe_gradients(states["on"])
+        probe_launches = read_launches()
+        require(probe_launches == launched(drmsd_fwd_grad=2, sidechain_fwd=1,
+                                           sidechain_bwd=1),
+                f"the probe's launches {probe_launches}: K1b twice, K2a and "
+                "K2b once, as a train step")
+        require(all(torch.isfinite(g).all() for g in grads.values())
+                and sum(bool(g.any()) for g in grads.values())
+                > len(grads) // 2, "the probe's gradients are finite")
+        probe_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            on._probe_gradients(states["on"])
+            torch.cuda.synchronize()
+            probe_ms.append(1e3 * (time.perf_counter() - t0))
+        probe_ops, probe_dev_ms = profile_steps(
+            lambda: on._probe_gradients(states["on"]))
+        t0 = time.perf_counter()
+        W.watch_params(on_run, on.model, states["on"].params, grads)
+        watch_ms = 1e3 * (time.perf_counter() - t0)
+    require(not report["on"][3],
+            f"a train epoch with wandb on, on the store, makes no stream "
+            f"synchronisation ({where(report['on'][3])})")
+    print(f"[wandb] CLI with --use_wandb True, {MODEL}, d_model 512 x 6 "
+          f"layers, 2 epochs of {steps // 2} steps on the device store: "
+          f"{len(run.keys())} keys logged and {len(run.summary)} summaries, "
+          f"the expected ones; {len(hists)} x {len(names)} parameter and "
+          f"gradient histograms, finite; launches {json.dumps(launches)} "
+          f"({card})")
+    print(f"[wandb] train step, medians of 3 epochs of {n} steps, "
+          f"interleaved: wandb on {report['on'][0]:.2f} ms "
+          f"({report['on'][1]:.0f} device operations, {report['on'][2]:.2f} "
+          f"device ms, {len(report['on'][3])} synchronisations an epoch), "
+          f"off {report['off'][0]:.2f} ms ({report['off'][1]:.0f}, "
+          f"{report['off'][2]:.2f}, {len(report['off'][3])}); the gradient "
+          f"probe, once an epoch: {statistics.median(probe_ms):.2f} ms, "
+          f"{probe_ops:.0f} device operations, {probe_dev_ms:.2f} device "
+          f"ms, launches {json.dumps(probe_launches)}; watch_params "
+          f"{watch_ms:.1f} ms on the host ({card})")
+    return probe_launches
+
+
+# the lengths of phase 17's synthetic ProteinNet entries, by split: the
+# training file's (chain A of <pdbid>.pdb in the structure cache), the
+# validation file's (its 30% bucket) and the testing file's (the CASP
+# targets directory)
+DATA_TOOL_LENGTHS = {"train": (256, 200, 150, 120, 90, 64, 255, 180),
+                     "valid-30": (128, 240), "test": (100, 230)}
+# the largest per-angle MSE (rad^2) of the measured angles against those
+# that built the files
+ANGLE_MSE = 1e-5
+# rebuilt coordinates: the card's build against a float64 plain one of the
+# same angles (the coordinate gate); and against the true structure, where the PDB files' three
+# decimals decide: their rounding moves the measured angles by ~1e-3 rad,
+# which the chain's lever arms carry to ~1e-2 A at L = 256 (to ~2e-2 A at
+# L = 500), so 1e-3 A cannot hold there
+REBUILD_KERNEL_TOL = 1e-3
+REBUILD_TRUE_TOL = 5e-2
+
+
+def phase_data_tools(dev, card, out_dir):
+    """The dataset tools on synthetic proteins: PDB files and ProteinNet
+    text, the dataset built from them, one CLI epoch on it, the rebuild of
+    an item on the card, the embedding export. Returns the rebuild's
+    launches."""
+    rng = np.random.default_rng(17)
+    root = os.path.join(out_dir, "proteinnet")
+    raw, cache, targets = (os.path.join(root, d)
+                           for d in ("raw", "cache", "targets"))
+    for d in (raw, cache, targets):
+        os.makedirs(d)
+    truth, records = {}, {"train": [], "valid-30": [], "test": []}
+    for split, lengths in DATA_TOOL_LENGTHS.items():
+        for i, length in enumerate(lengths):
+            seq = "".join(rng.choice(list(STD_AAS), size=length))
+            ang = random_angles(rng, length)
+            ids = torch.tensor([VOCAB[c] for c in seq], device=dev)
+            with torch.no_grad():
+                crd = G.build_coords(torch.from_numpy(ang).to(dev),
+                                     ids).cpu().numpy()
+            pdbid = f"{len(truth)}syn"
+            pnid = {"train": f"{pdbid.upper()}_1_A",
+                    "valid-30": f"30#{pdbid.upper()}_1_A",
+                    "test": f"TBM#T9{len(truth):03d}"}[split]
+            path = (os.path.join(targets, f"T9{len(truth):03d}.pdb")
+                    if split == "test" else os.path.join(cache,
+                                                         f"{pdbid}.pdb"))
+            PdbWriter(crd, seq, chain="A").save_pdb(path)
+            truth[pnid] = (seq, ang, crd)
+            records[split].append(f"[ID]\n{pnid}\n[PRIMARY]\n{seq}\n"
+                                  f"[MASK]\n{'+' * length}\n")
+    for split, name in (("train", "training_30"), ("valid-30", "validation"),
+                        ("test", "testing")):
+        with open(os.path.join(raw, name), "w") as f:
+            f.write("\n".join(records[split]) + "\n")
+    data_file = os.path.join(root, "dataset.pt")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        data = proteinnet_to_dataset.main([raw, cache, data_file,
+                                           "--targets", targets])
+    build_s = time.perf_counter() - t0
+    require(buf.getvalue().startswith("0 preprocessing failures"),
+            f"the dataset builds without failures: {buf.getvalue()}")
+    diffs = []  # (residues, 12) wrapped differences, NaN where unmeasured
+    for split, lengths in DATA_TOOL_LENGTHS.items():
+        require(sorted(len(s) for s in data[split]["seq"])
+                == sorted(lengths), f"every {split} protein built")
+        for pnid, seq, sincos in zip(data[split]["ids"], data[split]["seq"],
+                                     data[split]["ang"]):
+            want_seq, ang, _ = truth[pnid]
+            require(seq == want_seq, f"{pnid}: its sequence")
+            got = np.arctan2(sincos[:, 1::2], sincos[:, 0::2])
+            diffs.append(np.angle(np.exp(1j * (got - ang))))
+    diffs = np.concatenate(diffs)
+    measured = np.isfinite(diffs).sum(0)
+    require(measured[:6].min() > 0 and measured[6] > 0,
+            f"every backbone angle and chi 1 measured: {measured}")
+    per_angle = [float(np.mean(d[np.isfinite(d)] ** 2))
+                 for d in diffs.T if np.isfinite(d).any()]
+    worst = max(per_angle)
+    require(worst <= ANGLE_MSE, f"measured angles: per-angle MSE {worst:.2e} "
+                                f"rad^2, at most {ANGLE_MSE}")
+
+    # one CLI epoch at the flagship width on the built dataset
+    argv = ["--data", data_file, "--name", "pn", "--out_dir", out_dir,
+            "-m", MODEL, "-dm", "512", "-dih", "2048", "-nh", "8", "-nl", "6",
+            "-do", "0.1", "-l", "combined", "-opt", "adam",
+            "--lr_scheduling", "noam", "-b", "4", "--repeat_train", "2",
+            "--cluster", "True", "--log_structure_step", "0", "-lvs", "0",
+            "-e", "1"]
+    with timed_train_epochs() as epochs:
+        run_cli(argv)
+    run_dir = os.path.join(out_dir, "pn")
+    _, rows = csv_rows(os.path.join(run_dir, "pn.train"))
+    epoch_rows = {r["mode"]: r for r in rows if r["granularity"] == "epoch"}
+    require(set(epoch_rows) == {"train", "valid-30", "test"} and all(
+        np.isfinite(float(r[k])) for r in epoch_rows.values()
+        for k in ("drmsd", "rmse", "combined")),
+            f"finite epoch metrics of train, valid-30 and test: {epoch_rows}")
+
+    # the rebuild of the longest training item, on the card
+    item = int(np.argmax([len(s) for s in data["train"]["seq"]]))
+    pnid, seq = data["train"]["ids"][item], data["train"]["seq"][item]
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        paths = dataset_item_to_pdb.main([
+            data_file, "--split", "train", "--idx", str(item), "--rebuild",
+            "--out", os.path.join(root, f"{pnid}_true.pdb")])
+    rebuild_launches = read_launches()
+    require(rebuild_launches == launched(sidechain_fwd=1),
+            f"--rebuild launches K2a once: {rebuild_launches}")
+    sincos = data["train"]["ang"][item]
+    on_card = dataset_item_to_pdb.rebuild_coords(sincos, seq, dev)
+    # the same angles built in float64 by the plain version on the host
+    plain = G.build_coords(
+        inverse_trig_transform(torch.from_numpy(np.nan_to_num(sincos))
+                               .double()),
+        torch.tensor([VOCAB[c] for c in seq]), "torch").numpy()
+    true_crd = np.asarray(data["train"]["crd"][item]).reshape(on_card.shape)
+    real = np.isfinite(true_crd[..., 0])
+    # every atom but the last residue's O, whose psi no residue follows
+    carried = real.copy()
+    carried[-1, 3] = False
+    _, written = pdb_to_record(paths[1])
+    kernel_err = float(np.linalg.norm(on_card - plain, axis=-1)[real].max())
+    true_err = float(np.linalg.norm(on_card - truth[pnid][2],
+                                    axis=-1)[carried].max())
+    file_err = float(np.abs(written - on_card)[real].max())
+    require(kernel_err <= REBUILD_KERNEL_TOL,
+            f"rebuilt on the card vs float64 plain: {kernel_err:.2e} A")
+    require(true_err <= REBUILD_TRUE_TOL,
+            f"rebuilt vs the true structure: {true_err:.2e} A")
+    require(file_err <= 5.1e-4, f"the rebuilt PDB file holds the rebuild "
+                                f"({file_err:.1e} A)")
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        vec_path, lab_path = export_embeddings_to_tsv.main(
+            [run_dir, "--out", os.path.join(root, "embeddings")])
+    vectors = np.loadtxt(vec_path, delimiter="\t")
+    _, model = predict.load_run(run_dir, device=dev)
+    table = model.state_dict()["embeddings.embed.weight"].cpu().numpy()
+    with open(lab_path) as f:
+        labels = f.read().split("\n")[:-1]
+    require(vectors.shape == table.shape and np.abs(vectors - table).max()
+            <= 5.1e-7 and labels == [VOCAB.int2char(i)
+                                     for i in range(len(table))],
+            f"vectors.tsv {vectors.shape} holds the embedding table "
+            f"{table.shape}; labels.tsv its letters")
+    seconds, n, _ = epochs[0]
+    print(f"[data-tools] {len(truth)} synthetic proteins (L = "
+          f"{min(min(v) for v in DATA_TOOL_LENGTHS.values())}-"
+          f"{max(max(v) for v in DATA_TOOL_LENGTHS.values())}) as PDB files "
+          f"and ProteinNet text -> scripts.proteinnet_to_dataset (no fetch) "
+          f"in {build_s:.2f} s: measured angles within {worst:.2e} rad^2 "
+          f"(per-angle MSE); one CLI epoch on it, {n} steps in {seconds:.2f} "
+          f"s; scripts.dataset_item_to_pdb --rebuild of {pnid} (L = "
+          f"{len(seq)}) on the card, K2a once: {kernel_err:.1e} A from a "
+          f"float64 plain build of the same angles, {true_err:.1e} A from "
+          f"the true "
+          f"structure; scripts.export_embeddings_to_tsv: {vectors.shape} "
+          f"table ({card})")
+    return rebuild_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this smoke run "
@@ -2818,6 +3274,8 @@ def main() -> int:
         phase_tools(dev, card, out_dir)
         bf16_flash_launches, bf16_predict_launches = phase_bf16(dev, card,
                                                                 out_dir)
+        probe_launches = phase_wandb(dev, card, out_dir)
+        rebuild_launches = phase_data_tools(dev, card, out_dir)
     source = "protein_transformer_tpu_torch/csrc/"
     replaces = "protein_transformer_tpu/ops/"
     rows = []
@@ -2897,6 +3355,11 @@ def main() -> int:
                      "max_abs_err": variant_errs[name], "ms": k_ms,
                      "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None})
+    for row in rows:  # the probe's, once an epoch with --use_wandb True
+        if probe_launches[row["name"]]:
+            row["launches_probe"] = probe_launches[row["name"]]
+        if rebuild_launches[row["name"]]:
+            row["launches_rebuild"] = rebuild_launches[row["name"]]
     require(all(row["launches"] > 0 or row["name"] == "drmsd_grad_b"
                 for row in rows),
             "every kernel of a main path was launched on it (K1c runs only "

@@ -80,12 +80,16 @@ class TrainConfig:
     # Saving / logging
     log_structure_step: int = 10
     log_val_struct_step: int = 50
+    log_wandb_step: int = 1
     save_pngs: bool = False
     restart: bool = False
     restart_opt: bool = False
     checkpoint_time_interval: float = 0.0
     load_chkpt: Optional[str] = None
     out_dir: str = "runs"
+    # Weights & Biases logging (training/wandb_logging.py), every
+    # log_wandb_step train steps, and the epoch's gradient histograms
+    use_wandb: bool = False
     # limited-I/O mode: no live per-batch status line, epoch prints only
     cluster: bool = False
 

@@ -180,6 +180,21 @@ class LazyBatch:
         return self._materialize().seq
 
     @property
+    def host_seq(self) -> np.ndarray:
+        """The batch's (Bb, lb) sequence ids, made on the host from the
+        split as the gather makes them (``pad_id`` past each protein and in
+        dead rows), without touching the device."""
+        plan, store = self._plan, self._store
+        out = np.full((len(plan.idx_padded), plan.lb), VOCAB.pad_id,
+                      np.int64)
+        for row, i in enumerate(plan.idx_padded):
+            if i >= 0:
+                n = min(int(store.split.lens[i]), store.split.max_seq_len,
+                        plan.lb)
+                out[row, :n] = store.split.seq_enc[i][:n]
+        return out
+
+    @property
     def ang(self):
         return self._materialize().ang
 

@@ -10,7 +10,9 @@ port's attribute names; leaves map as
 * Embed embedding, LayerNorm scale -> weight; every bias -> bias.
 
 Every flax leaf must land on a model parameter of the same shape, and every
-model parameter must be covered; anything else raises.
+model parameter must be covered; anything else raises. ``flax_names`` and
+``to_flax_layout`` go the other way: each parameter's flax path and layout
+(the names wandb's histograms carry, the embedding table's export).
 """
 from __future__ import annotations
 
@@ -101,6 +103,77 @@ def flax_to_state_dict(params: Mapping, model: nn.Module
     if missing:
         raise KeyError(f"model parameters with no flax counterpart: {missing}")
     return out
+
+
+# the port's module attribute -> the flax module it came from, where the
+# name alone decides (the inverse of _MODULE_NAMES)
+_FLAX_MODULES = {v: k for k, v in _MODULE_NAMES.items() if k != v
+                 and k != "Encoder_0"}
+_FLAX_INDEXED = {"sublayer": "SublayerConnection_", "convs": "Conv_"}
+
+
+def _flax_segment(seg: str, parent: str | None, enc_dec: bool) -> str:
+    """The flax module name of the port's attribute ``seg`` (one segment,
+    "layers.0" included) under ``parent``: the inverse of ``_module_name``."""
+    if seg == "embed" and parent == "decoder":
+        return "Dense_0"
+    if seg in ("wq", "wk", "wv", "wo", "output_projection") or (
+            enc_dec and seg in ("encoder", "decoder")):
+        return seg
+    if seg == "encoder":
+        return "Encoder_0"
+    if seg in _FLAX_MODULES:
+        return _FLAX_MODULES[seg]
+    name, _, index = seg.partition(".")
+    if name == "layers":
+        return ("DecoderLayer_" if parent == "decoder"
+                else "EncoderLayer_") + index
+    if name in _FLAX_INDEXED:
+        return _FLAX_INDEXED[name] + index
+    if re.fullmatch(r"w_\d+", seg):
+        return f"Dense_{int(seg[2:]) - 1}"
+    raise KeyError(f"no flax module for port module {seg!r}")
+
+
+def flax_names(model: nn.Module) -> dict[str, str]:
+    """{parameter name: its flax path ("Encoder_0/EncoderLayer_0/.../kernel")}
+    for every parameter of ``model``: the inverse of the name mapping of
+    ``flax_to_state_dict``, which each path is held to."""
+    modules = dict(model.named_modules())
+    enc_dec = "decoder" in modules
+    out = {}
+    for name, _ in model.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        # indexed children ("layers.0") are one segment, as flax names them
+        segs = re.findall(r"[a-z_]+\.\d+|[a-z_0-9]+", owner)
+        path = [_flax_segment(seg, parent, enc_dec)
+                for parent, seg in zip([None] + segs, segs)]
+        module = modules[owner]
+        if leaf == "bias":
+            path.append("bias")
+        elif isinstance(module, nn.Embedding):
+            path.append("embedding")
+        elif isinstance(module, nn.LayerNorm):
+            path.append("scale")
+        else:
+            path.append("kernel")
+        back = ".".join([_module_name(seg, parent) for parent, seg
+                         in zip([None] + path, path[:-1])]
+                        + [_LEAF_NAMES[path[-1]]])
+        if back != name:
+            raise KeyError(f"{name}: flax path {'/'.join(path)} maps back "
+                           f"to {back}")
+        out[name] = "/".join(path)
+    return out
+
+
+def to_flax_layout(value: np.ndarray, flax_path: str) -> np.ndarray:
+    """A parameter in the port's layout -> flax's (the inverse of the
+    layouts of ``flax_to_state_dict``: Linear (out, in) -> Dense (in, out),
+    Conv1d (out, in, k) -> Conv (k, in, out))."""
+    if not flax_path.endswith("kernel"):
+        return value
+    return value.T if value.ndim == 2 else np.transpose(value, (2, 1, 0))
 
 
 def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:

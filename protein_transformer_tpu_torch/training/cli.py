@@ -157,8 +157,6 @@ def check_ported(settings: Mapping) -> None:
     that is absent counts as not asked for)."""
     get = settings.get
     asked = (
-        (get("use_wandb"), "--use_wandb True",
-         "wandb logging (training/wandb_logging.py)"),
         (list(get("mesh_shape", [-1])) != [-1]
          or list(get("mesh_axes", ["data"])) != ["data"],
          "--mesh_shape / --mesh_axes",

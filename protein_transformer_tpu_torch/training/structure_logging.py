@@ -23,7 +23,13 @@ still on the GPU: the copy to the host, which waits for the device, is made
 by the worker, never by the train loop. When the worker is backed up (more
 than 4 structures waiting) a new one is dropped. A failure of the worker,
 other than of the optional PNG render, stops it and is raised in the train
-loop by the next ``log`` or by ``close``. wandb is not in the port.
+loop by the next ``log`` or by ``close``. Given a wandb run (``wandb_run``,
+which the trainer sets when it opens one) the worker also logs, with
+``commit=False``, ``<name>_mol`` (a ``wandb.Molecule`` of the PDB file),
+``<name>_3d`` (a ``wandb.Object3D`` of the .glb), ``<name>_scene`` and
+``<name>_align_rmsd`` where the aligned scene was written, and
+``<name>_png`` (a ``wandb.Image``) where the PNG was, as the JAX package
+logs them.
 """
 from __future__ import annotations
 
@@ -105,9 +111,11 @@ class StructureLogger:
     """Writes the structures it is handed under ``<out_dir>/structures``,
     on a daemon thread that the first ``log`` starts and ``close`` stops."""
 
-    def __init__(self, out_dir: str, save_pngs: bool = False):
+    def __init__(self, out_dir: str, wandb_run=None,
+                 save_pngs: bool = False):
         self.dir = os.path.join(out_dir, "structures")
         os.makedirs(self.dir, exist_ok=True)
+        self.wandb_run = wandb_run
         self.save_pngs = save_pngs
         self._q: queue.Queue = queue.Queue(maxsize=4)
         self._error: Exception | None = None
@@ -141,8 +149,8 @@ class StructureLogger:
         os.makedirs(sub, exist_ok=True)
         pred_path = os.path.join(sub, f"{step:05d}_pred.pdb")
         PdbWriter(pred_crd[:li], seq_str).save_pdb(pred_path, title="pred")
-        save_glb(os.path.join(sub, f"{step:05d}_pred.glb"), pred_crd[:li],
-                 seq_ids[sel])
+        glb_path = os.path.join(sub, f"{step:05d}_pred.glb")
+        save_glb(glb_path, pred_crd[:li], seq_ids[sel])
         true_path = os.path.join(sub, "true.pdb")
         if not os.path.exists(true_path):
             masked = np.where(true_mask[:li, :, None], true_crd[:li], np.nan)
@@ -150,23 +158,44 @@ class StructureLogger:
             save_glb(os.path.join(sub, "true.glb"), true_crd[:li],
                      seq_ids[sel], atom_mask=true_mask[:li])
         # one aligned scene: pred Kabsch-aligned onto true, both in one .glb
+        align_rmsd = None
+        scene_path = os.path.join(sub, f"{step:05d}_scene.glb")
         valid = true_mask[:li].reshape(-1)
         if valid.sum() >= 3 and np.isfinite(pred_crd[:li]).all():
-            tf, _rmsd = kabsch_align(
+            tf, align_rmsd = kabsch_align(
                 pred_crd[:li].reshape(-1, 3)[valid],
                 true_crd[:li].reshape(-1, 3)[valid])
             aligned = tf(pred_crd[:li].reshape(-1, 3)).reshape(li, -1, 3)
-            save_glb_scene(os.path.join(sub, f"{step:05d}_scene.glb"), [
+            save_glb_scene(scene_path, [
                 (aligned, seq_ids[sel], None, None),
                 (true_crd[:li], seq_ids[sel], true_mask[:li], _TRUE_COLOR),
             ])
+        png_path = None
         if self.save_pngs:
+            png_path = os.path.join(sub, f"{step:05d}.png")
             try:
-                render_structure_png(os.path.join(sub, f"{step:05d}.png"),
-                                     pred_crd[:li], true_crd[:li],
+                render_structure_png(png_path, pred_crd[:li], true_crd[:li],
                                      true_mask[:li])
             except Exception as e:  # an optional render must not end a run
                 print(f"[structure-log] png render failed: {e}")
+                png_path = None
+        if self.wandb_run is not None:
+            self._log_wandb(name, pred_path, glb_path, scene_path,
+                            align_rmsd, png_path)
+
+    def _log_wandb(self, name, pred_path, glb_path, scene_path, align_rmsd,
+                   png_path) -> None:
+        import wandb
+        with open(glb_path, "rb") as f:
+            payload = {f"{name}_mol": wandb.Molecule(pred_path),
+                       f"{name}_3d": wandb.Object3D(f, file_type="glb")}
+        if align_rmsd is not None:
+            with open(scene_path, "rb") as f:
+                payload[f"{name}_scene"] = wandb.Object3D(f, file_type="glb")
+            payload[f"{name}_align_rmsd"] = align_rmsd
+        if png_path:
+            payload[f"{name}_png"] = wandb.Image(png_path)
+        self.wandb_run.log(payload, commit=False)
 
     def log(self, step: int, name: str, seq_ids, pred_crd, true_crd,
             true_mask) -> None:

@@ -27,7 +27,17 @@ the monitored metric, 'best' / 'latest' checkpoints, resume, the CSV log,
 structure logging (``training/structure_logging.py``), the test split at
 the end, a profiler trace of the first epoch (``--profile_dir``) and the
 per-phase host-time report of ``LoopProfiler`` (``PTT_LOOP_PROFILE=1``).
-wandb and meshes are not in the port yet.
+
+With ``use_wandb`` the loop logs to Weights & Biases
+(``training/wandb_logging.py``) where the JAX package does: each train row
+on the ``log_wandb_step`` cadence with the histograms of that step's
+predicted angles, the epoch metrics and summaries, the checkpoint
+summaries, the structures, and once an epoch the histograms of every
+parameter and of its gradient on a random train batch
+(``_probe_gradients``, one more forward and backward). A cadence step's
+predictions reach the host as its metrics row does, by a non-blocking copy
+that the flush reads; with ``use_wandb`` off a step launches nothing more.
+Meshes are not in the port yet.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ import torch
 from torch.func import functional_call
 
 from protein_transformer_tpu_torch.training import metrics as M
+from protein_transformer_tpu_torch.training import wandb_logging as W
 from protein_transformer_tpu_torch import losses as L
 from protein_transformer_tpu_torch.config import TrainConfig
 from protein_transformer_tpu_torch.data import device_store as DS
@@ -71,6 +82,10 @@ DRMSD_LOSSES = ("drmsd", "lndrmsd", "combined")
 # The sampling generator's seeds start here, past every seed the dropout
 # generator gets (cfg.seed + step), so the two streams stay apart.
 SAMPLING_SEED_BASE = 1 << 32
+# The gradient probe's draws are seeded past both (seed + step + this), and
+# the generators' streams are restored after it: a run trains the same with
+# wandb on or off, as in the JAX package.
+PROBE_SEED_BASE = 1 << 40
 
 # Fixed order in which a step packs its scalar metrics into one (K,) vector,
 # so a window of steps is fetched to the host in one copy.
@@ -119,10 +134,11 @@ class LoopProfiler:
 
 def compute_losses(model, params, batch: Batch, cfg: TrainConfig,
                    impl: str = "auto", with_drmsd=None, with_rmsd=False,
-                   sidechain_impl: str = "auto"):
+                   sidechain_impl: str = "auto", with_pred: bool = False):
     """All batch losses for a batch already on the model's device.
 
-    Returns (loss, dict of scalar metrics). MSE is always computed; the
+    Returns (loss, dict of scalar metrics); with_pred adds the (B, L, 24)
+    predictions under "pred". MSE is always computed; the
     dRMSD family when the loss needs it or with_drmsd. impl selects the
     dRMSD pair sweep (see ops.drmsd.resolve_impl) and sidechain_impl the
     sidechain build (see ops.sidechain.resolve_impl). The model runs in
@@ -192,6 +208,8 @@ def compute_losses(model, params, batch: Batch, cfg: TrainConfig,
                                             batch.crd_mask,
                                             batch.protein_mask)
     out["loss"] = loss
+    if with_pred:
+        out["pred"] = pred
     return loss, out
 
 
@@ -288,6 +306,8 @@ class Trainer:
                                                    "checkpoints"))
         self.structure_logger = StructureLogger(self.out_dir,
                                                 save_pngs=cfg.save_pngs)
+        # the wandb run, made by the first train() with use_wandb
+        self.wandb_run = None
         # live per-batch status line; --cluster disables it, otherwise it is
         # on for an interactive stderr
         self.batch_status = M.BatchStatus(
@@ -402,30 +422,35 @@ class Trainer:
         return self.cfg.learning_rate * (self.plateau.scale if self.plateau
                                          else 1.0)
 
-    def loss_and_grads(self, params: dict, batch: Batch):
+    def loss_and_grads(self, params: dict, batch: Batch,
+                       with_pred: bool = False):
         """(loss, metrics dict, gradients in the params' order) of one batch
-        already on the device, with the model in train mode."""
+        already on the device, with the model in train mode; with_pred puts
+        the predictions in the dict."""
         self.model.train()
         loss, out = compute_losses(self.model, params, batch, self.cfg,
                                    impl=self.drmsd_impl,
-                                   sidechain_impl=self.sidechain_impl)
+                                   sidechain_impl=self.sidechain_impl,
+                                   with_pred=with_pred)
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True, materialize_grads=True)
         return loss, out, grads
 
     def train_step(self, state: TrainState, batch: Batch,
-                   lr_scale: float = 1.0) -> tuple[TrainState, torch.Tensor]:
+                   lr_scale: float = 1.0, with_pred: bool = False) -> tuple:
         """One optimizer update on one batch (moved to the device here, a
         no-op for a batch already there):
         forward in train mode, backward, then the update, in place on
         ``state.params``. Returns the new state and the packed (K,) metrics
-        vector of the batch, still on the device."""
-        _, out, grads = self.loss_and_grads(state.params,
-                                            batch.to(self.device))
+        vector of the batch, still on the device; with_pred also the
+        batch's (B, L, 24) predictions, detached, as a third element."""
+        _, out, grads = self.loss_and_grads(
+            state.params, batch.to(self.device), with_pred=with_pred)
         opt_state = self.tx.update(state.params, grads, state.opt_state,
                                    lr_scale)
-        return (TrainState(state.params, opt_state, state.step + 1),
-                pack_metrics(out).detach())
+        new = (TrainState(state.params, opt_state, state.step + 1),
+               pack_metrics(out).detach())
+        return (*new, out["pred"].detach()) if with_pred else new
 
     @torch.inference_mode()
     def eval_step(self, params: dict, batch: Batch) -> torch.Tensor:
@@ -437,6 +462,34 @@ class Trainer:
                                 with_drmsd=True, with_rmsd=True,
                                 sidechain_impl=self.sidechain_impl)
         return pack_metrics(out)
+
+    def _probe_gradients(self, state: TrainState) -> dict:
+        """Gradients, keyed like the parameters, of one forward and backward
+        in train mode on a random train batch: the epoch's gradient
+        histograms. The rows are the JAX package's (drawn from ``seed +
+        step``); the batch is collated on the host and copied without
+        blocking; the dropout and sampling draws come from the trainer's
+        generators, reseeded from ``PROBE_SEED_BASE + seed + step`` and
+        given their streams back afterwards."""
+        cfg = self.cfg
+        n = min(cfg.batch_size, len(self.dm.train))
+        rng = np.random.default_rng(cfg.seed + state.step)
+        idx = rng.choice(len(self.dm.train), size=n, replace=False)
+        batch = collate(self.dm.train, idx, cfg.bucket_sizes,
+                        self.dm.max_seq_len)
+        gens = (self.dropout_generator, self.sampling_generator)
+        saved = [g.get_state() for g in gens]
+        self.dropout_generator.manual_seed(PROBE_SEED_BASE + cfg.seed
+                                           + state.step)
+        self.sampling_generator.manual_seed(
+            PROBE_SEED_BASE + SAMPLING_SEED_BASE + cfg.seed + state.step)
+        try:
+            _, _, grads = self.loss_and_grads(
+                state.params, batch.to(self.device, non_blocking=True))
+        finally:
+            for g, st in zip(gens, saved):
+                g.set_state(st)
+        return dict(zip(state.params, grads))
 
     # ---------------- structure logging ----------------
 
@@ -474,9 +527,13 @@ class Trainer:
     # ---------------- epoch loops ----------------
 
     def _process_train_outputs(self, out_host: dict, n_res: int, step: int,
-                               t_dispatch: float, logger) -> None:
+                               t_dispatch: float, logger,
+                               logged=None) -> None:
         """Host-side bookkeeping of one fetched training row: the NaN
-        watchdog, the metrics, the status line and the CSV row."""
+        watchdog, the metrics, the status line and the CSV row; for a step
+        on the wandb cadence (``logged``: its real proteins, its fetched
+        predictions and its host sequence ids) the wandb row and the
+        predicted-angle histograms."""
         if not np.isfinite(out_host["loss"]):
             raise FloatingPointError(
                 "A nan loss has occurred. Exiting training.")
@@ -486,17 +543,32 @@ class Trainer:
         self.batch_status.update_train(self.metrics)
         if logger:
             logger.log(self.metrics, "train", self.start_time)
+        if logged is not None:
+            n_real, pred, seq = logged
+            W.log_train_batch(self.wandb_run, out_host, n_real,
+                              self.metrics["train"]["speed"],
+                              lr=self.metrics["history-lr"][-1])
+            W.log_angle_histograms(self.wandb_run, pred.numpy(), seq,
+                                   self.cfg.pad_id)
 
-    def _start_fetch(self, out: torch.Tensor, host_rows, slot: int):
-        """Begin moving one step's metrics vector to the host without
+    def _start_fetch(self, out: torch.Tensor, host_rows, slot: int,
+                     pred: torch.Tensor | None = None):
+        """Begin moving one step's metrics vector (and ``pred``, the
+        step's predictions, on the wandb cadence) to the host without
         waiting for the device: (host tensor, event to poll or None when
-        the value is there already)."""
+        the values are there already, host predictions or None)."""
         if out.device.type != "cuda":
-            return out, None
+            return out, None, pred
         host_rows[slot].copy_(out, non_blocking=True)
+        if pred is not None:
+            # a pinned slot of its own; the caching host allocator keeps it
+            # until the copy has landed
+            pred_host = torch.empty(pred.shape, dtype=pred.dtype,
+                                    pin_memory=True)
+            pred = pred_host.copy_(pred, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return host_rows[slot], event
+        return host_rows[slot], event, pred
 
     # ---------------- data streams ----------------
 
@@ -578,7 +650,11 @@ class Trainer:
         host_rows = (torch.empty((self.FLUSH_EVERY, len(METRIC_KEYS)),
                                  pin_memory=True)
                      if self.device.type == "cuda" else None)
-        # pending entries: [host tensor, event | None, n_res, step, row | None]
+        # steps on the wandb cadence also fetch their predictions
+        wandb_every = (max(self.cfg.log_wandb_step, 1)
+                       if self.wandb_run is not None else 0)
+        # pending entries: [host tensor, event | None, n_res, step,
+        # row | None, wandb's (real proteins, predictions, seq ids) | None]
         pending: list = []
         t_last_flush = time.time()
         prof = LoopProfiler() if os.environ.get("PTT_LOOP_PROFILE") else None
@@ -588,10 +664,10 @@ class Trainer:
             """Record fetched rows, each at an even share of the time since
             the last flush."""
             dt = (time.time() - t_last_flush) / max(len(rows), 1)
-            for i, (_, _, n_res, step_i, row) in enumerate(rows):
+            for i, (_, _, n_res, step_i, row, logged) in enumerate(rows):
                 self._process_train_outputs(
                     unpack_metrics(row), n_res, step_i,
-                    t_last_flush + (i + 1) * dt, logger)
+                    t_last_flush + (i + 1) * dt, logger, logged)
 
         def check_ready() -> None:
             for j, p in enumerate(pending):
@@ -631,13 +707,25 @@ class Trainer:
                 prof.add("plan/collate", t1 - t0)
                 prof.steps += 1
                 t0 = t1
-            state, out = self.train_step(state, payload, lr_scale)
-            host, event = self._start_fetch(out, host_rows, len(pending))
+            if wandb_every and step % wandb_every == 0:
+                state, out, pred = self.train_step(state, payload, lr_scale,
+                                                   with_pred=True)
+                host, event, pred = self._start_fetch(out, host_rows,
+                                                      len(pending), pred)
+                # the host's own ids: a LazyBatch's seq would gather
+                logged = (int(batch.protein_mask.sum()), pred,
+                          batch.host_seq if isinstance(batch, DS.LazyBatch)
+                          else batch.seq)
+            else:
+                state, out = self.train_step(state, payload, lr_scale)
+                host, event, _ = self._start_fetch(out, host_rows,
+                                                   len(pending))
+                logged = None
             if prof:
                 t1 = time.perf_counter()
                 prof.add("dispatch", t1 - t0)
                 t0 = t1
-            pending.append([host, event, batch.n_res, step, None])
+            pending.append([host, event, batch.n_res, step, None, logged])
             check_ready()
             if prof:
                 t1 = time.perf_counter()
@@ -716,6 +804,8 @@ class Trainer:
         if logger:
             logger.log(self.metrics, mode, self.start_time,
                        end_of_epoch=True)
+        W.log_eval_epoch(self.wandb_run, mode, self.metrics[mode])
+        W.log_final_epoch_summary(self.wandb_run, mode, self.metrics[mode])
         return self.metrics[mode]
 
     # ---------------- checkpointing ----------------
@@ -751,6 +841,8 @@ class Trainer:
                 "best_history": list(history)}
         self.ckpt.save(modifier, self._arrays(state), meta)
         self.metrics["last_chkpt_time"] = time.time()
+        W.log_checkpoint_summary(self.wandb_run, modifier, cur_loss, epoch,
+                                 self.metrics, self.cfg.train_only)
         print(f"    - [Info] checkpoint '{modifier}' updated.")
 
     # ---------------- main loop ----------------
@@ -763,11 +855,21 @@ class Trainer:
         and the early-stopping update on the monitored metric, and the
         checkpoint the policy asks for; the test split at the end. With
         ``profile_dir`` the first trained epoch is traced there
-        (``utils.maybe_profile``)."""
+        (``utils.maybe_profile``). With ``use_wandb`` the first call opens
+        the wandb run (``training/wandb_logging.py``), each epoch ends with
+        the gradient probe's histograms, and the run is finished at the
+        end."""
         cfg = self.cfg
         if state is None:
             state = self.init_state(torch.Generator().manual_seed(cfg.seed))
             state = self.maybe_restore(state)
+        if self.wandb_run is None and cfg.use_wandb:
+            n_params = sum(p.numel() for p in state.params.values())
+            self.wandb_run = W.try_init_wandb(cfg, n_params,
+                                              self.dm.angle_means)
+            self.structure_logger.wandb_run = self.wandb_run
+            W.save_model_txt(self.wandb_run, self.model, self.out_dir)
+            W.mirror_run_files(self.wandb_run, self.out_dir)
         logger = M.CsvLogger(
             os.path.join(self.out_dir, (cfg.name or "run") + ".train"),
             cfg.loss, resume=self.start_epoch > 0)
@@ -790,14 +892,22 @@ class Trainer:
             M.print_epoch_status("train", self.metrics, start)
             logger.log(self.metrics, "train", self.start_time,
                        end_of_epoch=True)
+            W.log_final_epoch_summary(self.wandb_run, "train",
+                                      self.metrics["train"])
+            if cfg.use_wandb:
+                # the epoch's parameter and gradient histograms; the probe
+                # runs whenever wandb is asked for, as in the JAX package
+                grads = self._probe_gradients(state)
+                W.watch_params(self.wandb_run, self.model, state.params,
+                               grads=grads)
 
             if not cfg.train_only:
-                for split in self.dm.eval_splits:
-                    if split == "test":
-                        continue
+                splits = [s for s in self.dm.eval_splits if s != "test"]
+                for split in splits:
                     start = time.time()
                     self.eval_epoch(state.params, split, logger=logger)
                     M.print_epoch_status(split, self.metrics, start)
+                W.log_avg_validation(self.wandb_run, self.metrics, splits)
 
             # LR plateau scheduling on the monitored metric
             monitored = self._monitored_metric()
@@ -810,6 +920,7 @@ class Trainer:
             if stop:
                 print(f"No improvement for {cfg.early_stopping} epochs. "
                       "Stopping model training early.")
+                W.log_early_stop(self.wandb_run)
                 break
 
         if not cfg.train_only and "test" in self.dm.eval_splits:
@@ -818,4 +929,6 @@ class Trainer:
             M.print_epoch_status("test", self.metrics, start)
         logger.close()
         self.structure_logger.close()
+        if self.wandb_run is not None:
+            self.wandb_run.finish()
         return state

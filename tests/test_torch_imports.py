@@ -3,8 +3,9 @@
 The machine the port runs on has no JAX, and the JAX package may come to
 import jax from any of its modules, so the port keeps its own copies of that
 package's numpy-only modules. The first test imports every module of the
-port, and ``chip_smoke``, in a fresh interpreter in which importing jax,
-jaxlib, flax, optax, orbax or protein_transformer_tpu raises. The second
+port (its ``scripts`` among them), and ``chip_smoke``, in a fresh
+interpreter in which importing jax, jaxlib, flax, optax, orbax or
+protein_transformer_tpu raises. The second
 holds the copies equal to the originals, name by name, so that they cannot
 drift.
 """
@@ -41,6 +42,13 @@ import protein_transformer_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
 assert len(names) > 20, names
+# the wandb logging and the dataset tools, and the scripts package
+expected = {pkg.__name__ + "." + m for m in (
+    "training.wandb_logging", "protein.measure",
+    "protein.structure_exceptions", "data.proteinnet", "data.convert",
+    "data.align", "data.acquire", "scripts.proteinnet_to_dataset",
+    "scripts.dataset_item_to_pdb", "scripts.export_embeddings_to_tsv")}
+assert expected <= set(names), expected - set(names)
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 loaded = [m for m in sys.modules

@@ -306,7 +306,6 @@ def test_config_from_args_matches_jax_on_shared_fields():
 
 
 NOT_PORTED = {
-    "wandb": (["--use_wandb", "True"], "wandb logging"),
     "mesh": (["--mesh_shape", "2", "2", "--mesh_axes", "data", "model"],
              "device meshes"),
 }
@@ -335,6 +334,8 @@ NOW_PORTED = {
     "profile": (["--profile_dir", "p"], dict(profile_dir="p")),
     "bfloat16": (["--compute_dtype", "bfloat16"],
                  dict(compute_dtype="bfloat16")),
+    "wandb": (["--use_wandb", "True", "--log_wandb_step", "5"],
+              dict(use_wandb=True, log_wandb_step=5)),
 }
 
 

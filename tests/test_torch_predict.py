@@ -27,6 +27,7 @@ import torch
 
 from protein_transformer_tpu.protein import pdb as jpdb
 from protein_transformer_tpu_torch import predict as tpredict
+from protein_transformer_tpu_torch.config import TrainConfig as TConfig
 from protein_transformer_tpu_torch.data import synthetic as tsyn
 from protein_transformer_tpu_torch.models.factory import make_model
 from protein_transformer_tpu_torch.ops import attention as A
@@ -274,7 +275,8 @@ def test_import_refuses_what_changes_the_models_results(runs, tmp_path, key,
     """A run trained with a setting the port lacks is not imported as if
     it were a float32 encoder run, nor are an encoder's parameters imported
     under another model family's name; settings that only say how the JAX
-    run was executed are dropped."""
+    run was executed are dropped where the port has no field for them (the
+    mesh) and kept where it has (wandb logging)."""
     exported = str(tmp_path / "exported")
     shutil.copytree(runs["exported"], exported)
     cfg_path = os.path.join(exported, "config.json")
@@ -288,7 +290,11 @@ def test_import_refuses_what_changes_the_models_results(runs, tmp_path, key,
     if match is None:
         assert tckpt.import_run(exported, run_dir) == run_dir
         with open(os.path.join(run_dir, "config.json")) as f:
-            assert key not in json.load(f)["config"]
+            imported = json.load(f)["config"]
+        if key in {f.name for f in dataclasses.fields(TConfig)}:
+            assert imported[key] == value
+        else:
+            assert key not in imported
         return
     with pytest.raises(match[0], match=match[1]):
         tckpt.import_run(exported, run_dir)
