@@ -224,6 +224,25 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    (the files' three decimals move the measured angles by ~1e-3 rad); the
    rebuilt file holds the rebuild; scripts.export_embeddings_to_tsv on the
    CLI run writes the model's embedding table and its labels.
+18. multi-GPU (parallel/), on the one card. The CLI at the flagship width
+   (B = 15 real proteins in 16 rows, L = 256, dropout 0, one epoch of two
+   train steps, valid-10 and test) runs as separate rank processes of this
+   script (``--rank-child``), each reporting its kernel launches: (i) under
+   ``python -m torch.distributed.run --nproc_per_node 1`` with
+   PTT_DISTRIBUTED=1, an NCCL group of one rank, so the gradient and metric
+   reductions and the checkpoint policy's broadcast are NCCL calls on the
+   card; (ii) two ranks on cuda:0 through the PTT_* triple, where the
+   backend is gloo (NCCL refuses two ranks on one card), once under
+   ``--mesh_shape 2`` (8 and 7 real proteins a rank) and once under
+   ``--mesh_shape 1 2 --mesh_axes data model --attention_impl flash``
+   (Megatron tensor parallelism, K3a and the flash backward on each rank's
+   4 heads). Each rank must print its backend and launch K1b, K2a and K2b
+   (and K3a and the flash backward under flash), as many times as the
+   other rank of its run; the CSV numbers of every train step and eval
+   epoch must equal those of a single-process run in this process within
+   rtol 2e-4 (TF32 off). A failing or late rank fails the phase. The wall
+   times are printed for information only: ranks sharing one card measure
+   nothing about scaling, and NCCL across separate cards is not exercised.
 
 It prints the time the run took, then the kernel table as one JSON line,
 and as its last line {"ok": true, "device": {...}}. It needs one CUDA
@@ -239,7 +258,9 @@ import json
 import math
 import os
 import re
+import socket
 import statistics
+import subprocess
 import sys
 import tempfile
 import threading
@@ -3246,7 +3267,168 @@ def phase_data_tools(dev, card, out_dir):
     return rebuild_launches
 
 
+# ---------------------------------------------------------------- phase 18
+
+# the flagship CLI run of every rank process: 30 proteins of L = 255-256 in
+# two batches of 15 (16 rows), dropout 0 so that every mesh computes the
+# single-process numbers
+MULTI_GPU_ARGS = ["-m", MODEL, "-dm", "512", "-dih", "2048", "-nh", "8",
+                  "-nl", "6", "-do", "0", "-l", "combined", "-opt", "adam",
+                  "--lr_scheduling", "noam", "-b", "15", "--batching_order",
+                  "descending", "-e", "1", "--cluster", "True",
+                  "--log_structure_step", "0", "-lvs", "0"]
+# (name, backend, ranks, extra flags): the runs of phase 18
+MULTI_GPU_RUNS = (
+    ("nccl-1", "nccl", 1, ["--mesh_shape", "-1"]),
+    ("dp-2", "gloo", 2, ["--mesh_shape", "2"]),
+    ("tp-2", "gloo", 2, ["--mesh_shape", "1", "2", "--mesh_axes", "data",
+                         "model", "--attention_impl", "flash"]))
+MULTI_GPU_KERNELS = ("drmsd_fwd_grad", "sidechain_fwd", "sidechain_bwd")
+MULTI_GPU_FLASH = ("flash_attn_fwd", "flash_attn_bwd")
+RANK_TIMEOUT = 300   # seconds a run's ranks may take, start-up included
+CSV_METRICS = ("drmsd", "ln_drmsd", "rmse", "rmsd", "combined")
+
+
+def rank_child(out_dir: str, argv: list) -> int:
+    """One rank process of phase 18, started as ``chip_smoke.py
+    --rank-child DIR <CLI flags>`` with a multi-process environment: the
+    CLI with TF32 off, then this rank's kernel launches into
+    DIR/launches.rank<r>.json."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ.get("RANK", os.environ.get("PTT_PROCESS_ID", "0")))
+    reset_launches()
+    cli.main(argv)
+    with open(os.path.join(out_dir, f"launches.rank{rank}.json"), "w") as f:
+        json.dump(read_launches(), f)
+    return 0
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_ranks(name: str, n: int, out_dir: str, argv: list) -> list:
+    """The processes of one run: under torch.distributed.run with
+    PTT_DISTRIBUTED=1 for one rank, through the PTT_* triple for more."""
+    port = free_port()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PTT_")}
+    child = [os.path.abspath(__file__), "--rank-child", out_dir, *argv]
+    if n == 1:
+        cmds = [[sys.executable, "-m", "torch.distributed.run", "--nnodes",
+                 "1", "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
+                 "--master_port", str(port), *child]]
+        envs = [dict(env, PTT_DISTRIBUTED="1")]
+    else:
+        cmds = [[sys.executable, *child]] * n
+        envs = [dict(env, PTT_COORDINATOR=f"127.0.0.1:{port}",
+                     PTT_NUM_PROCESSES=str(n), PTT_PROCESS_ID=str(r))
+                for r in range(n)]
+    return [subprocess.Popen(cmd, cwd=ROOT, env=e, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for cmd, e in zip(cmds, envs)]
+
+
+def finish_ranks(procs: list, name: str) -> list:
+    """The ranks' outputs; a rank that fails or outlives RANK_TIMEOUT fails
+    the phase (and every process of the run is stopped)."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        require(False, f"run {name}: a rank did not finish within "
+                       f"{RANK_TIMEOUT} s")
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"run {name}: rank {rank} exited with "
+                                   f"{p.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def csv_numbers(path: str):
+    """(mode, granularity) of each CSV row, and its metric columns."""
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    return ([(r["mode"], r["granularity"]) for r in rows],
+            np.array([[float(r[k]) for k in CSV_METRICS] for r in rows]))
+
+
+def phase_multi_gpu(dev, card, out_dir):
+    """Phase 18; returns each kernel's launches over every rank of every
+    run."""
+    data = make_dataset(n_train=30, n_eval=8, min_len=255, max_len=256,
+                        seed=0, device=dev)
+    for split in [k for k in data if k.startswith("valid-")]:
+        if split != "valid-10":
+            del data[split]
+    data_path = os.path.join(out_dir, "multi_gpu.pt")
+    torch.save(data, data_path)
+    base = ["--data", data_path, "--out_dir", out_dir, *MULTI_GPU_ARGS]
+    walls = {}
+    for impl in ("xla", "flash"):
+        t0 = time.perf_counter()
+        run_cli(base + ["--name", f"one-{impl}", "--attention_impl", impl])
+        walls[f"one-{impl}"] = time.perf_counter() - t0
+    total = dict.fromkeys(COUNTERS, 0)
+    for name, backend, n, flags in MULTI_GPU_RUNS:
+        run_dir = os.path.join(out_dir, name)
+        os.makedirs(run_dir)
+        t0 = time.perf_counter()
+        outs = finish_ranks(start_ranks(name, n, run_dir,
+                                        base + ["--name", name, *flags]),
+                            name)
+        walls[name] = time.perf_counter() - t0
+        for rank, out in enumerate(outs):
+            require(f"rank {rank} of {n} on cuda:0: backend {backend}" in out,
+                    f"run {name}: rank {rank} chose the {backend} backend on "
+                    f"cuda:0:\n{out[-2000:]}")
+        counts = []
+        for rank in range(n):
+            with open(os.path.join(run_dir, f"launches.rank{rank}.json")) as f:
+                counts.append(json.load(f))
+        flash = "flash" in flags
+        needed = MULTI_GPU_KERNELS + (MULTI_GPU_FLASH if flash else ())
+        require(all(c[k] > 0 for c in counts for k in needed)
+                and all(c == counts[0] for c in counts),
+                f"run {name}: every rank launched {needed}, each as often "
+                f"as the others: {counts}")
+        for c in counts:
+            for k, v in c.items():
+                total[k] += v
+        ref = "one-flash" if flash else "one-xla"
+        labels, got = csv_numbers(os.path.join(out_dir, name,
+                                               f"{name}.train"))
+        want_labels, want = csv_numbers(os.path.join(out_dir, ref,
+                                                     f"{ref}.train"))
+        require(labels == want_labels
+                and labels.count(("train", "batch")) == 2,
+                f"run {name}: the CSV rows of two train steps and the eval "
+                f"epochs, as the single-process run's: {labels}")
+        gap = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                            1e-30)))
+        require(np.allclose(got, want, rtol=2e-4, atol=1e-6),
+                f"run {name}: CSV numbers within rtol 2e-4 of {ref}'s "
+                f"(largest relative gap {gap:.2e})")
+        print(f"[multi-gpu] {name}: {n} rank(s), backend {backend}, "
+              f"{' '.join(flags)}: CSV numbers within {gap:.2e} of the "
+              f"single-process run's; launches a rank "
+              f"{json.dumps({k: counts[0][k] for k in needed})}; "
+              f"{walls[name]:.1f} s wall with start-up ({card})")
+    print(f"[multi-gpu] single-process runs in this process: "
+          f"{walls['one-xla']:.1f} s (xla), {walls['one-flash']:.1f} s "
+          f"(flash), for information: ranks sharing one card measure "
+          f"nothing about scaling ({card})")
+    return total
+
+
 def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--rank-child":
+        return rank_child(sys.argv[2], sys.argv[3:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this smoke run "
               "needs one GPU", file=sys.stderr)
@@ -3276,6 +3458,7 @@ def main() -> int:
                                                                 out_dir)
         probe_launches = phase_wandb(dev, card, out_dir)
         rebuild_launches = phase_data_tools(dev, card, out_dir)
+        multi_gpu_launches = phase_multi_gpu(dev, card, out_dir)
     source = "protein_transformer_tpu_torch/csrc/"
     replaces = "protein_transformer_tpu/ops/"
     rows = []
@@ -3360,6 +3543,8 @@ def main() -> int:
             row["launches_probe"] = probe_launches[row["name"]]
         if rebuild_launches[row["name"]]:
             row["launches_rebuild"] = rebuild_launches[row["name"]]
+        # over every rank of phase 18's runs
+        row["launches_multi_gpu"] = multi_gpu_launches[row["name"]]
     require(all(row["launches"] > 0 or row["name"] == "drmsd_grad_b"
                 for row in rows),
             "every kernel of a main path was launched on it (K1c runs only "

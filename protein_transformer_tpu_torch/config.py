@@ -95,6 +95,11 @@ class TrainConfig:
 
     max_seq_len: int = MAX_SEQ_LEN
     bucket_sizes: Sequence[int] = (64, 128, 192, 256, 320, 384, 448, 512)
+    # the mesh over the run's ranks (parallel/mesh.py): -1 infers an axis;
+    # 'data' shards the batch rows, 'model' the attention heads and the
+    # feed-forward hidden units
+    mesh_shape: Sequence[int] = (-1,)
+    mesh_axes: Sequence[str] = ("data",)
     # The dtype the model computes in (models/transformer.py): float32, or
     # bfloat16 with the parameters, the output head and the losses kept in
     # float32, as the JAX package's flax modules cast them.

@@ -150,21 +150,26 @@ def bucket_length(length: int, buckets: Sequence[int], max_len: int) -> int:
 BATCH_BUCKETS = (1, 2, 4, 8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512)
 
 
-def bucket_batch_size(n: int) -> int:
-    """Smallest batch bucket >= n; the rows beyond n are masked dummies."""
+def bucket_batch_size(n: int, multiple: int = 1) -> int:
+    """Smallest batch bucket >= n that is a multiple of ``multiple`` (the
+    'data' mesh axis size: batches shard evenly over its ranks); the rows
+    beyond n are masked dummies."""
     for b in BATCH_BUCKETS:
-        if b >= n:
+        if b >= n and b % multiple == 0:
             return b
-    return n
+    return ((n + multiple - 1) // multiple) * multiple
 
 
 def collate(split: ProteinSplit, indices: np.ndarray,
             length_buckets: Sequence[int],
-            max_seq_len: int = MAX_SEQ_LEN) -> Batch:
-    """Assemble a static-shape masked batch (numpy) from dataset rows."""
+            max_seq_len: int = MAX_SEQ_LEN, pad_batch: bool = True,
+            batch_multiple: int = 1) -> Batch:
+    """Assemble a static-shape masked batch (numpy) from dataset rows;
+    pad_batch pads the rows to ``bucket_batch_size(n, batch_multiple)``."""
     lens = [min(int(split.lens[i]), max_seq_len) for i in indices]
     lmax = bucket_length(max(lens), length_buckets, max_seq_len)
-    b = bucket_batch_size(len(indices))
+    b = (bucket_batch_size(len(indices), batch_multiple) if pad_batch
+         else len(indices))
 
     seq = np.full((b, lmax), VOCAB.pad_id, np.int32)
     ang = np.zeros((b, lmax, NUM_PREDICTED_ANGLES * 2), np.float32)
@@ -218,10 +223,13 @@ def load_dataset(path: str) -> dict:
 
 
 class DataModule:
-    """Splits, the training sampler and collation."""
+    """Splits, the training sampler and collation; every batch's rows are
+    padded to a multiple of ``batch_multiple``, the 'data' mesh axis
+    size."""
 
-    def __init__(self, data: dict, cfg):
+    def __init__(self, data: dict, cfg, batch_multiple: int = 1):
         self.cfg = cfg
+        self.batch_multiple = batch_multiple
         settings = data.get("settings", {})
         self.angle_means = np.asarray(
             settings.get("angle_means",
@@ -270,7 +278,8 @@ class DataModule:
     def train_batches(self, rng: np.random.Generator) -> Iterator[Batch]:
         for idx in self.train_index_batches(rng):
             yield collate(self.train, idx, self.cfg.bucket_sizes,
-                          self.max_seq_len)
+                          self.max_seq_len,
+                          batch_multiple=self.batch_multiple)
 
     def train_eval_index_batches(
             self, rng: np.random.Generator) -> Iterator[np.ndarray]:
@@ -285,7 +294,8 @@ class DataModule:
         train set."""
         for idx in self.train_eval_index_batches(rng):
             yield collate(self.train, idx, self.cfg.bucket_sizes,
-                          self.max_seq_len)
+                          self.max_seq_len,
+                          batch_multiple=self.batch_multiple)
 
     def eval_index_batches(self, split: str) -> Iterator[np.ndarray]:
         ds = self.eval_splits[split]
@@ -296,4 +306,5 @@ class DataModule:
     def eval_batches(self, split: str) -> Iterator[Batch]:
         ds = self.eval_splits[split]
         for idx in self.eval_index_batches(split):
-            yield collate(ds, idx, self.cfg.bucket_sizes, self.max_seq_len)
+            yield collate(ds, idx, self.cfg.bucket_sizes, self.max_seq_len,
+                          batch_multiple=self.batch_multiple)

@@ -1,8 +1,7 @@
 """Device-resident dataset store: a batch is one gather on the device.
 
-Port of protein_transformer_tpu/data/device_store.py, its single-device
-half. Every split is uploaded once as flat residue-major tensors (offsets +
-lengths); a batch is then planned on the host (``plan_batch``: which rows,
+Port of protein_transformer_tpu/data/device_store.py. Every split is
+uploaded once as flat residue-major tensors (offsets + lengths); a batch is then planned on the host (``plan_batch``: which rows,
 at which bucket shape) and assembled on the device by plain tensor indexing
 (``gather_batch_fields``), so per step the host ships only a (B,) index
 vector, through a pinned buffer and without blocking.
@@ -19,10 +18,20 @@ module with PyTorch's indexing: there is no hand kernel to port.
 The store keeps the JAX store's int32 sequence and its per-residue byte
 count, so that ``auto_enabled`` decides exactly as the JAX package does.
 
-Not in the port yet (multi-GPU, ROADMAP Queue 1 item 8): the store sharded
-over a mesh's 'data' axis (the JAX ``_partition_shards``,
-``_sharded_gather_impl``, ``_put_sharded``, the ``owner`` branch of
-``gather_batch_fields``, and the ``mesh`` / ``sharded`` arguments).
+Under a mesh (``parallel/mesh.py``) a rank's batch is its rows of the
+global batch. When the 'data' axis has more than one rank the store is
+SHARDED over it, as in the JAX package: proteins are binned greedily into
+balanced per-rank residue blocks (``_partition_shards``, the same layout on
+every rank), each rank holds its block (``_put_sharded``), gathers the
+batch rows whose proteins it owns, and one collective over 'data' leaves
+each rank its row shard (``_sharded_gather``), with the same fields,
+dtypes, ``pad_id`` rows and dead rows as ``collate``, bit for bit. The JAX
+package's psum-scatter is written as an all-reduce of the packed batch
+followed by the rank's own rows, on every backend: gloo runs only
+all-reduce and broadcast on CUDA tensors. Each rank contributes -0.0 where
+it owns nothing, so the sum is every value exactly (x + -0.0 is x).
+Otherwise (one 'data' rank, or ``sharded=False``) every rank holds the
+whole split and gathers its own rows.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import torch
 
 from protein_transformer_tpu_torch.data.dataset import (
     Batch, ProteinSplit, bucket_batch_size, bucket_length)
+from protein_transformer_tpu_torch.parallel.mesh import batch_sharding
 from protein_transformer_tpu_torch.protein.constants import (
     NUM_PREDICTED_ANGLES, NUM_PREDICTED_COORDS)
 from protein_transformer_tpu_torch.protein.vocab import VOCAB
@@ -58,12 +68,14 @@ class BatchPlan:
 
 
 def plan_batch(split: ProteinSplit, indices: np.ndarray,
-               length_buckets: Sequence[int], max_seq_len: int) -> BatchPlan:
+               length_buckets: Sequence[int], max_seq_len: int,
+               batch_multiple: int = 1) -> BatchPlan:
     """The shape/bookkeeping half of collate, without materialising data."""
     lens = np.minimum(split.lens[np.asarray(indices)], max_seq_len)
     lb = bucket_length(int(lens.max()), length_buckets, max_seq_len)
     n_real = len(indices)
-    idx = np.full((bucket_batch_size(n_real),), -1, np.int32)
+    idx = np.full((bucket_batch_size(n_real, batch_multiple),), -1,
+                  np.int32)
     idx[:n_real] = indices
     return BatchPlan(idx, lb, int(lens.sum()), n_real)
 
@@ -90,19 +102,119 @@ def gather_batch_fields(store: dict, idx: torch.Tensor, *, lb: int,
     return seq, ang, ang_mask, crd, crd_mask, live_row
 
 
-class DeviceStore:
-    """One split resident on ``device``, and its batch gather."""
+# store keys that scale with the dataset (sharded over 'data'); the
+# per-protein metadata (owner/offsets/lens, ~12 B/protein) is on every rank
+_DATA_KEYS = ("seq", "ang", "ang_mask", "crd", "crd_mask")
 
-    def __init__(self, split: ProteinSplit, device: torch.device):
+
+def _partition_shards(lens: np.ndarray, n_shards: int):
+    """Greedy balanced residue binning: proteins -> n_shards rank blocks.
+
+    Longest-first into the currently lightest bin (deterministic: stable
+    sort, lowest-bin tie-break), so every rank computes the identical
+    layout. Returns (owner (n,), local_offset (n,), cap) where cap is the
+    padded per-shard residue count (max bin fill)."""
+    n = len(lens)
+    owner = np.zeros(n, np.int32)
+    local = np.zeros(n, np.int32)
+    fill = np.zeros(n_shards, np.int64)
+    for i in np.argsort(-lens, kind="stable"):
+        s = int(np.argmin(fill))
+        owner[i] = s
+        local[i] = fill[s]
+        fill[s] += int(lens[i])
+    return owner, local, max(int(fill.max()) if n else 0, 1)
+
+
+def _put_sharded(host: dict, data, cap: int, device) -> dict:
+    """This rank's store: its block of ``cap`` residues of each data array
+    (block ``data.rank`` of the 'data' axis ``data``), the metadata
+    whole."""
+    block = slice(data.rank * cap, (data.rank + 1) * cap)
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        x[block] if k in _DATA_KEYS else x)).to(device)
+        for k, x in host.items()}
+
+
+# columns of the packed batch that _sharded_gather sums over 'data'
+_PACKED = (("seq", 1), ("ang", NUM_PREDICTED_ANGLES * 2),
+           ("ang_mask", NUM_PREDICTED_ANGLES * 2),
+           ("crd", NUM_PREDICTED_COORDS * 3),
+           ("crd_mask", NUM_PREDICTED_COORDS))
+
+
+def _sharded_gather(store: dict, idx: torch.Tensor, *, lb: int, pad_id: int,
+                    data, rows: slice | None) -> tuple:
+    """Batch gather from a 'data'-sharded store (JAX
+    ``_sharded_gather_impl``). idx: the whole (Bb,) index vector, -1 = dead
+    row. Each rank gathers the rows whose proteins live in its block and
+    packs the five fields into one float32 (Bb, L, 105) tensor; where it
+    owns nothing it puts -0.0, and rank 0 puts the padding's values
+    (``pad_id`` ids, +0.0 elsewhere) where no protein is. One all-reduce
+    over 'data' then holds the batch exactly, and the rank keeps ``rows``
+    of it (all rows for None). Returns the six Batch array fields."""
+    live = idx >= 0
+    cidx = torch.where(live, idx, 0).long()
+    own = (store["owner"][cidx] == data.rank) & live               # (B,)
+    off = store["offsets"][cidx]                                    # local
+    ln = store["lens"][cidx]
+    pos = torch.arange(lb, dtype=torch.int32, device=idx.device)[None, :]
+    valid = (pos < ln[:, None]) & live[:, None]                     # (B, L)
+    pick = valid & own[:, None]
+    cap = store["seq"].shape[0]
+    at = torch.clamp(off[:, None] + pos, 0, cap - 1).long()
+    bsz = idx.shape[0]
+    packed = torch.cat(
+        [store["seq"][at][..., None].float(), store["ang"][at],
+         store["ang_mask"][at].float(),
+         store["crd"][at].reshape(bsz, lb, -1),
+         store["crd_mask"][at].float()], dim=-1)
+    neutral = torch.full_like(packed, -0.0)
+    if data.rank == 0:
+        pad = torch.zeros(packed.shape[-1], device=packed.device)
+        pad[0] = pad_id
+        neutral = torch.where(valid[..., None], neutral, pad)
+    packed = data.all_reduce(torch.where(pick[..., None], packed, neutral))
+    if rows is not None:
+        packed, live = packed[rows], live[rows]
+    seq, ang, ang_mask, crd, crd_mask = torch.split(
+        packed, [w for _, w in _PACKED], dim=-1)
+    return (seq[..., 0].long(), ang.contiguous(), ang_mask.bool(),
+            crd.reshape(*crd.shape[:2], NUM_PREDICTED_COORDS, 3),
+            crd_mask.bool(), live)
+
+
+class DeviceStore:
+    """One split resident on ``device``, and its batch gather.
+
+    mesh: optional ``parallel.mesh.Mesh``; a batch is then this rank's
+    rows of the global batch. With a multi-rank 'data' axis the store is
+    SHARDED over it (per-rank bytes ~1/N, see ``_sharded_gather``);
+    otherwise every rank holds it whole. ``sharded`` forces the layout
+    (tests, explicit control)."""
+
+    def __init__(self, split: ProteinSplit, device: torch.device,
+                 mesh=None, sharded: bool | None = None):
         self.split = split
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.data = mesh.axis("data") if mesh is not None else None
+        n_data = self.data.size if mesh is not None else 1
+        if sharded is None:
+            sharded = n_data > 1
+        self.sharded = bool(sharded) and mesh is not None
         n = len(split)
         lens = np.minimum(split.lens, split.max_seq_len).astype(np.int32)
-        offsets = np.zeros(n, np.int32)
-        if n:
-            offsets[1:] = np.cumsum(lens)[:-1]
-        total = int(lens.sum())
-        base = offsets.astype(np.int64)
+        if self.sharded:
+            owner, offsets, cap = _partition_shards(lens, n_data)
+            total = n_data * cap
+            base = owner.astype(np.int64) * cap + offsets
+        else:
+            offsets = np.zeros(n, np.int32)
+            if n:
+                offsets[1:] = np.cumsum(lens)[:-1]
+            total = int(lens.sum())
+            base = offsets.astype(np.int64)
 
         # Vectorised fill: one fancy-indexed assignment per array instead of
         # n per-protein slice copies. rows[j] = destination row of the j-th
@@ -131,28 +243,42 @@ class DeviceStore:
         host = {"seq": seq_f, "ang": ang_f, "ang_mask": angm_f,
                 "crd": crd_f, "crd_mask": crdm_f,
                 "offsets": offsets, "lens": lens}
-        self.store = {k: torch.from_numpy(v).to(self.device)
-                      for k, v in host.items()}
+        if self.sharded:
+            host["owner"] = owner
+            self.store = _put_sharded(host, self.data, cap, self.device)
+        else:
+            self.store = {k: torch.from_numpy(v).to(self.device)
+                          for k, v in host.items()}
 
     def device_nbytes(self) -> int:
-        """Resident bytes of the store on its device."""
+        """Resident bytes of this rank's store on its device."""
         return sum(t.numel() * t.element_size() for t in self.store.values())
 
-    def _index(self, plan: BatchPlan) -> torch.Tensor:
-        """The plan's index vector on the device. On a GPU it goes through
-        pinned host memory without blocking; the caching host allocator
-        keeps the pinned block until the copy has landed."""
-        idx = torch.from_numpy(plan.idx_padded)
+    def _index(self, idx: np.ndarray) -> torch.Tensor:
+        """An index vector on the device. On a GPU it goes through pinned
+        host memory without blocking; the caching host allocator keeps the
+        pinned block until the copy has landed."""
+        idx = torch.from_numpy(np.ascontiguousarray(idx))
         if self.device.type != "cuda":
             return idx.to(self.device)
         return idx.pin_memory().to(self.device, non_blocking=True)
 
-    def batch(self, plan: BatchPlan) -> Batch:
-        """Assemble the planned batch on the device. n_res and protein_mask
-        are not read back: n_res is the plan's, and the device's
-        protein_mask is the gather's live rows."""
-        fields = gather_batch_fields(self.store, self._index(plan),
-                                     lb=plan.lb, pad_id=VOCAB.pad_id)
+    def batch(self, plan: BatchPlan, whole: bool = False) -> Batch:
+        """Assemble the planned batch on the device: this rank's rows of
+        it under a mesh, all of them with ``whole``. n_res and
+        protein_mask are not read back: n_res is the plan's (the global
+        batch's), and the device's protein_mask is the gather's live rows.
+        With a sharded store every rank of 'data' must call it alike."""
+        rows = (None if whole or self.mesh is None
+                else batch_sharding(self.mesh).rows(len(plan.idx_padded)))
+        if self.sharded:
+            fields = _sharded_gather(self.store, self._index(plan.idx_padded),
+                                     lb=plan.lb, pad_id=VOCAB.pad_id,
+                                     data=self.data, rows=rows)
+        else:
+            idx = plan.idx_padded if rows is None else plan.idx_padded[rows]
+            fields = gather_batch_fields(self.store, self._index(idx),
+                                         lb=plan.lb, pad_id=VOCAB.pad_id)
         return Batch(*fields, n_res=plan.n_res)
 
 
@@ -161,7 +287,9 @@ class LazyBatch:
 
     Loop bookkeeping needs only the cheap host fields (n_res, protein_mask,
     from the plan); the array fields materialise on first access by one
-    gather, which the loop asks for only on the structure-logging cadence.
+    gather of the whole global batch (every rank of a sharded store must
+    ask alike), which the loop asks for only on the structure-logging
+    cadence.
     """
 
     def __init__(self, store: DeviceStore, plan: BatchPlan):
@@ -172,7 +300,7 @@ class LazyBatch:
 
     def _materialize(self) -> Batch:
         if self._dev is None:
-            self._dev = self._store.batch(self._plan)
+            self._dev = self._store.batch(self._plan, whole=True)
         return self._dev
 
     @property
@@ -211,14 +339,25 @@ class LazyBatch:
         return self._materialize().crd_mask
 
 
-def auto_enabled(cfg, splits: Sequence[ProteinSplit]) -> bool:
+def auto_enabled(cfg, splits: Sequence[ProteinSplit],
+                 process_count: int = 1, has_mesh: bool = True,
+                 n_data: int = 1) -> bool:
     """Decide the device-data path: an explicit flag wins; 'auto' enables
-    when the resident footprint of ``splits`` fits
-    ``cfg.device_data_max_mb``."""
+    when the PER-DEVICE resident footprint of ``splits`` fits
+    ``cfg.device_data_max_mb``: the store shards over the 'data' axis when
+    it spans more than one rank, so the budget applies to the ~1/n_data
+    shard. A multi-process run without a mesh has no store (no rank knows
+    its rows)."""
     mode = getattr(cfg, "device_data", "auto")
+    if process_count > 1 and not has_mesh:
+        if mode in (True, "true", "on"):
+            print("[device_data] forced off: multi-process without a mesh "
+                  "cannot build a globally-addressed store")
+        return False
     if mode in (True, "true", "on"):
         return True
     if mode in (False, "false", "off"):
         return False
     budget = getattr(cfg, "device_data_max_mb", 4096) * 1024 * 1024
-    return sum(store_nbytes(s) for s in splits) <= budget
+    per_device = sum(store_nbytes(s) for s in splits) / max(n_data, 1)
+    return per_device <= budget

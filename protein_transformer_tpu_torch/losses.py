@@ -9,6 +9,12 @@ compact-then-reduce semantics.
 The dRMSD pair sweep goes through ``ops.drmsd``: the CUDA kernels for CUDA
 tensors (impl "cuda"), the plain PyTorch versions otherwise ("torch"). It is
 differentiable in the predicted coordinates (``ops.drmsd.DrmsdStats``).
+
+Every batch loss is a quotient: a sum over the batch's valid entries (or
+real proteins) over their count. A rank that holds only its rows of the
+global batch passes the global count (``count=``, from ``batch_counts``
+summed over the ranks): its quotient is then its share of the global one,
+the shares add up to it, and their gradients add up to its gradient.
 """
 from __future__ import annotations
 
@@ -24,25 +30,42 @@ from protein_transformer_tpu_torch.protein.geometry import (
     build_coords_batch, inverse_trig_transform)
 
 
-def mse_over_angles(pred: torch.Tensor, true: torch.Tensor,
-                    mask: torch.Tensor, bb_only: bool = False,
-                    sc_only: bool = False) -> torch.Tensor:
-    """Masked MSE between (B, L, 24) sin/cos or (B, L, 12) radian tensors,
-    averaged over the selected elements; bb_only / sc_only slice at the
-    first sidechain angle."""
+def _angle_split(pred: torch.Tensor) -> int:
     a = pred.shape[-1]
     if a == NUM_PREDICTED_ANGLES * 2:
-        split = SC_ANGLES_START_POS * 2
-    elif a == NUM_PREDICTED_ANGLES:
-        split = SC_ANGLES_START_POS
-    else:
-        raise ValueError(f"Unknown angle tensor shape {tuple(pred.shape)}")
+        return SC_ANGLES_START_POS * 2
+    if a == NUM_PREDICTED_ANGLES:
+        return SC_ANGLES_START_POS
+    raise ValueError(f"Unknown angle tensor shape {tuple(pred.shape)}")
+
+
+def mse_over_angles(pred: torch.Tensor, true: torch.Tensor,
+                    mask: torch.Tensor, bb_only: bool = False,
+                    sc_only: bool = False,
+                    count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked MSE between (B, L, 24) sin/cos or (B, L, 12) radian tensors,
+    averaged over the selected elements (``count`` of them in the global
+    batch, by default those of this one); bb_only / sc_only slice at the
+    first sidechain angle."""
+    split = _angle_split(pred)
     if bb_only:
         pred, true, mask = pred[..., :split], true[..., :split], mask[..., :split]
     elif sc_only:
         pred, true, mask = pred[..., split:], true[..., split:], mask[..., split:]
     sq = torch.where(mask, (pred - true) ** 2, 0.0)
-    return torch.sum(sq) / torch.clamp(torch.sum(mask), min=1)
+    if count is None:
+        count = torch.sum(mask)
+    return torch.sum(sq) / torch.clamp(count, min=1)
+
+
+def batch_counts(ang_mask: torch.Tensor,
+                 protein_mask: torch.Tensor) -> torch.Tensor:
+    """The denominators of the batch losses, as one int64 vector: the valid
+    angle entries (all, backbone, sidechain) and the real proteins."""
+    split = _angle_split(ang_mask)
+    return torch.stack([torch.sum(ang_mask), torch.sum(ang_mask[..., :split]),
+                        torch.sum(ang_mask[..., split:]),
+                        torch.sum(protein_mask)])
 
 
 def drmsd_masked(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
@@ -91,12 +114,15 @@ def per_protein_drmsd(pred_crd: torch.Tensor, true_crd: torch.Tensor,
     return DrmsdResults(full, ln, bb, ln_bb)
 
 
-def _masked_mean(v: torch.Tensor,
-                 protein_mask: Optional[torch.Tensor]) -> torch.Tensor:
+def _masked_mean(v: torch.Tensor, protein_mask: Optional[torch.Tensor],
+                 count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean over the real proteins (``count`` of them in the global batch,
+    by default those of this one)."""
     if protein_mask is None:
         return torch.mean(v)
     w = protein_mask.to(v.dtype)
-    return torch.sum(v * w) / torch.clamp(torch.sum(w), min=1.0)
+    count = torch.sum(w) if count is None else count.to(v.dtype)
+    return torch.sum(v * w) / torch.clamp(count, min=1.0)
 
 
 def compute_batch_drmsd(pred_sincos: torch.Tensor, true_crd: torch.Tensor,
@@ -105,19 +131,21 @@ def compute_batch_drmsd(pred_sincos: torch.Tensor, true_crd: torch.Tensor,
                         impl: str = "auto",
                         pred_crd: Optional[torch.Tensor] = None,
                         with_per_protein: bool = False,
-                        backbone_only: bool = False):
+                        backbone_only: bool = False,
+                        n_proteins: Optional[torch.Tensor] = None):
     """Batch-mean dRMSD family from (B, L, 24) predictions.
 
     protein_mask: optional (B,) bool marking real rows; padded dummy rows
-    are left out of the mean. pred_crd skips the NeRF build when the caller
-    already has the coordinates. with_per_protein also returns the (B,)
-    statistics, as (means, per-protein), for the reference gradient
-    semantics."""
+    are left out of the mean, over ``n_proteins`` real ones (by default
+    this batch's). pred_crd skips the NeRF build when the caller already
+    has the coordinates. with_per_protein also returns the (B,) statistics,
+    as (means, per-protein), for the reference gradient semantics."""
     if pred_crd is None:
         pred_crd = build_coords_batch(inverse_trig_transform(pred_sincos), seq)
     per = per_protein_drmsd(pred_crd, true_crd, atom_mask, impl,
                             backbone_only)
-    res = DrmsdResults(*(_masked_mean(v, protein_mask) for v in per))
+    res = DrmsdResults(*(_masked_mean(v, protein_mask, n_proteins)
+                         for v in per))
     return (res, per) if with_per_protein else res
 
 
@@ -155,11 +183,13 @@ def kabsch_rmsd_masked(a: torch.Tensor, b: torch.Tensor,
 
 def batch_rmsd(pred_crd: torch.Tensor, true_crd: torch.Tensor,
                atom_mask: torch.Tensor,
-               protein_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean per-protein masked superposition RMSD over a batch, on the
-    tensors' device (the JAX package's ``batch_rmsd_jax``)."""
+               protein_mask: Optional[torch.Tensor] = None,
+               n_proteins: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean per-protein masked superposition RMSD over a batch (over
+    ``n_proteins`` real ones, by default this batch's), on the tensors'
+    device (the JAX package's ``batch_rmsd_jax``)."""
     bsz = pred_crd.shape[0]
     vals = kabsch_rmsd_masked(pred_crd.reshape(bsz, -1, 3),
                               true_crd.reshape(bsz, -1, 3),
                               atom_mask.reshape(bsz, -1))
-    return _masked_mean(vals, protein_mask)
+    return _masked_mean(vals, protein_mask, n_proteins)

@@ -50,6 +50,17 @@ islands are the same), so gradients land in float32 on float32 parameters:
 The output heads (``encoder_only.AngleProjection``, the encoder-decoder's
 projection) compute in their parameters' dtype, float32, whatever the
 trunk's dtype.
+
+**Tensor parallelism** (``set_model_parallel``; the JAX package's
+``parallel/sharding.py`` layout over a 'model' mesh axis): an attention
+block computes its rank's share of the heads from the row slices of
+wq/wk/wv (and the slices of their replicated biases) and the column slice
+of wo; a feed-forward block its slice of the hidden units. Each block takes
+its input through ``copy_to_model`` and sums its row-parallel product by
+``reduce_from_model`` before adding that layer's bias once. The heads are
+split only when the head count and the width divide the axis; otherwise
+the block stays replicated. Every branch, flash included, runs on the local
+heads.
 """
 from __future__ import annotations
 
@@ -61,6 +72,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from protein_transformer_tpu_torch.ops import attention
+from protein_transformer_tpu_torch.parallel.sharding import (
+    copy_to_model, reduce_from_model)
 
 LAYER_NORM_EPS = 1e-6
 ATTENTION_IMPLS = ("xla", "flash")
@@ -85,6 +98,33 @@ class Dropout(nn.Module):
         keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
                                               generator=self.generator)
         return x * keep / (1.0 - self.p)
+
+
+def set_model_parallel(model: nn.Module, axis) -> None:
+    """Split every attention and feed-forward block of ``model`` over the
+    'model' ``axis`` (``parallel.mesh.AxisGroup``) where its sizes divide
+    it; a no-op for an axis of size 1. The parameters the blocks then take
+    are the slices of ``parallel.sharding.shard_params``."""
+    if axis.size == 1:
+        return
+    for m in model.modules():
+        if isinstance(m, MultiHeadedAttention):
+            dim = m.wq.in_features
+            if m.n_heads % axis.size == 0 and dim % axis.size == 0:
+                m.mp = axis
+        elif isinstance(m, PositionwiseFeedForward):
+            if m.w_1.out_features % axis.size == 0:
+                m.mp = axis
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias, dtype) -> torch.Tensor:
+    """flax's ``nn.Dense(dtype=...)`` on explicit weights: with a dtype the
+    product rounded to it, then the bias (None: no bias) added in it;
+    without, ``F.linear``."""
+    if dtype is None:
+        return F.linear(x, weight, bias)
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    return y if bias is None else y + bias.to(dtype)
 
 
 def set_dropout_generator(model: nn.Module,
@@ -122,10 +162,7 @@ class Dense(nn.Linear):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        if dt is None:
-            return super().forward(x)
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        return dense(x, self.weight, self.bias, self.compute_dtype)
 
 
 class Conv(nn.Conv1d):
@@ -230,32 +267,64 @@ class MultiHeadedAttention(nn.Module):
         self.wv = Dense(dim, dim, dtype)
         self.wo = Dense(dim, dim, dtype)
         self.dropout = Dropout(dropout)
+        # the 'model' axis the heads are split over (set_model_parallel)
+        self.mp = None
 
     def forward(self, q_in, k_in, v_in, mask=None):
         bsz, lq, dim = q_in.shape
         dk = dim // self.n_heads
+        self_attention = q_in is k_in
+        n_heads, project = self.n_heads, lambda d, x: d(x)
+        if self.mp is not None:
+            # this rank's heads: the row slices of wq/wk/wv it holds, and
+            # the matching slices of their replicated biases
+            n_heads //= self.mp.size
+            lo = self.mp.rank * n_heads * dk
+            q_in, k_in, v_in = self._inputs(q_in, k_in, v_in)
+
+            def project(d, x):
+                b = copy_to_model(d.bias, self.mp)[lo:lo + n_heads * dk]
+                return dense(x, d.weight, b, self.dtype)
 
         def split(x):
-            return x.reshape(bsz, x.shape[1], self.n_heads, dk).transpose(1, 2)
+            return x.reshape(bsz, x.shape[1], n_heads, dk).transpose(1, 2)
 
-        q, k, v = split(self.wq(q_in)), split(self.wk(k_in)), split(self.wv(v_in))
+        q = split(project(self.wq, q_in))
+        k = split(project(self.wk, k_in))
+        v = split(project(self.wv, v_in))
         if (self.impl == "flash"
                 and (not self.training or self.dropout.p == 0.0)
                 and mask is not None and mask.dim() == 4
                 and mask.shape[1] == 1 and mask.shape[2] == 1
-                and q_in is k_in):
+                and self_attention):
             out = attention.flash_self_attention(
                 q, k, v, mask[:, 0, 0, :], sm_scale=1.0 / math.sqrt(dk))
-            return self.wo(out.transpose(1, 2).reshape(bsz, lq, dim))
-        if self.dtype is not None:
-            # fp32 scores from the compute-dtype operands
-            q, k = q.float(), k.float()
-        scores = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(dk)
-        if mask is not None:
-            scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
-        probs = self.dropout(torch.softmax(scores, dim=-1))
-        out = torch.matmul(cast(probs, self.dtype), v)
-        return self.wo(out.transpose(1, 2).reshape(bsz, lq, dim))
+        else:
+            if self.dtype is not None:
+                # fp32 scores from the compute-dtype operands
+                q, k = q.float(), k.float()
+            scores = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(dk)
+            if mask is not None:
+                scores = scores.masked_fill(~mask,
+                                            torch.finfo(torch.float32).min)
+            probs = self.dropout(torch.softmax(scores, dim=-1))
+            out = torch.matmul(cast(probs, self.dtype), v)
+        out = out.transpose(1, 2).reshape(bsz, lq, n_heads * dk)
+        if self.mp is None:
+            return self.wo(out)
+        # row-parallel wo: the partial products summed, then the bias once
+        y = reduce_from_model(dense(out, self.wo.weight, None, self.dtype),
+                              self.mp)
+        return y + cast(self.wo.bias, self.dtype)
+
+    def _inputs(self, *xs):
+        """The block's inputs through ``copy_to_model``, each distinct
+        tensor once."""
+        seen = {}
+        for x in xs:
+            if id(x) not in seen:
+                seen[id(x)] = copy_to_model(x, self.mp)
+        return tuple(seen[id(x)] for x in xs)
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -267,9 +336,18 @@ class PositionwiseFeedForward(nn.Module):
         self.w_1 = Dense(dim, hidden, dtype)
         self.w_2 = Dense(hidden, dim, dtype)
         self.dropout = Dropout(dropout)
+        # the 'model' axis the hidden units are split over
+        # (set_model_parallel)
+        self.mp = None
 
     def forward(self, x):
-        return self.w_2(self.dropout(torch.relu(self.w_1(x))))
+        if self.mp is None:
+            return self.w_2(self.dropout(torch.relu(self.w_1(x))))
+        h = self.dropout(torch.relu(self.w_1(copy_to_model(x, self.mp))))
+        # row-parallel w_2: the partial products summed, then the bias once
+        y = reduce_from_model(
+            dense(h, self.w_2.weight, None, self.w_2.compute_dtype), self.mp)
+        return y + cast(self.w_2.bias, self.w_2.compute_dtype)
 
 
 class SublayerConnection(nn.Module):

@@ -12,6 +12,12 @@ train.py:532). Every other error propagates.
 After a failed try the except block is left first (its traceback holds the
 tried tensors), then ``gc.collect()`` and ``torch.cuda.empty_cache()``
 return the memory before the next try.
+
+Under a mesh every rank runs the sharded step of the try, and a try fits
+only when it fits on every rank (``parallel.distributed.all_agree``), so
+the ranks go on alike. The ranks are taken to run out of memory alike
+(the same card and the same shapes): a rank that runs out inside a
+collective that the others finish leaves them waiting.
 """
 from __future__ import annotations
 
@@ -61,14 +67,16 @@ def release_memory() -> None:
 def find_largest_batch_size(try_batch: Callable[[int], None],
                             start: int = 1, max_batch: int = 4096,
                             keep_fraction: float = DEFAULT_KEEP_FRACTION,
-                            verbose: bool = True) -> int:
+                            verbose: bool = True,
+                            agree: Callable[[bool], bool] = bool) -> int:
     """Largest b for which try_batch(b) succeeds, scaled by keep_fraction.
 
     try_batch(b) must run one full training step at batch size b and raise
-    on running out of memory; any other exception propagates.
+    on running out of memory; any other exception propagates. ``agree``
+    turns this process's outcome of a try into the run's.
     """
     def attempt(b: int) -> bool:
-        ok = _fits(try_batch, b)
+        ok = agree(_fits(try_batch, b))
         if not ok:
             release_memory()
         if verbose:
@@ -103,10 +111,12 @@ def probe_trainer_batch_size(trainer, length: int | None = None,
                              **kwargs) -> int:
     """Probe the largest batch for a Trainer's configured model and loss, on
     the step its data path runs: a batch gathered from the device store
-    when the store is on, a collated host batch otherwise. Each try trains
-    on copies of one template state (the step updates in place)."""
+    when the store is on, a collated host batch otherwise; under a mesh the
+    sharded step on every rank. Each try trains on copies of one template
+    state (the step updates in place)."""
     from protein_transformer_tpu_torch.data.dataset import collate
     from protein_transformer_tpu_torch.data.device_store import plan_batch
+    from protein_transformer_tpu_torch.parallel.distributed import all_agree
 
     length = length or trainer.dm.max_seq_len
     template = trainer.init_params(
@@ -115,12 +125,14 @@ def probe_trainer_batch_size(trainer, length: int | None = None,
 
     def try_batch(b):
         idx = np.resize(np.arange(len(ds)), b)
+        multiple = trainer.dm.batch_multiple
         if trainer.train_store is not None:
             batch = trainer.train_store.batch(
-                plan_batch(ds, idx, (length,), length))
+                plan_batch(ds, idx, (length,), length, multiple))
         else:
-            batch = collate(ds, idx, (length,), length)
+            batch = collate(ds, idx, (length,), length,
+                            batch_multiple=multiple)
         _, out = trainer.train_step(trainer.state_from(template), batch)
         out.cpu()  # waits for the step
 
-    return find_largest_batch_size(try_batch, **kwargs)
+    return find_largest_batch_size(try_batch, agree=all_agree, **kwargs)

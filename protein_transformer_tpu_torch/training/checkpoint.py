@@ -6,9 +6,10 @@ when ``checkpoint_time_interval`` hours have passed since the last
 checkpoint; resume from 'best' by default, ``restart`` skips loading,
 ``restart_opt`` loads the weights but keeps a fresh optimizer.
 
-Tensor state (parameters, optimizer state, step) goes into one file per
-modifier, ``<directory>/<modifier>``, which holds tensors and plain Python
-values only, so that it loads with ``torch.load(..., weights_only=True)``.
+Tensor state (parameters, optimizer state, step; the full tensors, whatever
+the run's mesh, which the trainer gathers and process 0 writes) goes into
+one file per modifier, ``<directory>/<modifier>``, which holds tensors and
+plain Python values only, so that it loads with ``torch.load(..., weights_only=True)``.
 Host-side scalar state (epoch, elapsed time, the plateau and early-stopping
 machines, the loss history) goes to a JSON sidecar,
 ``<directory>/<modifier>.meta.json``. Each file is written under a temporary
@@ -125,14 +126,16 @@ def checkpoint_policy(cur_loss: float, loss_history: list,
     """Returns 'best', 'latest', or None.
 
     'best' for the first recorded loss and for one below every earlier one;
-    otherwise 'latest' once the time interval (hours, 0 = never) has passed
-    on the local clock. Agreeing on that clock across processes comes with
-    the multi-GPU slice; until then more than one process is refused."""
-    if process_count > 1:
-        raise NotImplementedError(
-            "checkpoint_policy: multi-process runs are not in the port yet")
+    otherwise 'latest' once the time interval (hours, 0 = never) has passed.
+    The time trigger reads the local clock; in a multi-process run the
+    processes could disagree near the interval's end and part ways around
+    the checkpoint's gather, so process 0's decision is broadcast."""
     do_time = (time_interval_hours > 0 and
                (time.time() - last_chkpt_time) / 3600 > time_interval_hours)
+    if process_count > 1 or torch.distributed.is_initialized():
+        from protein_transformer_tpu_torch.parallel.distributed import (
+            broadcast_one_to_all)
+        do_time = broadcast_one_to_all(do_time)
     if len(loss_history) == 1 or (loss_history[:-1]
                                   and cur_loss < min(loss_history[:-1])):
         return "best"
@@ -167,8 +170,10 @@ def import_run(exported_dir: str, run_dir: str,
     ``checkpoints/<modifier>`` with its sidecar; returns ``run_dir``.
 
     Settings of the JAX run that the port has no field for are dropped: they
-    only say how that run was executed (logging, profiling, the mesh, the
-    data store). The compute dtype is kept: a bfloat16 run's parameters are
+    only say how that run was executed (logging, profiling, the data
+    store). The mesh is kept, as a record: the checkpoint holds the full
+    tensors, and a run resumed from it takes its mesh from its own flags.
+    The compute dtype is kept: a bfloat16 run's parameters are
     float32 as a float32 run's, and the imported model computes in bf16."""
     from protein_transformer_tpu_torch.config import TrainConfig
     from protein_transformer_tpu_torch.models.factory import make_model

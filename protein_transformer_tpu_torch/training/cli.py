@@ -4,20 +4,22 @@ surface).
 Port of protein_transformer_tpu/training/cli.py: the same flags, aliases and
 defaults onto ``TrainConfig`` fields, with a "GPU Args" group in place of
 the "TPU Args" group. The run goes to the GPU unless ``--device cpu`` asks
-for the CPU; without a GPU ``--device cuda`` raises.
-
-A flag value that asks for a part of the system that the port does not have
-yet is refused at once with a message naming the part; it is never accepted
-and ignored. The flags that the JAX package itself accepts and ignores
-(``--sequential_drmsd_loss``, ``--no_cuda``) stay accepted and ignored.
+for the CPU; without a GPU ``--device cuda`` raises. The flags that the JAX
+package itself accepts and ignores (``--sequential_drmsd_loss``,
+``--no_cuda``) stay accepted and ignored.
 
 Run:  python -m protein_transformer_tpu_torch.training.cli --data <path> [...]
+
+Multi-GPU (``--mesh_shape`` / ``--mesh_axes``; one process per card, each
+on its own card): launch one process per rank with ``PTT_DISTRIBUTED=1``
+under ``python -m torch.distributed.run --nproc_per_node N``, or set
+``PTT_COORDINATOR=host:port``, ``PTT_NUM_PROCESSES`` and ``PTT_PROCESS_ID``
+for each process (``parallel/distributed.py``).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Mapping
 
 from protein_transformer_tpu_torch.config import TrainConfig
 
@@ -150,26 +152,7 @@ def create_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(settings: Mapping) -> None:
-    """Raise NotImplementedError for a setting that asks for a part of the
-    system that the port does not have yet. ``settings`` maps setting names
-    to values: the parsed flags, or the saved config of a run (a setting
-    that is absent counts as not asked for)."""
-    get = settings.get
-    asked = (
-        (list(get("mesh_shape", [-1])) != [-1]
-         or list(get("mesh_axes", ["data"])) != ["data"],
-         "--mesh_shape / --mesh_axes",
-         "device meshes and multi-GPU runs (parallel/)"),
-    )
-    for wanted, flag, part in asked:
-        if wanted:
-            raise NotImplementedError(
-                f"{flag}: {part} is not in the PyTorch port yet")
-
-
 def _config(args: argparse.Namespace) -> TrainConfig:
-    check_ported(vars(args))
     fields = {f.name for f in dataclasses.fields(TrainConfig)}
     kwargs = {k: v for k, v in vars(args).items() if k in fields}
     return TrainConfig(**kwargs).finalize()
@@ -188,9 +171,11 @@ def main(argv=None):
     import torch
 
     from protein_transformer_tpu_torch.device import cuda_device
+    from protein_transformer_tpu_torch.parallel import distributed
     from protein_transformer_tpu_torch.training.trainer import Trainer
-    device = (cuda_device() if args.device == "cuda"
-              else torch.device("cpu"))
+    # each rank on its own card (the current one for a single process)
+    device = (cuda_device(distributed.local_device_index())
+              if args.device == "cuda" else torch.device("cpu"))
     trainer = Trainer(cfg, device=device)
     if cfg.automatically_determine_batch_size:
         # Probe the out-of-memory frontier at the longest bucket, then
@@ -205,7 +190,9 @@ def main(argv=None):
         del trainer
         batch_probe.release_memory()
         trainer = Trainer(cfg, device=device)
-    return trainer.train()
+    state = trainer.train()
+    distributed.shutdown()
+    return state
 
 
 if __name__ == "__main__":

@@ -12,7 +12,12 @@ follows step for step:
    times the plateau scale that the trainer passes.
 
 Parameters are a dict of tensors, updated in place under ``no_grad`` (the
-JAX package donates their buffers to the same end). The multi-tensor
+JAX package donates their buffers to the same end). Under tensor
+parallelism (``shard``) a rank holds slices of some of them; the clip then
+takes the norm of the full parameters, as the JAX step does: the square
+sums of the sliced gradients are summed over the 'model' axis, and the
+replicated ones are counted once. The moments take their parameter's
+layout. The multi-tensor
 ``torch._foreach_*`` ops keep the launch count per step flat in the number
 of parameter tensors. The step count lives on the host, so the schedule
 never reads the device. ``PlateauState`` and ``EarlyStopping`` are the JAX
@@ -64,6 +69,26 @@ class Optimizer:
         self.learning_rate = learning_rate
         self.weight_decay = WEIGHT_DECAY if weight_decay else 0.0
         self.clip = clip
+        # the names of the parameters that are slices over the 'model'
+        # axis, and that axis (set by ``shard``)
+        self.sharded: frozenset = frozenset()
+        self.axis = None
+
+    def shard(self, names, axis) -> None:
+        """Take the parameters ``names``, slices over the 'model' ``axis``
+        (a ``parallel.mesh.AxisGroup``), into the clip's norm as such."""
+        self.sharded, self.axis = frozenset(names), axis
+
+    def global_norm(self, grads: list, sliced: list) -> torch.Tensor:
+        """The L2 norm of the full gradients, as a 0-d tensor; ``sliced[i]``
+        says that ``grads[i]`` is a slice over the 'model' axis."""
+        norms = torch._foreach_norm(grads)
+        if not any(sliced):
+            return torch.linalg.vector_norm(torch.stack(norms))
+        zero = torch.zeros((), device=norms[0].device)
+        part = sum((n.square() for n, s in zip(norms, sliced) if s), zero)
+        rest = sum((n.square() for n, s in zip(norms, sliced) if not s), zero)
+        return torch.sqrt(self.axis.all_reduce(part) + rest)
 
     def lr(self, count: int) -> float:
         """The learning rate of the update after ``count`` updates."""
@@ -85,8 +110,7 @@ class Optimizer:
         ps = list(params.values())
         gs = list(grads)
         if self.clip:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(gs)))
+            norm = self.global_norm(gs, [k in self.sharded for k in params])
             factor = torch.where(norm < self.clip, 1.0, self.clip / norm)
             torch._foreach_mul_(gs, factor)
         if self.weight_decay:

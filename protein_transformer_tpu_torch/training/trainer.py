@@ -2,8 +2,8 @@
 (model -> angles -> NeRF -> losses, backward, the optimizer update) and the
 host loop around them.
 
-Port of protein_transformer_tpu/training/trainer.py on one device. The
-model runs on an explicit device; parameters are a plain dict of tensors
+Port of protein_transformer_tpu/training/trainer.py. The model runs on an
+explicit device; parameters are a plain dict of tensors
 (``Trainer.init_params``, or the flax bridge) applied with
 ``torch.func.functional_call``, the counterpart of flax's ``apply``. A step
 computes the losses in train mode (dropout drawn from the trainer's own
@@ -37,7 +37,27 @@ parameter and of its gradient on a random train batch
 (``_probe_gradients``, one more forward and backward). A cadence step's
 predictions reach the host as its metrics row does, by a non-blocking copy
 that the flush reads; with ``use_wandb`` off a step launches nothing more.
-Meshes are not in the port yet.
+
+**Meshes** (``parallel/``; ``cfg.mesh_shape`` / ``mesh_axes``, as in the
+JAX package). One process per device: the trainer joins the process group
+the environment configures (``parallel.distributed.initialize_from_env``),
+then lays the ranks out on the mesh. Over 'data' each rank takes its rows of
+the same global batch (batches are padded to a multiple of the axis size);
+over 'model' the attention heads and the feed-forward hidden units are
+split Megatron-style and the parameters and Adam moments are slices
+(``parallel/sharding.py``). The step keeps the JAX step's global-batch
+semantics: every loss and metric is a global quotient, so each rank divides
+its sums by the global counts (one all-reduce of ``losses.batch_counts``),
+and the gradients and the packed metrics are summed over 'data' in one
+all-reduce; the clip takes the norm of the full parameters. Every rank
+therefore reads the same metrics, and the NaN watchdog, the plateau, early
+stopping and the checkpoint policy decide alike. Dropout masks are drawn
+per 'data' rank and alike on the 'model' ranks of one, so that a
+replicated activation gets the same mask on each. Rank 0 alone writes the
+CSV, config.json, wandb and structure files and the status line;
+collective work (the gradient probe, structure predictions, checkpoint
+gathers) runs on every rank. A checkpoint holds the full tensors, so it
+restores under any layout.
 """
 from __future__ import annotations
 
@@ -65,7 +85,13 @@ from protein_transformer_tpu_torch.models.enc_dec import (
 from protein_transformer_tpu_torch.models.factory import (
     make_model, model_args)
 from protein_transformer_tpu_torch.models.transformer import (
-    set_dropout_generator)
+    set_dropout_generator, set_model_parallel)
+from protein_transformer_tpu_torch.parallel.distributed import (
+    broadcast_one_to_all, initialize_from_env)
+from protein_transformer_tpu_torch.parallel.mesh import (
+    AxisGroup, make_mesh, replicate_tree, shard_batch)
+from protein_transformer_tpu_torch.parallel.sharding import (
+    assemble, gather_params, shard_layout, shard_params)
 from protein_transformer_tpu_torch.ops import sidechain
 from protein_transformer_tpu_torch.ops.drmsd import resolve_impl
 from protein_transformer_tpu_torch.protein.geometry import build_coords_batch
@@ -86,6 +112,10 @@ SAMPLING_SEED_BASE = 1 << 32
 # the generators' streams are restored after it: a run trains the same with
 # wandb on or off, as in the JAX package.
 PROBE_SEED_BASE = 1 << 40
+# The dropout seeds of 'data' rank d are d strides past rank 0's, which are
+# the single-process run's. A CPU generator keeps the low 32 bits of a seed,
+# so the stride stays inside them: 2^24 steps apart, for up to 256 ranks.
+DATA_SEED_STRIDE = 1 << 24
 
 # Fixed order in which a step packs its scalar metrics into one (K,) vector,
 # so a window of steps is fetched to the host in one copy.
@@ -134,7 +164,8 @@ class LoopProfiler:
 
 def compute_losses(model, params, batch: Batch, cfg: TrainConfig,
                    impl: str = "auto", with_drmsd=None, with_rmsd=False,
-                   sidechain_impl: str = "auto", with_pred: bool = False):
+                   sidechain_impl: str = "auto", with_pred: bool = False,
+                   counts=None):
     """All batch losses for a batch already on the model's device.
 
     Returns (loss, dict of scalar metrics); with_pred adds the (B, L, 24)
@@ -148,14 +179,23 @@ def compute_losses(model, params, batch: Batch, cfg: TrainConfig,
     Under ``grad_semantics="reference"`` with a dRMSD-family loss the
     returned loss keeps its value but carries the gradient of the sum over
     real proteins of per-protein ln-dRMSD (plus the MSE term of "combined"),
-    as the original torch code stitched its gradients."""
+    as the original torch code stitched its gradients.
+
+    ``counts``: when ``batch`` is one rank's rows of a global batch, the
+    global batch's ``losses.batch_counts``. Every returned value is then
+    this rank's share of the global batch's, and the shares (and their
+    gradients) sum to it over the ranks; the padded dummy rows that all
+    land on the last rank count for nothing."""
     if with_drmsd is None:
         with_drmsd = cfg.loss in DRMSD_LOSSES
+    den = [None] * 4 if counts is None else counts
     pred = functional_call(model, params,
                            model_args(model, batch.seq, batch.ang))
-    m_full = L.mse_over_angles(pred, batch.ang, batch.ang_mask)
-    m_bb = L.mse_over_angles(pred, batch.ang, batch.ang_mask, bb_only=True)
-    m_sc = L.mse_over_angles(pred, batch.ang, batch.ang_mask, sc_only=True)
+    m_full = L.mse_over_angles(pred, batch.ang, batch.ang_mask, count=den[0])
+    m_bb = L.mse_over_angles(pred, batch.ang, batch.ang_mask, bb_only=True,
+                             count=den[1])
+    m_sc = L.mse_over_angles(pred, batch.ang, batch.ang_mask, sc_only=True,
+                             count=den[2])
 
     zero = torch.zeros((), dtype=m_full.dtype, device=m_full.device)
     out = {"mse-full": m_full, "mse-bb": m_bb, "mse-sc": m_sc,
@@ -177,7 +217,7 @@ def compute_losses(model, params, batch: Batch, cfg: TrainConfig,
         d = L.compute_batch_drmsd(
             pred, batch.crd, batch.seq, batch.crd_mask, batch.protein_mask,
             impl=impl, pred_crd=pred_crd, with_per_protein=ref_grads,
-            backbone_only=bb_only)
+            backbone_only=bb_only, n_proteins=den[3])
         if ref_grads:
             d, per = d
         out.update({"drmsd-full": d.drmsd, "lndrmsd-full": d.ln_drmsd,
@@ -202,11 +242,11 @@ def compute_losses(model, params, batch: Batch, cfg: TrainConfig,
         if bb_only:
             out["rmsd-full"] = L.batch_rmsd(
                 pred_crd[:, :, :3], batch.crd[:, :, :3],
-                batch.crd_mask[:, :, :3], batch.protein_mask)
+                batch.crd_mask[:, :, :3], batch.protein_mask, den[3])
         else:
             out["rmsd-full"] = L.batch_rmsd(pred_crd, batch.crd,
                                             batch.crd_mask,
-                                            batch.protein_mask)
+                                            batch.protein_mask, den[3])
     out["loss"] = loss
     if with_pred:
         out["pred"] = pred
@@ -225,21 +265,30 @@ class TrainState:
 
 class Trainer:
     """The training and evaluation steps, the epoch loops and the host loop
-    (``train``) on one explicit device."""
+    (``train``) on one explicit device: this rank's, under a mesh."""
 
     # steps kept in flight before their metric rows are recorded; the NaN
     # watchdog and the CSV rows trail the device by at most this many steps
     FLUSH_EVERY = 32
 
     def __init__(self, cfg: TrainConfig, device: torch.device,
-                 data: dict | None = None):
+                 data: dict | None = None, use_mesh: bool = True):
+        # join the process group the environment configures (a no-op for
+        # one process) before anything else touches the device
+        self.process_index, self.process_count = initialize_from_env(device)
         self.cfg = cfg = cfg.finalize()
         self.device = torch.device(device)
+        self.mesh = (make_mesh(cfg.mesh_shape, cfg.mesh_axes, self.device)
+                     if use_mesh else None)
+        self.data_axis = (self.mesh.axis("data") if self.mesh
+                          else AxisGroup(1, 0))
+        self.model_axis = (self.mesh.axis("model") if self.mesh
+                           else AxisGroup(1, 0))
         self.drmsd_impl = resolve_impl(cfg.drmsd_impl, self.device)
         self.sidechain_impl = sidechain.resolve_impl(cfg.sidechain_impl,
                                                      self.device)
         data = data if data is not None else load_dataset(cfg.data)
-        self.dm = DataModule(data, cfg)
+        self.dm = DataModule(data, cfg, batch_multiple=self.data_axis.size)
         # the monitored metric's mode must be one this run evaluates:
         # otherwise the first epoch end raises KeyError after a full epoch
         if cfg.es_mode != "train":
@@ -257,9 +306,13 @@ class Trainer:
         angle_means = (np.zeros(24, np.float32) if cfg.without_angle_means
                        else self.dm.angle_means)
         self.model = make_model(cfg, angle_means).to(self.device).eval()
+        set_model_parallel(self.model, self.model_axis)
+        # {parameter name: its sharded dim} of the parameters that are
+        # slices over 'model'
+        self.layout = shard_layout(self.model, self.model_axis.size)
         # every dropout mask of the model is drawn from this generator
         self.dropout_generator = torch.Generator(device=self.device)
-        self.dropout_generator.manual_seed(cfg.seed)
+        self.dropout_generator.manual_seed(self._dropout_seed(0))
         set_dropout_generator(self.model, self.dropout_generator)
         # the encoder-decoder's scheduled-sampling draws: a stream of their
         # own, on the host, where they decide which decoder passes run
@@ -277,6 +330,7 @@ class Trainer:
         self.tx = make_optimizer(cfg.optimizer,
                                  self.lr_schedule or cfg.learning_rate,
                                  cfg.weight_decay, cfg.clip)
+        self.tx.shard(set(self.layout), self.model_axis)
         self.early_stop = EarlyStopping(patience=cfg.early_stopping,
                                         threshold=cfg.early_stopping_threshold)
         self.start_epoch = 0
@@ -293,9 +347,12 @@ class Trainer:
         self._eval_stores: dict = {}
         splits = ([self.dm.train] if cfg.train_only else
                   [self.dm.train, *self.dm.eval_splits.values()])
-        self.use_device_data = DS.auto_enabled(cfg, splits)
+        self.use_device_data = DS.auto_enabled(
+            cfg, splits, self.process_count, has_mesh=self.mesh is not None,
+            n_data=self.data_axis.size)
         if self.use_device_data:
-            self.train_store = DS.DeviceStore(self.dm.train, self.device)
+            self.train_store = DS.DeviceStore(self.dm.train, self.device,
+                                              self.mesh)
         # host batches are copied to a GPU on a stream of their own
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
@@ -309,24 +366,32 @@ class Trainer:
         # the wandb run, made by the first train() with use_wandb
         self.wandb_run = None
         # live per-batch status line; --cluster disables it, otherwise it is
-        # on for an interactive stderr
+        # on for an interactive stderr (on rank 0 only)
         self.batch_status = M.BatchStatus(
             cfg.loss, cfg.lr_scheduling,
-            enabled=False if cfg.cluster else None)
+            enabled=(False if cfg.cluster or self.process_index != 0
+                     else None))
         # config and angle means, for predict and analysis tooling
-        with open(os.path.join(self.out_dir, "config.json"), "w") as f:
-            json.dump({"config": cfg.to_dict(),
-                       "angle_means": [float(a) for a in angle_means]},
-                      f, indent=1, default=str)
+        if self.process_index == 0:
+            with open(os.path.join(self.out_dir, "config.json"), "w") as f:
+                json.dump({"config": cfg.to_dict(),
+                           "angle_means": [float(a) for a in angle_means]},
+                          f, indent=1, default=str)
+
+    def _dropout_seed(self, step: int) -> int:
+        """The dropout generator's seed at ``step``: this 'data' rank's
+        stream, the same on every 'model' rank of it."""
+        return self.cfg.seed + step + self.data_axis.rank * DATA_SEED_STRIDE
 
     # ---------------- state init / restore ----------------
 
     def init_params(self, generator: torch.Generator) -> dict:
-        """Fresh parameters, drawn on the CPU from ``generator`` and moved to
-        the device, initialised as the flax modules are: xavier-uniform
-        weights (Linear, Conv1d, Embedding), zero biases, unit LayerNorm
-        scales, and the output head: the angle-mean bias under a zero weight
-        (encoder models) or a tiny-gain Xavier weight (encoder-decoder)."""
+        """Fresh full parameters, drawn on the CPU from ``generator`` and
+        moved to the device, initialised as the flax modules are:
+        xavier-uniform weights (Linear, Conv1d, Embedding), zero biases, unit
+        LayerNorm scales, and the output head: the angle-mean bias under a
+        zero weight (encoder models) or a tiny-gain Xavier weight
+        (encoder-decoder)."""
         params = {}
         for name, p in self.model.named_parameters():
             t = torch.empty(p.shape, dtype=p.dtype)
@@ -345,10 +410,13 @@ class Trainer:
         return params
 
     def state_from(self, params: dict) -> TrainState:
-        """Step 0 from copies of ``params`` on the device, with a fresh
-        optimizer state."""
-        params = {k: v.detach().to(self.device).clone().requires_grad_()
-                  for k, v in params.items()}
+        """Step 0 from copies of the full ``params`` on the device (rank 0's
+        under a mesh, this rank's slices of them under 'model'), with a
+        fresh optimizer state in the same layout."""
+        params = replicate_tree({k: v.detach().to(self.device).clone()
+                                 for k, v in params.items()}, self.mesh)
+        params = {k: v.requires_grad_() for k, v in shard_params(
+            params, self.layout, self.model_axis).items()}
         return TrainState(params, self.tx.init(params), 0)
 
     def init_state(self, generator: torch.Generator) -> TrainState:
@@ -369,7 +437,8 @@ class Trainer:
         sampling generator likewise, from its own base), so a resumed run
         draws masks that depend on where it resumes and does not replay
         those of the run's first steps; it does not continue the interrupted
-        run's stream."""
+        run's stream. The checkpoint holds the full tensors; each rank takes
+        its slices of them."""
         cfg = self.cfg
         modifier = cfg.load_chkpt or "best"
         if cfg.restart or not self.ckpt.exists(modifier):
@@ -380,7 +449,7 @@ class Trainer:
             arrays, meta = self.ckpt.restore_raw(modifier, self.device)
             opt_state = state.opt_state
         else:
-            template = self._arrays(state)
+            template = self._full_arrays(state)
             arrays, meta = self.ckpt.restore_raw(modifier, self.device)
             saved = arrays["opt_state"]
             if any(set(saved[moment]) != set(template["opt_state"][moment])
@@ -394,11 +463,15 @@ class Trainer:
             check_against(template, arrays, repr(modifier))
             # the moments are stored by parameter name, the optimizer holds
             # them as lists in the live parameters' order
+            mu, nu = (shard_params(saved[m], self.layout, self.model_axis)
+                      for m in ("mu", "nu"))
             opt_state = OptState(saved["count"],
-                                 [saved["mu"][k] for k in state.params],
-                                 [saved["nu"][k] for k in state.params])
-        params = {k: arrays["params"][k].to(self.device).requires_grad_()
-                  for k in state.params}
+                                 [mu[k] for k in state.params],
+                                 [nu[k] for k in state.params])
+        params = shard_params({k: arrays["params"][k].to(self.device)
+                               for k in state.params}, self.layout,
+                              self.model_axis)
+        params = {k: v.requires_grad_() for k, v in params.items()}
         step = int(arrays["step"])
         self.start_epoch = int(meta.get("epoch", -1)) + 1
         self.start_time -= float(meta.get("elapsed", 0.0))
@@ -407,7 +480,7 @@ class Trainer:
         if meta.get("early_stop"):
             self.early_stop.load_state_dict(dict(meta["early_stop"]))
         self._best_history = list(meta.get("best_history", []))
-        self.dropout_generator.manual_seed(cfg.seed + step)
+        self.dropout_generator.manual_seed(self._dropout_seed(step))
         self.sampling_generator.manual_seed(SAMPLING_SEED_BASE + cfg.seed
                                             + step)
         print(f"[Info] Resumed from '{modifier}' at epoch {self.start_epoch}.")
@@ -422,16 +495,46 @@ class Trainer:
         return self.cfg.learning_rate * (self.plateau.scale if self.plateau
                                          else 1.0)
 
+    def _put(self, batch, non_blocking: bool = False) -> Batch:
+        """A batch on the device: a host batch's rows of this rank under a
+        mesh with more than one 'data' rank, all of them otherwise; a batch
+        already on the device as it is."""
+        if self.data_axis.size > 1 and isinstance(batch.seq, np.ndarray):
+            return shard_batch(batch, self.mesh, non_blocking)
+        return batch.to(self.device, non_blocking=non_blocking)
+
+    def _global_counts(self, batch: Batch):
+        """The global batch's loss denominators (``losses.batch_counts``,
+        summed over 'data') in a run with a process group, else None."""
+        if self.data_axis.group is None:
+            return None
+        return self.data_axis.all_reduce(
+            L.batch_counts(batch.ang_mask, batch.protein_mask))
+
+    def _sum_over_data(self, tensors) -> list:
+        """``tensors`` summed over the 'data' axis, in one all-reduce of
+        their concatenation."""
+        tensors = list(tensors)
+        if self.data_axis.group is None:
+            return tensors
+        flat = self.data_axis.all_reduce(
+            torch.cat([t.reshape(-1) for t in tensors]))
+        return [part.view_as(t) for part, t in zip(
+            flat.split([t.numel() for t in tensors]), tensors)]
+
     def loss_and_grads(self, params: dict, batch: Batch,
                        with_pred: bool = False):
         """(loss, metrics dict, gradients in the params' order) of one batch
         already on the device, with the model in train mode; with_pred puts
-        the predictions in the dict."""
+        the predictions in the dict. Under a mesh the loss and metrics are
+        this rank's shares of the global batch's, and the gradients are
+        this rank's share too: ``train_step`` sums them over 'data'."""
         self.model.train()
         loss, out = compute_losses(self.model, params, batch, self.cfg,
                                    impl=self.drmsd_impl,
                                    sidechain_impl=self.sidechain_impl,
-                                   with_pred=with_pred)
+                                   with_pred=with_pred,
+                                   counts=self._global_counts(batch))
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True, materialize_grads=True)
         return loss, out, grads
@@ -443,53 +546,65 @@ class Trainer:
         forward in train mode, backward, then the update, in place on
         ``state.params``. Returns the new state and the packed (K,) metrics
         vector of the batch, still on the device; with_pred also the
-        batch's (B, L, 24) predictions, detached, as a third element."""
+        batch's (B, L, 24) predictions, detached, as a third element. Under
+        a mesh the metrics and the predictions are the global batch's."""
         _, out, grads = self.loss_and_grads(
-            state.params, batch.to(self.device), with_pred=with_pred)
+            state.params, self._put(batch), with_pred=with_pred)
+        *grads, metrics = self._sum_over_data(
+            [*grads, pack_metrics(out).detach()])
         opt_state = self.tx.update(state.params, grads, state.opt_state,
                                    lr_scale)
-        new = (TrainState(state.params, opt_state, state.step + 1),
-               pack_metrics(out).detach())
-        return (*new, out["pred"].detach()) if with_pred else new
+        new = (TrainState(state.params, opt_state, state.step + 1), metrics)
+        if not with_pred:
+            return new
+        return (*new, assemble(out["pred"].detach(), 0, self.data_axis))
 
     @torch.inference_mode()
     def eval_step(self, params: dict, batch: Batch) -> torch.Tensor:
         """Packed (K,) metrics of one batch (moved to the device here, a
-        no-op for a batch already there)."""
+        no-op for a batch already there); the global batch's under a
+        mesh."""
         self.model.eval()
-        _, out = compute_losses(self.model, params, batch.to(self.device),
+        batch = self._put(batch)
+        _, out = compute_losses(self.model, params, batch,
                                 self.cfg, impl=self.drmsd_impl,
                                 with_drmsd=True, with_rmsd=True,
-                                sidechain_impl=self.sidechain_impl)
-        return pack_metrics(out)
+                                sidechain_impl=self.sidechain_impl,
+                                counts=self._global_counts(batch))
+        return self._sum_over_data([pack_metrics(out)])[0]
 
     def _probe_gradients(self, state: TrainState) -> dict:
-        """Gradients, keyed like the parameters, of one forward and backward
-        in train mode on a random train batch: the epoch's gradient
-        histograms. The rows are the JAX package's (drawn from ``seed +
-        step``); the batch is collated on the host and copied without
-        blocking; the dropout and sampling draws come from the trainer's
-        generators, reseeded from ``PROBE_SEED_BASE + seed + step`` and
-        given their streams back afterwards."""
+        """Full gradients, keyed like the parameters, of one forward and
+        backward in train mode on a random train batch: the epoch's
+        gradient histograms. The rows are the JAX package's (drawn from
+        ``seed + step``); the batch is collated on the host and copied
+        without blocking; the dropout and sampling draws come from the
+        trainer's generators, reseeded from ``PROBE_SEED_BASE + seed +
+        step`` and given their streams back afterwards. Under a mesh every
+        rank must call it: the gradients are summed over 'data' and
+        gathered over 'model'."""
         cfg = self.cfg
         n = min(cfg.batch_size, len(self.dm.train))
         rng = np.random.default_rng(cfg.seed + state.step)
         idx = rng.choice(len(self.dm.train), size=n, replace=False)
         batch = collate(self.dm.train, idx, cfg.bucket_sizes,
-                        self.dm.max_seq_len)
+                        self.dm.max_seq_len,
+                        batch_multiple=self.dm.batch_multiple)
         gens = (self.dropout_generator, self.sampling_generator)
         saved = [g.get_state() for g in gens]
-        self.dropout_generator.manual_seed(PROBE_SEED_BASE + cfg.seed
-                                           + state.step)
+        self.dropout_generator.manual_seed(PROBE_SEED_BASE
+                                           + self._dropout_seed(state.step))
         self.sampling_generator.manual_seed(
             PROBE_SEED_BASE + SAMPLING_SEED_BASE + cfg.seed + state.step)
         try:
             _, _, grads = self.loss_and_grads(
-                state.params, batch.to(self.device, non_blocking=True))
+                state.params, self._put(batch, non_blocking=True))
         finally:
             for g, st in zip(gens, saved):
                 g.set_state(st)
-        return dict(zip(state.params, grads))
+        return gather_params(dict(zip(state.params,
+                                      self._sum_over_data(grads))),
+                             self.layout, self.model_axis)
 
     # ---------------- structure logging ----------------
 
@@ -500,7 +615,8 @@ class Trainer:
         coordinates on the device and hand them to the structure logger,
         whose worker thread makes the copies to the host. ``batch`` is a host
         batch or a ``LazyBatch``, whose fields the first access gathers
-        once on the device."""
+        once on the device. Under a mesh every rank predicts (the model's
+        collectives need them all) and rank 0 alone logs."""
         idx = max(int(batch.protein_mask.sum()) - 1, 0)
         seq = torch.as_tensor(batch.seq[idx:idx + 1]).to(self.device).long()
         ang = torch.as_tensor(batch.ang[idx:idx + 1]).to(self.device)
@@ -511,8 +627,9 @@ class Trainer:
         self.model.train(was_training)
         crd = build_coords_batch(L.inverse_trig_transform(pred), seq,
                                  self.sidechain_impl)
-        self.structure_logger.log(step, name, batch.seq[idx], crd[0],
-                                  batch.crd[idx], batch.crd_mask[idx])
+        if self.process_index == 0:
+            self.structure_logger.log(step, name, batch.seq[idx], crd[0],
+                                      batch.crd[idx], batch.crd_mask[idx])
 
     def _log_validation_structures(self, params: dict, step: int) -> None:
         """Log the middle protein of each validation split."""
@@ -520,7 +637,8 @@ class Trainer:
             if split == "test" or len(ds) == 0:
                 continue
             batch = collate(ds, np.array([len(ds) // 2]),
-                            self.cfg.bucket_sizes, self.dm.max_seq_len)
+                            self.cfg.bucket_sizes, self.dm.max_seq_len,
+                            batch_multiple=self.dm.batch_multiple)
             self._log_structure(params, batch, step,
                                 name=f"V{split.split('-')[-1]}")
 
@@ -578,7 +696,7 @@ class Trainer:
         gather on the device."""
         for idx in index_iter:
             plan = DS.plan_batch(split_obj, idx, self.cfg.bucket_sizes,
-                                 self.dm.max_seq_len)
+                                 self.dm.max_seq_len, self.dm.batch_multiple)
             yield DS.LazyBatch(store, plan), store.batch(plan)
 
     def _transfer(self, batch: Batch):
@@ -586,9 +704,9 @@ class Trainer:
         thread. On a GPU the fields go from pinned memory, without blocking,
         on the copy stream, and the event marks their arrival."""
         if self.device.type != "cuda":
-            return batch, batch.to(self.device), None
+            return batch, self._put(batch), None
         with torch.cuda.stream(self._copy_stream):
-            dev = batch.to(self.device, non_blocking=True)
+            dev = self._put(batch, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
         return batch, dev, event
@@ -612,7 +730,7 @@ class Trainer:
     def _eval_store(self, split: str) -> DS.DeviceStore:
         if split not in self._eval_stores:
             self._eval_stores[split] = DS.DeviceStore(
-                self.dm.eval_splits[split], self.device)
+                self.dm.eval_splits[split], self.device, self.mesh)
         return self._eval_stores[split]
 
     def _eval_batch_stream(self, split: str):
@@ -650,9 +768,12 @@ class Trainer:
         host_rows = (torch.empty((self.FLUSH_EVERY, len(METRIC_KEYS)),
                                  pin_memory=True)
                      if self.device.type == "cuda" else None)
-        # steps on the wandb cadence also fetch their predictions
-        wandb_every = (max(self.cfg.log_wandb_step, 1)
-                       if self.wandb_run is not None else 0)
+        # steps on the wandb cadence also fetch their predictions, which
+        # every rank gathers when rank 0 logs
+        logs_wandb = self.wandb_run is not None
+        if self.process_count > 1:
+            logs_wandb = broadcast_one_to_all(logs_wandb)
+        wandb_every = max(self.cfg.log_wandb_step, 1) if logs_wandb else 0
         # pending entries: [host tensor, event | None, n_res, step,
         # row | None, wandb's (real proteins, predictions, seq ids) | None]
         pending: list = []
@@ -822,6 +943,18 @@ class Trainer:
                               "nu": dict(zip(state.params, opt.nu))},
                 "step": state.step}
 
+    def _full_arrays(self, state: TrainState) -> dict:
+        """``_arrays`` of the full tensors: under 'model' the slices of the
+        parameters and moments gathered, which every rank must call."""
+        arrays = self._arrays(state)
+        if self.layout:
+            arrays["params"] = gather_params(arrays["params"], self.layout,
+                                             self.model_axis)
+            for m in ("mu", "nu"):
+                arrays["opt_state"][m] = gather_params(
+                    arrays["opt_state"][m], self.layout, self.model_axis)
+        return arrays
+
     def _monitored_metric(self) -> float:
         cfg = self.cfg
         return self.metrics[cfg.es_mode][f"epoch-{cfg.es_metric}-full"]
@@ -830,7 +963,8 @@ class Trainer:
                          cur_loss: float, history: list) -> None:
         modifier = checkpoint_policy(cur_loss, history,
                                      self.metrics["last_chkpt_time"],
-                                     self.cfg.checkpoint_time_interval)
+                                     self.cfg.checkpoint_time_interval,
+                                     process_count=self.process_count)
         if modifier is None:
             return
         meta = {"epoch": epoch,
@@ -839,7 +973,9 @@ class Trainer:
                             if self.plateau else {}),
                 "early_stop": self.early_stop.state_dict(),
                 "best_history": list(history)}
-        self.ckpt.save(modifier, self._arrays(state), meta)
+        arrays = self._full_arrays(state)
+        if self.process_index == 0:
+            self.ckpt.save(modifier, arrays, meta)
         self.metrics["last_chkpt_time"] = time.time()
         W.log_checkpoint_summary(self.wandb_run, modifier, cur_loss, epoch,
                                  self.metrics, self.cfg.train_only)
@@ -858,21 +994,23 @@ class Trainer:
         (``utils.maybe_profile``). With ``use_wandb`` the first call opens
         the wandb run (``training/wandb_logging.py``), each epoch ends with
         the gradient probe's histograms, and the run is finished at the
-        end."""
+        end. Under a mesh rank 0 alone writes the CSV and wandb."""
         cfg = self.cfg
         if state is None:
             state = self.init_state(torch.Generator().manual_seed(cfg.seed))
             state = self.maybe_restore(state)
-        if self.wandb_run is None and cfg.use_wandb:
-            n_params = sum(p.numel() for p in state.params.values())
+        if (self.wandb_run is None and cfg.use_wandb
+                and self.process_index == 0):
+            n_params = sum(p.numel() for p in self.model.parameters())
             self.wandb_run = W.try_init_wandb(cfg, n_params,
                                               self.dm.angle_means)
             self.structure_logger.wandb_run = self.wandb_run
             W.save_model_txt(self.wandb_run, self.model, self.out_dir)
             W.mirror_run_files(self.wandb_run, self.out_dir)
-        logger = M.CsvLogger(
+        logger = (M.CsvLogger(
             os.path.join(self.out_dir, (cfg.name or "run") + ".train"),
             cfg.loss, resume=self.start_epoch > 0)
+            if self.process_index == 0 else None)
         history = self._best_history
 
         for epoch in range(self.start_epoch, cfg.epochs):
@@ -890,15 +1028,18 @@ class Trainer:
                     else self.dm.train_eval_batches(te_rng))
                 self.eval_epoch(state.params, "train", te_batches, logger)
             M.print_epoch_status("train", self.metrics, start)
-            logger.log(self.metrics, "train", self.start_time,
-                       end_of_epoch=True)
+            if logger:
+                logger.log(self.metrics, "train", self.start_time,
+                           end_of_epoch=True)
             W.log_final_epoch_summary(self.wandb_run, "train",
                                       self.metrics["train"])
             if cfg.use_wandb:
                 # the epoch's parameter and gradient histograms; the probe
                 # runs whenever wandb is asked for, as in the JAX package
                 grads = self._probe_gradients(state)
-                W.watch_params(self.wandb_run, self.model, state.params,
+                params = gather_params(state.params, self.layout,
+                                       self.model_axis)
+                W.watch_params(self.wandb_run, self.model, params,
                                grads=grads)
 
             if not cfg.train_only:
@@ -927,7 +1068,8 @@ class Trainer:
             start = time.time()
             self.eval_epoch(state.params, "test", logger=logger)
             M.print_epoch_status("test", self.metrics, start)
-        logger.close()
+        if logger:
+            logger.close()
         self.structure_logger.close()
         if self.wandb_run is not None:
             self.wandb_run.finish()

@@ -177,7 +177,8 @@ def test_lazy_batch_gathers_on_first_access_only_and_once():
     store = DS.DeviceStore(split, CPU)
     calls = []
     gather = store.batch
-    store.batch = lambda plan: (calls.append(plan), gather(plan))[1]
+    store.batch = lambda plan, **kw: (calls.append(plan),
+                                      gather(plan, **kw))[1]
     plan = DS.plan_batch(split, np.array([4, 1, 7]), (48,), 48)
     lazy = DS.LazyBatch(store, plan)
     assert lazy.n_res == plan.n_res

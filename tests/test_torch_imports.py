@@ -42,8 +42,10 @@ import protein_transformer_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
 assert len(names) > 20, names
-# the wandb logging and the dataset tools, and the scripts package
+# the wandb logging and the dataset tools, the scripts package, and the
+# multi-GPU modules
 expected = {pkg.__name__ + "." + m for m in (
+    "parallel.distributed", "parallel.mesh", "parallel.sharding",
     "training.wandb_logging", "protein.measure",
     "protein.structure_exceptions", "data.proteinnet", "data.convert",
     "data.align", "data.acquire", "scripts.proteinnet_to_dataset",

@@ -95,9 +95,17 @@ def test_checkpoint_policy_matches_jax(case):
 
 
 def test_checkpoint_policy_refuses_more_than_one_process():
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        tckpt.checkpoint_policy(1.0, [1.0], time.time(), 0.0,
-                                process_count=2)
+    """It refused more than one process until the port had meshes; now it
+    takes process 0's time decision (tests/test_torch_parallel.py holds
+    that across two real processes), which alone is its own, as the JAX
+    package's."""
+    for case in ("interval-passed", "interval-not-passed", "first-loss"):
+        cur, history, age, interval = POLICY_CASES[case]
+        last = time.time() - age
+        got = tckpt.checkpoint_policy(cur, list(history), last, interval,
+                                      process_count=2)
+        assert got == jckpt.checkpoint_policy(cur, list(history), last,
+                                              interval, process_count=2)
 
 
 # ------------------------------------------------------------ checkpoints
@@ -305,21 +313,6 @@ def test_config_from_args_matches_jax_on_shared_fields():
     assert (default.drmsd_impl, default.sidechain_impl) == ("auto", "auto")
 
 
-NOT_PORTED = {
-    "mesh": (["--mesh_shape", "2", "2", "--mesh_axes", "data", "model"],
-             "device meshes"),
-}
-
-
-@pytest.mark.parametrize("case", list(NOT_PORTED))
-def test_flags_of_parts_not_ported_are_refused(case):
-    argv, part = NOT_PORTED[case]
-    with pytest.raises(NotImplementedError, match=part):
-        tcli.config_from_args(argv)
-    with pytest.raises(NotImplementedError, match="not in the PyTorch port"):
-        tcli.main(argv + ["--device", "cpu"])
-
-
 NOW_PORTED = {
     "pngs": (["--save_pngs", "True"],
              dict(save_pngs=True, log_structure_step=10,
@@ -336,6 +329,8 @@ NOW_PORTED = {
                  dict(compute_dtype="bfloat16")),
     "wandb": (["--use_wandb", "True", "--log_wandb_step", "5"],
               dict(use_wandb=True, log_wandb_step=5)),
+    "mesh": (["--mesh_shape", "2", "2", "--mesh_axes", "data", "model"],
+             dict(mesh_shape=[2, 2], mesh_axes=["data", "model"])),
 }
 
 
@@ -345,7 +340,6 @@ def test_flags_of_parts_now_ported_are_accepted_and_kept(case):
     ours, theirs = tcli.config_from_args(argv), jcli.config_from_args(argv)
     for field, value in fields.items():
         assert getattr(ours, field) == getattr(theirs, field) == value, field
-    tcli.check_ported(ours.to_dict())
 
 
 def test_accepted_values_of_those_flags_pass():

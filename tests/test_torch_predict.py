@@ -275,8 +275,8 @@ def test_import_refuses_what_changes_the_models_results(runs, tmp_path, key,
     """A run trained with a setting the port lacks is not imported as if
     it were a float32 encoder run, nor are an encoder's parameters imported
     under another model family's name; settings that only say how the JAX
-    run was executed are dropped where the port has no field for them (the
-    mesh) and kept where it has (wandb logging)."""
+    run was executed are dropped where the port has no field for them and
+    kept where it has (the mesh, wandb logging)."""
     exported = str(tmp_path / "exported")
     shutil.copytree(runs["exported"], exported)
     cfg_path = os.path.join(exported, "config.json")
