@@ -148,8 +148,8 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    phase 7, and a profiler count of one step. Scheduled sampling (both
    fractions 0.5) and ``predict()`` run at L = 32: four train steps with
    backward, whose decoder passes must be those the sampling generator's
-   seed gives (three teacher-forced steps, one sampled with 19 predictions
-   fed back);
+   seed gives (a seed chosen for three teacher-forced steps, then one
+   sampled with 14 predictions fed back);
 12. structure logging, inside phase 11's second CLI run
    (--log_structure_step 2 --log_val_struct_step 4): for every logged step
    <step>_pred.pdb, <step>_pred.glb and <step>_scene.glb, and true.pdb and
@@ -243,6 +243,30 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    rtol 2e-4 (TF32 off). A failing or late rank fails the phase. The wall
    times are printed for information only: ranks sharing one card measure
    nothing about scaling, and NCCL across separate cards is not exercised.
+   After phase 16 one line gives, for information, the MFU of phase 6's
+   fp32 and phase 16's bf16 flagship train steps (training/flops.py's
+   count) against the card's bf16 dense peak, by wall and by device time;
+19. the scale-data tools (tools/{gen_scale_data,oracle_floor,
+   stress_pipeline,gen_dev_data}.py), each step with its seconds.
+   (a) gen_scale_data at the JAX tool's defaults (300 / 40 / 40 chains of
+   50-250 residues, seed 20260819) on the card, K2a once a chunk: every
+   chain's coordinates within 1e-3 A of a float64 plain build of the same
+   angles, and sequences and angles equal to a --device cpu run's. (b)
+   oracle_floor at its defaults on the card (K2a and K1a once): each
+   chain's dRMSD within 1e-3 A of the plain CPU path's, and mean, median,
+   min and max within 0.01 A of the JAX tool's 27.59 / 24.76 / 11.66 /
+   54.00. (c) stress_pipeline at 2,000 and 8,000 training chains (the
+   generator a subprocess on the card, the store on the card): a line for
+   every stage, plan and collate counting the same proteins, each stage at
+   4x the chains within 8x the time plus 1 s. (d) the training CLI on (a)'s
+   set with the recipe of the JAX package's run c4 (conv-enc, d_model 256,
+   6 layers, the combined loss, Adam + Noam; -b 4 -nws 1000) for 12
+   epochs: valid-70 angle RMSE at the last epoch at most 0.30 and at most
+   0.6 of epoch 0's, the valid-70 dRMSD beside (b)'s floor, K1a, K1b, K2a
+   and K2b launched as the steps say. (e) gen_dev_data on the card against
+   examples/dev_data: the same ids, sequences and helix lists, coordinates
+   within 1e-3 A (+1e-6) between the PDB files' three-decimal values,
+   per-angle MSE at most 1e-5 rad^2 with NaN where the fixture has NaN.
 
 It prints the time the run took, then the kernel table as one JSON line,
 and as its last line {"ok": true, "device": {...}}. It needs one CUDA
@@ -298,10 +322,12 @@ from protein_transformer_tpu_torch.protein.pdb import (
 from protein_transformer_tpu_torch.protein.vocab import STD_AAS, VOCAB
 from protein_transformer_tpu_torch.scripts import (
     dataset_item_to_pdb, export_embeddings_to_tsv, proteinnet_to_dataset)
-from protein_transformer_tpu_torch.tools import bench_drmsd_kernel
+from protein_transformer_tpu_torch.tools import (
+    bench_drmsd_kernel, gen_dev_data, gen_scale_data, oracle_floor,
+    stress_pipeline)
 from protein_transformer_tpu_torch.tools.bench_geometry import (
     sync_count, sync_sites)
-from protein_transformer_tpu_torch.training import batch_probe, cli
+from protein_transformer_tpu_torch.training import batch_probe, cli, flops
 from protein_transformer_tpu_torch.training import wandb_logging as W
 from protein_transformer_tpu_torch.training.checkpoint import (
     CheckpointManager)
@@ -1319,6 +1345,9 @@ def hold_steps(first, second, labels, entry_tol, norm_tol=None,
 
 
 def phase_train(dev, card, out_dir):
+    """The flagship training slice in three arms. Returns the launches of
+    the counted epoch and (config, batch shape, ms and device ms a step)
+    of the every-kernel arm."""
     data = make_dataset(n_train=16, n_eval=2, min_len=255, max_len=256,
                         seed=0, device=dev)
     kw = dict(optimizer="adam", lr_scheduling="noam", max_seq_len=256,
@@ -1358,11 +1387,13 @@ def phase_train(dev, card, out_dir):
     cfg = trainers["all"].cfg
     idx = next(trainers["all"].dm.train_index_batches(
         np.random.default_rng(0)))
+    step_ms = {}
     for arm, tr in trainers.items():
         def step(arm=arm, tr=tr):  # the store path's: gather, then step
             states[arm] = tr.train_step(
                 states[arm], stored_batch(tr, "train", idx))[0]
         n_ops, dev_ms = profile_steps(step)
+        step_ms[arm] = (1e3 * statistics.median(times[arm]), dev_ms)
         sites = sync_sites(step)
         require(arm != "all" or not sites,
                 f"train step with every kernel on the store path: "
@@ -1389,7 +1420,7 @@ def phase_train(dev, card, out_dir):
     hold_steps(one_step(dev, data, params, out_dir, name="ab-all"),
                one_step(dev, data, params, out_dir, "plain", name="ab-plain"),
                ("all kernels", "all plain"), entry_tol=1e-3)
-    return launches
+    return launches, (cfg, tuple(batch_shape), *step_ms["all"])
 
 
 def run_cli(argv):
@@ -1973,12 +2004,17 @@ def check_structure_files(run_dir, total_steps, lengths) -> int:
     return n_files
 
 
+# a seed whose sampling stream (training/trainer.py::stream_seed) draws
+# three teacher-forced steps, then a sampled one with 14 predictions fed back
+ENC_DEC_SAMPLING_SEED = 11_736
+
+
 def enc_dec_sampling(dev, card, out_dir):
     """Scheduled sampling (both fractions 0.5) and ``predict()`` at full
-    width and L = 32: four train steps with backward, of which the default
-    seed draws the fourth as the sampled path. At L = 256 that path keeps up
-    to 255 full decoder passes alive for the backward, which one card does
-    not hold at this width, so it is driven at L = 32 only."""
+    width and L = 32: four train steps with backward, of which the seed
+    below draws the fourth as the sampled path. At L = 256 that path keeps
+    up to 255 full decoder passes alive for the backward, which one card
+    does not hold at this width, so it is driven at L = 32 only."""
     data = make_dataset(n_train=16, n_eval=2, min_len=31, max_len=32, seed=4,
                         device=dev)
     tr = Trainer(flagship("all", out_dir, model="enc-dec",
@@ -1986,7 +2022,8 @@ def enc_dec_sampling(dev, card, out_dir):
                           lr_scheduling="noam", max_seq_len=32,
                           bucket_sizes=(32,), batch_size=1,
                           fraction_complete_tf=0.5,
-                          fraction_subseq_tf=0.5), device=dev, data=data)
+                          fraction_subseq_tf=0.5, seed=ENC_DEC_SAMPLING_SEED),
+                 device=dev, data=data)
     params = tr.init_params(torch.Generator().manual_seed(0))
     w = params["output_projection.weight"]
     params["output_projection.weight"] = (0.02 * torch.randn(
@@ -2680,7 +2717,8 @@ def phase_bf16(dev, card, out_dir):
     """--compute_dtype bfloat16 at the flagship width: train steps beside
     fp32 ones, flash training at dropout 0 against the bf16 materialised
     branch, then a CLI epoch with flash attention and predict from its run.
-    Returns the launches of the flash training epoch and of predict."""
+    Returns the launches of the flash training epoch and of predict, and
+    (config, ms and device ms a step) of the bf16 train step."""
     data = make_dataset(n_train=16, n_eval=16, min_len=255, max_len=256,
                         seed=1, device=dev)
     for split in [k for k in data if k.startswith("valid-")]:
@@ -2721,6 +2759,9 @@ def phase_bf16(dev, card, out_dir):
             states[dtype] = tr.train_step(
                 states[dtype], stored_batch(tr, "train", idx))[0]
         profiles[dtype] = profile_steps(step)
+    bf16_step = (trainers["bfloat16"].cfg,
+                 1e3 * statistics.median(times["bfloat16"]),
+                 profiles["bfloat16"][1])
     print(f"[bf16] train step, {MODEL}, d_model 512 x 6 layers, dropout "
           f"0.1, {steps} steps of B=16 x L=256 an epoch, {data_path(trainers['bfloat16'])}"
           f": ms/step "
@@ -2837,7 +2878,7 @@ def phase_bf16(dev, card, out_dir):
           f"{seconds:.2f} s, 32 PDB files; launches of the CLI "
           f"{json.dumps(cli_launches)}, of predict "
           f"{json.dumps(predict_launches)} ({card})")
-    return flash_launches, predict_launches
+    return flash_launches, predict_launches, bf16_step
 
 
 # ---------------------------------------------------------------- phase 17
@@ -3426,6 +3467,291 @@ def phase_multi_gpu(dev, card, out_dir):
     return total
 
 
+# Phase 19: the scale-data tools at the JAX tools' defaults. The generated
+# splits (name, chains, id prefix) at 50-250 residues, and the seed.
+SCALE_SPLITS = (("train", 300, "TRN"), ("valid-70", 40, "VAL"),
+                ("test", 40, "TST"))
+SCALE_LENGTHS = (50, 250)
+SCALE_SEED = 20260819
+# the JAX tools/oracle_floor.py's line at its defaults (n 20, L 150, the
+# seed above) on the CPU: mean, median, min, max (A)
+ORACLE_FLOOR = (27.59, 24.76, 11.66, 54.00)
+FLOOR_TOL = 0.01
+ORACLE_CHAINS, ORACLE_LENGTH = 20, 150
+# the card's coordinates against a float64 plain build of the same angles
+SCALE_COORD_TOL = 1e-3
+# stress_pipeline's training chains; at 4x the chains a stage may take 8x
+# the time plus 1 s (linear work takes 4x; an O(n^2) stage ~16x)
+STRESS_SIZES = (2000, 8000)
+STRESS_STAGES = ("gen", "load", "split", "store", "plan", "collate")
+# The recipe of the JAX package's convergence run c4 (STATUS.md: conv-enc,
+# d_model 256, 6 layers, the combined loss, Adam + Noam), with the flags it
+# did not record chosen once here and kept (PERF.md): 4 x 500 residues a
+# batch, 1,000 warm-up steps; structure logging off.
+CONVERGENCE_ARGS = ["-m", "conv-enc", "-dm", "256", "-nl", "6",
+                    "-l", "combined", "-opt", "adam", "--lr_scheduling",
+                    "noam", "-b", "4", "-nws", "1000", "--cluster", "True",
+                    "--log_structure_step", "0", "-lvs", "0"]
+CONVERGENCE_EPOCHS = 12
+# valid-70 angle RMSE after the last epoch: at most this, and at most this
+# share of epoch 0's (c4: 0.545 -> ~0.16 by epoch 11)
+CONVERGENCE_RMSE = 0.30
+CONVERGENCE_SHARE = 0.6
+# gen_dev_data against examples/dev_data: the PDB files' third decimal may
+# round the other way (1e-3 exactly); per-angle MSE as in phase 17
+DEV_COORD_TOL = 1e-3 + 1e-6
+
+
+def tool_lines(main, argv):
+    """(the lines ``main(argv)`` prints, echoed; what it returns)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    print(buf.getvalue(), end="")
+    return buf.getvalue().splitlines(), out
+
+
+def scale_reference(dev) -> dict:
+    """{chain id: (14 L, 3) coordinates} of the default set, drawn again
+    and built in float64 by the plain path on the card."""
+    rng = np.random.default_rng(SCALE_SEED)
+    rotamers = gen_scale_data._aa_rotamers(rng)
+    want = {}
+    for _, n, prefix in SCALE_SPLITS:
+        lengths, _, ids, angs = gen_scale_data.draw_split(
+            rng, n, *SCALE_LENGTHS, rotamers)
+        width = int(lengths.max())
+        ids_pad = np.full((n, width), VOCAB.pad_id, np.int64)
+        ang_pad = np.zeros((n, width, 12))
+        for i, (seq_ids, ang) in enumerate(zip(ids, angs)):
+            ids_pad[i, :len(seq_ids)] = seq_ids
+            ang_pad[i, :len(seq_ids)] = ang
+        with torch.no_grad():
+            crd = build_coords_batch(torch.from_numpy(ang_pad).to(dev),
+                                     torch.from_numpy(ids_pad).to(dev),
+                                     sidechain_impl="torch").cpu().numpy()
+        for i, length in enumerate(lengths):
+            want[f"{prefix}{i:04d}_1_A"] = crd[i, :length].reshape(-1, 3)
+    return want
+
+
+def scale_generate(dev, card, out_dir):
+    """(a): the generator on the card against a float64 plain build and
+    against its own CPU run. Returns the card's dataset directory and its
+    launches."""
+    on_card, on_cpu = (os.path.join(out_dir, f"scale-{d}")
+                       for d in ("cuda", "cpu"))
+    reset_launches()
+    t0 = time.perf_counter()
+    tool_lines(gen_scale_data.main, ["--out", on_card])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    require(launches == launched(sidechain_fwd=len(SCALE_SPLITS)),
+            f"gen_scale_data launches {launches}: K2a once a chunk")
+    t0 = time.perf_counter()
+    tool_lines(gen_scale_data.main, ["--out", on_cpu, "--device", "cpu"])
+    cpu_seconds = time.perf_counter() - t0
+    got, cpu = load_dataset(on_card), load_dataset(on_cpu)
+    want = scale_reference(dev)
+    worst = 0.0
+    for split, n, _ in SCALE_SPLITS:
+        g, c = got[split], cpu[split]
+        require(len(g["ids"]) == n and g["ids"] == c["ids"]
+                and g["seq"] == c["seq"]
+                and all(np.array_equal(a, b)
+                        for a, b in zip(g["ang"], c["ang"])),
+                f"{split}: the card's ids, sequences and angles are the "
+                "CPU run's")
+        for pid, crd in zip(g["ids"], g["crd"]):
+            require(crd.shape == want[pid].shape, f"{pid}: its atoms")
+            worst = max(worst, float(np.abs(crd - want[pid]).max()))
+    require(worst <= SCALE_COORD_TOL,
+            f"gen_scale_data on the card: coordinates {worst:.2e} A from a "
+            f"float64 plain build, at most {SCALE_COORD_TOL}")
+    n_res = sum(len(s) for split, _, _ in SCALE_SPLITS
+                for s in got[split]["seq"])
+    print(f"[scale-data] (a) gen_scale_data at the JAX defaults "
+          f"({'/'.join(str(n) for _, n, _ in SCALE_SPLITS)} chains, "
+          f"{n_res} residues): {seconds:.1f} s on the card, {cpu_seconds:.1f}"
+          f" s with --device cpu; the same ids, sequences and angles; "
+          f"coordinates within {worst:.2e} A of a float64 plain build; "
+          f"launches {json.dumps(launches)} ({card})")
+    return on_card, launches
+
+
+def scale_oracle(dev, card):
+    """(b): the oracle floor at its defaults on the card against the
+    plain CPU path and the JAX tool's line. Returns (its mean, launches)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    lines, vals = tool_lines(oracle_floor.main, [])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    require(launches == launched(drmsd_fwd=1, sidechain_fwd=1),
+            f"oracle_floor launches {launches}: K2a and K1a once")
+    plain = oracle_floor.floor_values(ORACLE_CHAINS, ORACLE_LENGTH,
+                                      SCALE_SEED, torch.device("cpu"))
+    apart = float(np.abs(vals - plain).max())
+    require(apart <= 1e-3, f"oracle_floor: each chain's dRMSD within 1e-3 "
+                           f"A of the plain CPU path's ({apart:.2e})")
+    stats = (np.mean(vals), np.median(vals), np.min(vals), np.max(vals))
+    require(all(abs(a - b) <= FLOOR_TOL for a, b in zip(stats, ORACLE_FLOOR))
+            and lines == [oracle_floor.summary_line(vals, ORACLE_CHAINS,
+                                                    ORACLE_LENGTH)],
+            f"oracle_floor: {stats} within {FLOOR_TOL} A of the JAX tool's "
+            f"{ORACLE_FLOOR}")
+    print(f"[scale-data] (b) oracle_floor at its defaults: mean "
+          f"{stats[0]:.4f}, median {stats[1]:.4f}, min {stats[2]:.4f}, max "
+          f"{stats[3]:.4f} A (the JAX tool: {ORACLE_FLOOR}); each chain "
+          f"within {apart:.2e} A of the plain CPU path; {seconds:.2f} s; "
+          f"launches {json.dumps(launches)} ({card})")
+    return float(stats[0]), launches
+
+
+def scale_stress(card, out_dir):
+    """(c): stress_pipeline at two sizes, 4x apart, on the card."""
+    rows = {}
+    for n in STRESS_SIZES:
+        lines, _ = tool_lines(stress_pipeline.main, [
+            "--n_train", str(n), "--out", os.path.join(out_dir,
+                                                       f"stress-{n}")])
+        got = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        require([r["stage"] for r in got] == list(STRESS_STAGES),
+                f"stress_pipeline at {n}: a line for every stage")
+        rows[n] = {r["stage"]: r for r in got}
+        plan, coll = rows[n]["plan"], rows[n]["collate"]
+        require(rows[n]["split"]["n_train"] == n
+                and plan["batches"] == coll["batches"] > 0
+                and plan["proteins"] == coll["proteins"] > 0,
+                f"stress_pipeline at {n}: plan and collate count every "
+                f"protein the sampler draws ({plan}, {coll})")
+    small, big = (rows[n] for n in STRESS_SIZES)
+    ratio = STRESS_SIZES[1] // STRESS_SIZES[0]
+    for name in STRESS_STAGES:
+        a, b = small[name]["seconds"], big[name]["seconds"]
+        require(b <= 2 * ratio * a + 1.0,
+                f"stress stage {name}: {b} s at {STRESS_SIZES[1]} chains "
+                f"against {a} s at {STRESS_SIZES[0]}, at most "
+                f"{2 * ratio}x + 1 s")
+    print(f"[scale-data] (c) stress_pipeline s a stage at "
+          f"{STRESS_SIZES[0]} / {STRESS_SIZES[1]} training chains: "
+          + ", ".join(f"{name} {small[name]['seconds']} / "
+                      f"{big[name]['seconds']}" for name in STRESS_STAGES)
+          + f"; store {big['store']['store_nbytes']} bytes at "
+          f"{STRESS_SIZES[1]} ({card})")
+
+
+def scale_convergence(dev, card, data_dir, out_dir, floor):
+    """(d): c4's recipe through the CLI on (a)'s set for 12 epochs."""
+    argv = ["--data", data_dir, "--name", "scale", "--out_dir", out_dir,
+            *CONVERGENCE_ARGS, "-e", str(CONVERGENCE_EPOCHS)]
+    dm = DataModule(load_dataset(data_dir), cli.config_from_args(argv))
+    eval_steps = {s: len(list(dm.eval_index_batches(s)))
+                  for s in dm.eval_splits}
+    require(set(eval_steps) == {"valid-70", "test"}, "valid-70 and test")
+    reset_launches()
+    t0 = time.perf_counter()
+    with timed_train_epochs() as epochs:
+        run_cli(argv)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    steps = sum(n for _, n, _ in epochs)
+    n_eval = CONVERGENCE_EPOCHS * eval_steps["valid-70"] + eval_steps["test"]
+    expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * steps,
+                        sidechain_fwd=steps + n_eval, sidechain_bwd=steps)
+    require(len(epochs) == CONVERGENCE_EPOCHS and launches == expected,
+            f"convergence launches {launches}: expected {expected} for "
+            f"{len(epochs)} epochs of {steps} train steps in all and "
+            f"{n_eval} eval steps (K1a, K1b, K2a and K2b each launched)")
+    _, rows = csv_rows(os.path.join(out_dir, "scale", "scale.train"))
+    by_mode = {mode: [r for r in rows if r["mode"] == mode
+                      and r["granularity"] == "epoch"]
+               for mode in ("train", "valid-70")}
+    require(all(len(v) == CONVERGENCE_EPOCHS for v in by_mode.values()),
+            "an epoch row of train and valid-70 every epoch")
+    rmse = [float(r["rmse"]) for r in by_mode["valid-70"]]
+    drmsd = [float(r["drmsd"]) for r in by_mode["valid-70"]]
+    train_rmse = [float(r["rmse"]) for r in by_mode["train"]]
+    print("[scale-data] (d) epoch: train RMSE, valid-70 RMSE, valid-70 "
+          "dRMSD (A): " + "; ".join(
+              f"{e}: {t:.4f}, {v:.4f}, {d:.2f}"
+              for e, (t, v, d) in enumerate(zip(train_rmse, rmse, drmsd))))
+    require(np.isfinite(rmse + drmsd + train_rmse).all()
+            and rmse[-1] <= CONVERGENCE_RMSE
+            and rmse[-1] <= CONVERGENCE_SHARE * rmse[0],
+            f"convergence: valid-70 angle RMSE {rmse[0]:.4f} -> "
+            f"{rmse[-1]:.4f} after {CONVERGENCE_EPOCHS} epochs; at most "
+            f"{CONVERGENCE_RMSE} and {CONVERGENCE_SHARE} of epoch 0's")
+    print(f"[scale-data] (d) c4's recipe ({' '.join(CONVERGENCE_ARGS)}) for "
+          f"{CONVERGENCE_EPOCHS} epochs, {steps} train steps: valid-70 RMSE "
+          f"{rmse[0]:.4f} -> {rmse[-1]:.4f} (c4: 0.545 -> ~0.16 by epoch "
+          f"11), valid-70 dRMSD {drmsd[0]:.2f} -> {drmsd[-1]:.2f} A (best "
+          f"{min(drmsd):.2f}) beside the oracle floor's mean "
+          f"{floor:.2f} A; {seconds:.1f} s; launches {json.dumps(launches)}"
+          f" ({card})")
+    return launches
+
+
+def scale_dev_data(card, out_dir):
+    """(e): gen_dev_data on the card against examples/dev_data."""
+    where = os.path.join(out_dir, "dev-data")
+    reset_launches()
+    t0 = time.perf_counter()
+    tool_lines(gen_dev_data.main, ["--out", where])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    require(launches == launched(sidechain_fwd=16),
+            f"gen_dev_data launches {launches}: K2a once a chain")
+    err = gen_dev_data.diff_from(DEV_DATA, where)
+    require(err["max_coord_err"] <= DEV_COORD_TOL
+            and err["max_angle_mse"] <= ANGLE_MSE,
+            f"gen_dev_data on the card against examples/dev_data: {err}; "
+            f"coordinates within {DEV_COORD_TOL} A, per-angle MSE at most "
+            f"{ANGLE_MSE}")
+    print(f"[scale-data] (e) gen_dev_data on the card: the same ids, "
+          f"sequences, helix lists and missing entries as examples/dev_data"
+          f"; coordinates within {err['max_coord_err']:.2e} A, per-angle MSE"
+          f" {err['max_angle_mse']:.2e} rad^2; {seconds:.2f} s; launches "
+          f"{json.dumps(launches)} ({card})")
+    return launches
+
+
+def phase_scale_data(dev, card, out_dir):
+    """Phase 19: the four scale-data tools on the card and a convergence
+    run on the generated set. Returns the launches of the whole phase."""
+    t0 = time.perf_counter()
+    data_dir, gen = scale_generate(dev, card, out_dir)
+    floor, oracle = scale_oracle(dev, card)
+    scale_stress(card, out_dir)
+    train = scale_convergence(dev, card, data_dir, out_dir, floor)
+    dev_data = scale_dev_data(card, out_dir)
+    parts = (gen, oracle, train, dev_data)
+    print(f"[scale-data] phase 19 in {time.perf_counter() - t0:.1f} s "
+          f"({card})")
+    return {k: sum(p[k] for p in parts) for k in COUNTERS}
+
+
+def print_mfu(card, fp32_step, bf16_step) -> None:
+    """MFU of phase 6's fp32 and phase 16's bf16 flagship train steps
+    against the card's bf16 dense peak (training/flops.py), by wall time
+    and by device time; for information, no gate."""
+    cfg, (bsz, length), *_ = fp32_step
+    peak = flops.peak_flops_per_chip(torch.cuda.get_device_name(0))
+    parts = []
+    for label, step_cfg, ms, dev_ms in (
+            ("fp32 (phase 6)", cfg, *fp32_step[2:]),
+            ("bf16 (phase 16)", *bf16_step)):
+        work = flops.train_step_flops(step_cfg, bsz, length)
+        parts.append(f"{label} {work / 1e12:.3f} TFLOP a step, {ms:.2f} ms "
+                     f"-> MFU {work / (ms * 1e-3 * peak):.4f}, "
+                     f"{dev_ms:.2f} device ms -> "
+                     f"{work / (dev_ms * 1e-3 * peak):.4f}")
+    print(f"[mfu] flagship train step, B={bsz} x L={length}: "
+          + "; ".join(parts) + f"; against the bf16 dense peak "
+          f"{peak / 1e12:.1f} TFLOP/s of {torch.cuda.get_device_name(0)} "
+          f"({card})")
+
+
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--rank-child":
         return rank_child(sys.argv[2], sys.argv[3:])
@@ -3446,7 +3772,7 @@ def main() -> int:
     phase_goldens(dev)
     with tempfile.TemporaryDirectory() as out_dir:
         eval_launches = phase_slice(dev, card, out_dir)
-        train_launches = phase_train(dev, card, out_dir)
+        train_launches, fp32_step = phase_train(dev, card, out_dir)
         cli_launches, cli_step_ms = phase_cli(dev, card, out_dir)
         predict_launches = phase_predict(dev, card, out_dir)
         flash_launches = phase_flash_train(dev, card, out_dir)
@@ -3454,11 +3780,13 @@ def main() -> int:
         phase_data_path(dev, card, out_dir)
         phase_dev_data(dev, card, out_dir)
         phase_tools(dev, card, out_dir)
-        bf16_flash_launches, bf16_predict_launches = phase_bf16(dev, card,
-                                                                out_dir)
+        bf16_flash_launches, bf16_predict_launches, bf16_step = phase_bf16(
+            dev, card, out_dir)
+        print_mfu(card, fp32_step, bf16_step)
         probe_launches = phase_wandb(dev, card, out_dir)
         rebuild_launches = phase_data_tools(dev, card, out_dir)
         multi_gpu_launches = phase_multi_gpu(dev, card, out_dir)
+        scale_launches = phase_scale_data(dev, card, out_dir)
     source = "protein_transformer_tpu_torch/csrc/"
     replaces = "protein_transformer_tpu/ops/"
     rows = []
@@ -3545,6 +3873,8 @@ def main() -> int:
             row["launches_rebuild"] = rebuild_launches[row["name"]]
         # over every rank of phase 18's runs
         row["launches_multi_gpu"] = multi_gpu_launches[row["name"]]
+        if scale_launches[row["name"]]:
+            row["launches_scale_data"] = scale_launches[row["name"]]
     require(all(row["launches"] > 0 or row["name"] == "drmsd_grad_b"
                 for row in rows),
             "every kernel of a main path was launched on it (K1c runs only "

@@ -6,10 +6,11 @@ from (length, theta, chi) alone, and ``chain_positions_grouped`` composes
 them with a prefix scan, so the backbone is built in O(log L) depth instead
 of a 3L-step sequential loop.
 
-Everything stays in fp32 with exact fp32 products: the 3x3 products are
-written as broadcast multiply-and-sum rather than matmuls, so no TF32
-setting can reach them (the JAX code pins Precision.HIGHEST for the same
-1e-3 A gate). All functions broadcast over leading dims.
+The 3x3 products are written as broadcast multiply-and-sum rather than
+matmuls, so no TF32 setting can reach them (the JAX code pins
+Precision.HIGHEST for the same 1e-3 A gate), and a float32 chain is
+composed in float64 (``chain_positions_grouped``). All functions broadcast
+over leading dims.
 """
 from __future__ import annotations
 
@@ -129,7 +130,18 @@ def chain_positions_grouped(r0: torch.Tensor, t0: torch.Tensor,
 
     r0 (..., 3, 3), t0 (..., 3): seed frame. lengths/thetas/chis (..., K, G):
     K residue steps of G chained extensions (G=3 for N/CA/C). Returns
-    (..., K, G, 3) global positions of every extended atom."""
+    (..., K, G, 3) global positions of every extended atom.
+
+    A float32 chain is composed in float64 and its positions rounded once.
+    Composed in float32 on an H100, whose float32 cos and sin miss the
+    rounded value by a unit in the last place for a share of arguments,
+    the chains of tools/gen_scale_data.py (L <= 250) came out 2e-3 A from
+    a float64 build, over the 1e-3 A gate; the sidechains carry the
+    backbone's local error on."""
+    if t0.dtype == torch.float32:
+        return chain_positions_grouped(
+            r0.double(), t0.double(), lengths.double(), thetas.double(),
+            chis.double()).float()
     k, g = lengths.shape[-2:]
     r, t = extension_transform(lengths, thetas, chis)  # (..., K, G, 3, 3)
     if k == 0:

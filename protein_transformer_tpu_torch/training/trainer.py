@@ -105,17 +105,32 @@ from protein_transformer_tpu_torch.utils import maybe_profile
 
 DRMSD_LOSSES = ("drmsd", "lndrmsd", "combined")
 
-# The sampling generator's seeds start here, past every seed the dropout
-# generator gets (cfg.seed + step), so the two streams stay apart.
-SAMPLING_SEED_BASE = 1 << 32
-# The gradient probe's draws are seeded past both (seed + step + this), and
-# the generators' streams are restored after it: a run trains the same with
-# wandb on or off, as in the JAX package.
-PROBE_SEED_BASE = 1 << 40
-# The dropout seeds of 'data' rank d are d strides past rank 0's, which are
-# the single-process run's. A CPU generator keeps the low 32 bits of a seed,
-# so the stride stays inside them: 2^24 steps apart, for up to 256 ranks.
-DATA_SEED_STRIDE = 1 << 24
+# The trainer's four generator streams. Each is seeded cfg.seed + offset,
+# taken mod 2^32 because a CPU generator keeps only the low 32 bits of a
+# seed, with offset = stream * 2^30 + rank * 2^24 + step: the streams, 64
+# 'data' ranks and 2^24 steps never share a seed. Dropout is stream 0, so
+# rank 0's dropout seeds are cfg.seed + step. The gradient probe draws from
+# streams of its own, and the generators' states are restored after it: a
+# run trains the same with wandb on or off, as in the JAX package.
+SEED_STREAMS = ("dropout", "sampling", "probe_dropout", "probe_sampling")
+STREAM_STRIDE = 1 << 30
+RANK_STRIDE = 1 << 24
+MAX_DATA_RANKS = STREAM_STRIDE // RANK_STRIDE
+MAX_STEPS = RANK_STRIDE
+
+
+def stream_seed(seed: int, stream: str, rank: int, step: int) -> int:
+    """The seed of ``stream`` for 'data' rank ``rank`` at ``step``; raises
+    rather than let a rank or a step reach into another one's seeds."""
+    if not 0 <= rank < MAX_DATA_RANKS:
+        raise ValueError(f"'data' rank {rank}: the generator seeds keep "
+                         f"{MAX_DATA_RANKS} ranks apart at most")
+    if not 0 <= step < MAX_STEPS:
+        raise ValueError(f"step {step}: the generator seeds keep "
+                         f"{MAX_STEPS} (2^24) steps apart at most")
+    offset = (SEED_STREAMS.index(stream) * STREAM_STRIDE + rank * RANK_STRIDE
+              + step)
+    return (seed + offset) % (1 << 32)
 
 # Fixed order in which a step packs its scalar metrics into one (K,) vector,
 # so a window of steps is fetched to the host in one copy.
@@ -312,12 +327,16 @@ class Trainer:
         self.layout = shard_layout(self.model, self.model_axis.size)
         # every dropout mask of the model is drawn from this generator
         self.dropout_generator = torch.Generator(device=self.device)
-        self.dropout_generator.manual_seed(self._dropout_seed(0))
+        if self.data_axis.size > MAX_DATA_RANKS:
+            raise ValueError(f"{self.data_axis.size} 'data' ranks: the "
+                             f"generator seeds keep {MAX_DATA_RANKS} apart "
+                             "at most")
+        self.dropout_generator.manual_seed(self._seed("dropout", 0))
         set_dropout_generator(self.model, self.dropout_generator)
         # the encoder-decoder's scheduled-sampling draws: a stream of their
         # own, on the host, where they decide which decoder passes run
         self.sampling_generator = torch.Generator()
-        self.sampling_generator.manual_seed(SAMPLING_SEED_BASE + cfg.seed)
+        self.sampling_generator.manual_seed(self._seed("sampling", 0))
         if isinstance(self.model, Transformer):
             self.model.sampling_generator = self.sampling_generator
         if cfg.lr_scheduling == "noam":
@@ -378,10 +397,13 @@ class Trainer:
                            "angle_means": [float(a) for a in angle_means]},
                           f, indent=1, default=str)
 
-    def _dropout_seed(self, step: int) -> int:
-        """The dropout generator's seed at ``step``: this 'data' rank's
-        stream, the same on every 'model' rank of it."""
-        return self.cfg.seed + step + self.data_axis.rank * DATA_SEED_STRIDE
+    def _seed(self, stream: str, step: int) -> int:
+        """The seed of one of ``SEED_STREAMS`` at ``step``. The dropout
+        streams are this 'data' rank's, the same on every 'model' rank of
+        it; the sampling streams are rank 0's on every rank, since their
+        draws decide which decoder passes run, and those must agree."""
+        rank = self.data_axis.rank if stream.endswith("dropout") else 0
+        return stream_seed(self.cfg.seed, stream, rank, step)
 
     # ---------------- state init / restore ----------------
 
@@ -480,9 +502,8 @@ class Trainer:
         if meta.get("early_stop"):
             self.early_stop.load_state_dict(dict(meta["early_stop"]))
         self._best_history = list(meta.get("best_history", []))
-        self.dropout_generator.manual_seed(self._dropout_seed(step))
-        self.sampling_generator.manual_seed(SAMPLING_SEED_BASE + cfg.seed
-                                            + step)
+        self.dropout_generator.manual_seed(self._seed("dropout", step))
+        self.sampling_generator.manual_seed(self._seed("sampling", step))
         print(f"[Info] Resumed from '{modifier}' at epoch {self.start_epoch}.")
         return TrainState(params, opt_state, step)
 
@@ -547,7 +568,12 @@ class Trainer:
         ``state.params``. Returns the new state and the packed (K,) metrics
         vector of the batch, still on the device; with_pred also the
         batch's (B, L, 24) predictions, detached, as a third element. Under
-        a mesh the metrics and the predictions are the global batch's."""
+        a mesh the metrics and the predictions are the global batch's.
+        Raises before an update that would take the step count to
+        ``MAX_STEPS``, where the generator seeds would wrap."""
+        if state.step + 1 >= MAX_STEPS:
+            raise ValueError(f"step {state.step + 1}: the generator seeds "
+                             f"keep {MAX_STEPS} (2^24) steps apart at most")
         _, out, grads = self.loss_and_grads(
             state.params, self._put(batch), with_pred=with_pred)
         *grads, metrics = self._sum_over_data(
@@ -579,8 +605,8 @@ class Trainer:
         gradient histograms. The rows are the JAX package's (drawn from
         ``seed + step``); the batch is collated on the host and copied
         without blocking; the dropout and sampling draws come from the
-        trainer's generators, reseeded from ``PROBE_SEED_BASE + seed +
-        step`` and given their streams back afterwards. Under a mesh every
+        trainer's generators, reseeded on the probe's streams at ``step``
+        and given their streams back afterwards. Under a mesh every
         rank must call it: the gradients are summed over 'data' and
         gathered over 'model'."""
         cfg = self.cfg
@@ -592,10 +618,10 @@ class Trainer:
                         batch_multiple=self.dm.batch_multiple)
         gens = (self.dropout_generator, self.sampling_generator)
         saved = [g.get_state() for g in gens]
-        self.dropout_generator.manual_seed(PROBE_SEED_BASE
-                                           + self._dropout_seed(state.step))
+        self.dropout_generator.manual_seed(
+            self._seed("probe_dropout", state.step))
         self.sampling_generator.manual_seed(
-            PROBE_SEED_BASE + SAMPLING_SEED_BASE + cfg.seed + state.step)
+            self._seed("probe_sampling", state.step))
         try:
             _, _, grads = self.loss_and_grads(
                 state.params, self._put(batch, non_blocking=True))

@@ -42,14 +42,16 @@ import protein_transformer_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
 assert len(names) > 20, names
-# the wandb logging and the dataset tools, the scripts package, and the
-# multi-GPU modules
+# the wandb logging and the dataset tools, the scripts package, the
+# multi-GPU modules, the FLOPs model and the scale-data tools
 expected = {pkg.__name__ + "." + m for m in (
     "parallel.distributed", "parallel.mesh", "parallel.sharding",
     "training.wandb_logging", "protein.measure",
     "protein.structure_exceptions", "data.proteinnet", "data.convert",
     "data.align", "data.acquire", "scripts.proteinnet_to_dataset",
-    "scripts.dataset_item_to_pdb", "scripts.export_embeddings_to_tsv")}
+    "scripts.dataset_item_to_pdb", "scripts.export_embeddings_to_tsv",
+    "training.flops", "tools.gen_scale_data", "tools.oracle_floor",
+    "tools.stress_pipeline", "tools.gen_dev_data")}
 assert expected <= set(names), expected - set(names)
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
