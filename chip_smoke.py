@@ -18,7 +18,10 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    at B=8 x N = 600, 768, 3584, 7000 and at the training step's B=16 x
    N = 768, 3584, then on the training step's structured masks (each
    residue's real slots, 2% missing, padded tails, one protein all masked)
-   at B=16 and 8 x N = 3584: equal pair counts, |d dRMSD| <= 1e-4 A, K1b's S
+   at B=16 and 8 x N = 3584, and (checked, not timed) on the backbone
+   masks of ladder config 5's path at B = 4, 32, 96 and 128 x N = 1500
+   (its train step, the eval level, the --max-batch bench and the probe's
+   frontier): equal pair counts, |d dRMSD| <= 1e-4 A, K1b's S
    equal to K1a's bit for bit, gradients (K1b: dS/da, K1c: dS/db) within
    1e-4 * max(1, max|g|), zero statistic and gradient for the all-masked
    protein, the same bits on a second call.
@@ -267,6 +270,25 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    examples/dev_data: the same ids, sequences and helix lists, coordinates
    within 1e-3 A (+1e-6) between the PDB files' three-decimal values,
    per-angle MSE at most 1e-5 rad^2 with NaN where the fixture has NaN.
+20. the config ladder, the trace tools, the attention bench's levels and
+   the analysis scripts (tools/{bench_ladder,trace_ladder,analyze_trace,
+   bench_attention}.py, scripts/). (a) bench_ladder's five configurations
+   in fp32 at their own batches (up to conv-enc d_model 1024 x L 500 with
+   lndrmsd and the backbone term, B=4) and config 5 in bf16, 30 steps
+   each: a finite loss, the MFU, positive device ms, the card; K1b, K2a
+   and K2b launched a step as the loss's code path calls them (none for
+   mse; K1b twice for drmsd and combined, once for the backbone term
+   alone). (b) config 5's --probe-only in its subprocess: MAXB and the
+   batch 0.8x of it on the collate lattice. (c) trace_ladder of configs 4
+   and 5 and analyze_trace --by source of each: every hand kernel the
+   trace's steps launched under its own category, at most 5% of the
+   device time in the catch-all "other", nearly every device event linked
+   to the operation that launched it. (d) bench_attention's op level (head dims
+   64, 128, 128; forward within 2e-5 on valid rows, gradients within
+   1e-4 * max(1, max|g|)) and eval level (d_model 1024 x L 500 at B = 4
+   and 32, the packed metrics of xla and flash within 2e-2). (e) the six
+   scripts on phase 14's runs, examples/dev_data and phase 9's
+   predictions.
 
 It prints the time the run took, then the kernel table as one JSON line,
 and as its last line {"ok": true, "device": {...}}. It needs one CUDA
@@ -314,6 +336,8 @@ from protein_transformer_tpu_torch.ops import drmsd as D
 from protein_transformer_tpu_torch.ops import drmsd_variants as V
 from protein_transformer_tpu_torch.ops import sidechain as S
 from protein_transformer_tpu_torch.protein import geometry as G
+from protein_transformer_tpu_torch.protein.constants import (
+    NUM_PREDICTED_COORDS)
 from protein_transformer_tpu_torch.protein.geometry import (
     build_coords_batch, inverse_trig_transform)
 from protein_transformer_tpu_torch.protein.measure import pdb_to_record
@@ -321,10 +345,13 @@ from protein_transformer_tpu_torch.protein.pdb import (
     PdbWriter, parse_pdb_atoms)
 from protein_transformer_tpu_torch.protein.vocab import STD_AAS, VOCAB
 from protein_transformer_tpu_torch.scripts import (
-    dataset_item_to_pdb, export_embeddings_to_tsv, proteinnet_to_dataset)
+    analyze, compute_dataset_angle_means, create_development_datasets,
+    dataset_item_to_pdb, downsample_dataset, export_embeddings_to_tsv,
+    group_predictions, plot, proteinnet_to_dataset)
 from protein_transformer_tpu_torch.tools import (
-    bench_drmsd_kernel, gen_dev_data, gen_scale_data, oracle_floor,
-    stress_pipeline)
+    analyze_trace, bench_attention, bench_drmsd_kernel, bench_ladder,
+    gen_dev_data, gen_scale_data, oracle_floor, stress_pipeline,
+    trace_ladder)
 from protein_transformer_tpu_torch.tools.bench_geometry import (
     sync_count, sync_sites)
 from protein_transformer_tpu_torch.training import batch_probe, cli, flops
@@ -347,6 +374,10 @@ EVAL_CASE = (8, 3584)    # the eval step's full-atom sweep
 TRAIN_CASE = (16, 3584)  # the train step's full-atom sweep
 # device-only times of K1 at the table's shapes and at the longest proteins
 K1_DEVICE_CASES = (EVAL_CASE, TRAIN_CASE, (8, 7000))
+# (B, L) of K1 on ladder config 5's backbone term (3L atoms), checked only:
+# the train step's B=4, the eval level's B=4 and 32, the --max-batch bench's
+# B=96 and the probe's frontier B=128 (phase 20 and PERF.md)
+LADDER_K1_CASES = ((4, 500), (32, 500), (96, 500), (128, 500))
 # (B, L) of the sidechain kernels: the eval and train steps' batches, the
 # longest proteins, the small sizes of the TPU kernel's tests and rows of
 # one residue; rows of L = 37 and 500 start inside the kernels' blocks of 32
@@ -569,20 +600,33 @@ def grad_err(got, want, what):
     return err
 
 
-def kernel_case(dev, card, rng, bsz, n, structured=False):
-    """All three dRMSD kernels against their plain versions on one (B, N)
-    case: ~70% of atoms valid at random, or with ``structured`` the masks of
-    the training step (``atom_mask_case``: residues' real slots, 2% missing,
-    padded tails); the last protein all masked either way. Returns {kernel:
-    (max abs error, kernel ms, plain ms, bound ms, what bounds it, device ms
-    or None)}."""
+def k1_inputs(dev, rng, bsz, n, masks="random"):
+    """a, b ~ N(0, 10) of (B, N, 3) and a (B, N) mask: ~70% of atoms valid
+    at random ("random"), the training step's full-atom masks
+    ("structured": ``atom_mask_case``: residues' real slots, 2% missing,
+    padded tails) or its backbone masks ("backbone": the N, CA and C slots
+    of the full-atom masks of N / 3 residues, as ``losses.per_protein_drmsd``
+    takes them); the last protein all masked either way."""
     a, b = (torch.from_numpy(rng.normal(0, 10, (bsz, n, 3)).astype(
         np.float32)).to(dev) for _ in range(2))
-    if structured:
-        m = torch.from_numpy(atom_mask_case(rng, bsz, n)).to(dev)
-    else:
+    if masks == "random":
         m = torch.from_numpy(rng.random((bsz, n)) < 0.7).to(dev)
         m[-1] = False  # an all-masked protein
+    elif masks == "structured":
+        m = torch.from_numpy(atom_mask_case(rng, bsz, n)).to(dev)
+    else:
+        res = n // 3
+        full = atom_mask_case(rng, bsz, res * NUM_PREDICTED_COORDS)
+        m = torch.from_numpy(np.ascontiguousarray(
+            full.reshape(bsz, res, NUM_PREDICTED_COORDS)[:, :, :3]
+            .reshape(bsz, n))).to(dev)
+    return a, b, m
+
+
+def k1_check(a, b, m, where):
+    """K1a, K1b and K1c against their plain versions on one input, each
+    called twice; returns (|d dRMSD| in A, |d dS/da|, |d dS/db|, C, plain
+    dS/da)."""
     fs, fc = D.drmsd_stats_cuda(a, b, m)
     gs, gc, ga = D.drmsd_stats_grad_cuda(a, b, m)
     gb = D.drmsd_grad_b_cuda(a, b, m)
@@ -590,7 +634,6 @@ def kernel_case(dev, card, rng, bsz, n, structured=False):
     _, _, pga = D.drmsd_stats_grad_torch(a, b, m)
     pgb = D.drmsd_grad_b_torch(a, b, m)
     torch.cuda.synchronize()
-    where = f"B={bsz} N={n}" + (" structured masks" if structured else "")
     require(torch.isfinite(fs).all().item(), f"K1a values finite, {where}")
     require(torch.equal(fc, pc) and torch.equal(gc, pc),
             f"pair counts equal, {where}")
@@ -607,6 +650,18 @@ def kernel_case(dev, card, rng, bsz, n, structured=False):
             and torch.equal(D.drmsd_grad_b_cuda(a, b, m), gb)
             and torch.equal(D.drmsd_stats_cuda(a, b, m)[0], fs),
             f"a second call gives the same bits, {where}")
+    return err, ga_err, gb_err, fc, pga
+
+
+def kernel_case(dev, card, rng, bsz, n, structured=False):
+    """All three dRMSD kernels against their plain versions on one (B, N)
+    case (``k1_inputs``: random masks, or with ``structured`` the training
+    step's). Returns {kernel: (max abs error, kernel ms, plain ms, bound
+    ms, what bounds it, device ms or None)}."""
+    a, b, m = k1_inputs(dev, rng, bsz, n,
+                        "structured" if structured else "random")
+    where = f"B={bsz} N={n}" + (" structured masks" if structured else "")
+    err, ga_err, gb_err, fc, pga = k1_check(a, b, m, where)
     # bytes: a, b and the mask read once; S and C, or a gradient, written
     pairs = int(fc.sum())
     read = bsz * n * 25
@@ -640,15 +695,39 @@ def kernel_case(dev, card, rng, bsz, n, structured=False):
     return out
 
 
+def ladder_kernel_cases(dev, card) -> dict:
+    """K1a, K1b and K1c against their plain versions, checked only, at the
+    (B, N) that ladder config 5's path gives them (LADDER_K1_CASES), on the
+    backbone masks; returns {kernel: max abs error}."""
+    rng = np.random.default_rng(5)
+    errs = {}
+    for bsz, length in LADDER_K1_CASES:
+        n = 3 * length
+        a, b, m = k1_inputs(dev, rng, bsz, n, "backbone")
+        where = f"B={bsz} N={n} backbone masks"
+        err, ga_err, gb_err, fc, pga = k1_check(a, b, m, where)
+        for name, e in (("drmsd_fwd", err), ("drmsd_fwd_grad", ga_err),
+                        ("drmsd_grad_b", gb_err)):
+            errs[name] = max(errs.get(name, 0.0), e)
+        print(f"[kernel] {where} (ladder config 5's path): counts equal "
+              f"({int(fc.sum())} valid pairs), K1b S == K1a S (bits), same "
+              f"bits twice, |d dRMSD| {err:.3e} A, |d dS/da| {ga_err:.3e} "
+              f"(max|g| {float(pga.abs().max()):.3e}), |d dS/db| "
+              f"{gb_err:.3e} ({card})")
+        del a, b, m, pga
+    return errs
+
+
 def phase_kernel(dev, card):
     """Returns ({case: kernel_case(...)} on the random masks, the same at
-    the table's two shapes on the structured masks)."""
+    the table's two shapes on the structured masks, {kernel: max abs error}
+    at ladder config 5's shapes)."""
     rng = np.random.default_rng(0)
     random = {case: kernel_case(dev, card, rng, *case)
               for case in KERNEL_CASES}
     structured = {case: kernel_case(dev, card, rng, *case, structured=True)
                   for case in (TRAIN_CASE, EVAL_CASE)}
-    return random, structured
+    return random, structured, ladder_kernel_cases(dev, card)
 
 
 VARIANT_STATS = {
@@ -3731,6 +3810,209 @@ def phase_scale_data(dev, card, out_dir):
     return {k: sum(p[k] for p in parts) for k in COUNTERS}
 
 
+# ---------------------------------------------------------------- phase 20
+LADDER_STEPS = 30
+# the ladder runs of (a): (config, dtype)
+LADDER_RUNS = tuple((idx, "float32") for idx in sorted(bench_ladder.LADDER)
+                    ) + ((5, "bfloat16"),)
+LADDER_TRACED = (4, 5)
+TRACE_STEPS = 3
+# the share of device events that must link to the operation that launched
+# them, and the most of the device time that may fall in analyze_trace's
+# catch-all "other" (each event falls in exactly one category, so the
+# categories sum to the device total by construction)
+LINKED_SHARE = 0.99
+OTHER_SHARE = 0.05
+# bench_attention's op level: the flash gates of PERF.md section 2; the eval
+# level's packed metrics (A: dRMSD, RMSD; the angle losses) xla vs flash:
+# phase 9's coordinate tolerance
+OP_FWD_TOL = 2e-5
+OP_GRAD_TOL = 1e-4
+EVAL_METRICS_TOL = 2e-2
+# the levels' paired windows, shorter than the tool's (20 calls, six
+# repeats): its eval level takes ~2 minutes at B = 32
+ATTENTION_WINDOW = dict(calls=5, repeats=3)
+
+
+def ladder_launches(spec) -> dict:
+    """K1b, K2a and K2b launches a train step of a ladder entry, as its
+    loss's code path calls them: none for mse; for a dRMSD-family loss one
+    sidechain build and its backward, and K1b over the backbone and over
+    all atoms, or over the backbone alone under --backbone_loss."""
+    if spec["loss"] == "mse":
+        return launched()
+    return launched(drmsd_fwd_grad=1 if spec["backbone_loss"] else 2,
+                    sidechain_fwd=1, sidechain_bwd=1)
+
+
+def ladder_runs(dev, card) -> dict:
+    """(a): every ladder entry through bench_ladder.bench_config; returns
+    the launches of all the runs."""
+    total = launched()
+    for idx, dtype in LADDER_RUNS:
+        reset_launches()
+        line = bench_ladder.bench_config(idx, LADDER_STEPS, dtype, device=dev)
+        launches = read_launches()
+        per_step = ladder_launches(bench_ladder.LADDER[idx])
+        require(launches == {k: v * line["steps_run"]
+                             for k, v in per_step.items()},
+                f"ladder config {idx} ({dtype}): launches {launches} over "
+                f"{line['steps_run']} steps, expected {per_step} a step")
+        # the MFU key as the JAX tool rounds it (config 1's is 0.0)
+        require(np.isfinite(line["loss_value"]) and line["mfu"] is not None
+                and line["device_ms"] > 0 and line["card"] == card,
+                f"ladder config {idx} ({dtype}): a finite loss, the MFU, "
+                f"device ms and the card: {line}")
+        a_step = {k: v for k, v in per_step.items() if v}
+        print(f"[ladder] {json.dumps({**line, 'launches_a_step': a_step})}")
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
+def ladder_probe(card) -> None:
+    """(b): config 5's frontier, probed in its subprocess."""
+    t0 = time.perf_counter()
+    maxb, b = bench_ladder.probe_batch(5, "float32", 1)
+    seconds = time.perf_counter() - t0
+    require(b >= 1 and b <= 0.8 * maxb, f"probe: MAXB={maxb}, batch {b}")
+    print(f"[ladder] config 5 (fp32) --probe-only in its subprocess: "
+          f"MAXB={maxb} proteins of L=500, 0.8x on the collate lattice -> "
+          f"B={b}; {seconds:.1f} s ({card})")
+
+
+def ladder_traces(dev, card, out_dir) -> dict:
+    """(c): trace_ladder of configs 4 and 5, analyze_trace --by source of
+    each; returns the launches of the traced runs."""
+    total = launched()
+    for idx in LADDER_TRACED:
+        logdir = os.path.join(out_dir, f"trace-ladder-{idx}")
+        reset_launches()
+        lines, _ = tool_lines(trace_ladder.main, [
+            "--config", str(idx), "--dtype", "float32", "--steps",
+            str(TRACE_STEPS), "--logdir", logdir])
+        launches = read_launches()
+        traces = sum(ln.startswith("the trace of") for ln in lines) + 1
+        _, res = tool_lines(analyze_trace.main, [
+            logdir, "--by", "source", "--steps", str(TRACE_STEPS)])
+        cats = res["categories"]
+        per_step = ladder_launches(bench_ladder.LADDER[idx])
+        for name, n in per_step.items():
+            if not n:
+                continue
+            cat = next(c for c, _ in analyze_trace.HAND_KERNELS
+                       if c.endswith(" " + name))
+            require(cats[cat]["count"] == n,
+                    f"trace of config {idx}: {cat} {cats[cat]['count']} "
+                    f"device events a step, launched {n} a step")
+        if per_step["drmsd_fwd_grad"]:
+            require(cats["k1_epilogue_kernel"]["count"]
+                    == per_step["drmsd_fwd_grad"],
+                    f"trace of config {idx}: one K1 epilogue a K1b call")
+        require(cats["other"]["ms"] <= OTHER_SHARE * res["total_ms"]
+                and res["linked_share"] >= LINKED_SHARE,
+                f"trace of config {idx}: {cats['other']['ms']:.4f} of "
+                f"{res['total_ms']:.4f} device ms in 'other' (at most "
+                f"{OTHER_SHARE}); {res['linked_share']} of the events linked")
+        print(f"[ladder] trace of config {idx} (fp32, {TRACE_STEPS} steps, "
+              f"{traces} trace(s) taken): {res['total_ms']:.3f} device ms a "
+              f"step in {res['device_events']:.0f} events, idle share "
+              f"{res['idle_share']:.4f}; by category " + json.dumps(
+                  {c: round(r["ms"], 4) for c, r in cats.items()
+                   if r["count"]}) + f" ({card})")
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
+def attention_levels(dev, card) -> dict:
+    """(d): bench_attention's op and eval levels; returns their
+    launches."""
+    reset_launches()
+    for row in bench_attention.bench_op(dev, **ATTENTION_WINDOW):
+        gate = OP_GRAD_TOL * max(1.0, row["grad_max_abs"])
+        require(row["fwd_max_abs_diff"] <= OP_FWD_TOL
+                and row["grad_max_abs_diff"] <= gate,
+                f"op level {row}: forward within {OP_FWD_TOL} on valid rows,"
+                f" gradients within {gate:.3e}")
+        print(f"[attention-op] {json.dumps({**row, 'card': card})}")
+    op = read_launches()
+    require(op["flash_attn_fwd"] > 0 and op["flash_attn_bwd"] > 0,
+            f"the op level launched K3a and the flash backward: {op}")
+    reset_launches()
+    for b in bench_attention.EVAL_BATCHES:
+        res = bench_attention.bench_eval_step(dev, b, **ATTENTION_WINDOW)
+        require(res["metrics_max_abs_diff"] <= EVAL_METRICS_TOL
+                and all(np.isfinite(v)
+                        for v in res["metrics_flash"].values()),
+                f"eval level at B={b}: packed metrics of xla and flash "
+                f"within {EVAL_METRICS_TOL}: {res}")
+        print(f"[attention-eval] {json.dumps({**res, 'card': card})}")
+    ev = read_launches()
+    require(ev["flash_attn_fwd"] > 0 and ev["drmsd_fwd"] > 0
+            and ev["sidechain_fwd"] > 0,
+            f"the eval level launched K3a, K1a and K2a: {ev}")
+    return {k: op[k] + ev[k] for k in COUNTERS}
+
+
+def ladder_scripts(card, out_dir) -> None:
+    """(e): the six scripts on examples/dev_data, phase 14's runs and
+    phase 9's predictions."""
+    data = load_dataset(DEV_DATA)
+    means_path = os.path.join(out_dir, "dev_means.npy")
+    tool_lines(compute_dataset_angle_means.main, [DEV_DATA, means_path])
+    want = np.nanmean(np.concatenate(
+        [np.asarray(a, np.float32) for a in data["train"]["ang"]]), axis=0)
+    require(np.array_equal(np.load(means_path), want),
+            "compute_dataset_angle_means: the nanmean of the train angles")
+    small = os.path.join(out_dir, "dev_small")
+    tool_lines(downsample_dataset.main, [DEV_DATA, small, "--n", "2"])
+    got = load_dataset(small)
+    require(all(len(got[s]["ids"]) == min(2, len(data[s]["ids"]))
+                and set(got[s]["ids"]) <= set(data[s]["ids"])
+                for s in data if isinstance(data[s], dict) and "seq" in data[s]),
+            "downsample_dataset: two items of each split")
+    ids_file = os.path.join(out_dir, "dev_ids.txt")
+    wanted = data["train"]["ids"][:2]
+    with open(ids_file, "w") as f:
+        f.write("\n".join(wanted) + "\n")
+    dev_dir = os.path.join(out_dir, "dev_dev")
+    tool_lines(create_development_datasets.main, [DEV_DATA, ids_file,
+                                                   dev_dir])
+    got = load_dataset(dev_dir)
+    require(got["train"]["ids"] == got["test"]["ids"] == wanted,
+            "create_development_datasets: the two ids in every split")
+    lines, results = tool_lines(group_predictions.main, [
+        os.path.join(out_dir, "preds_flash"), "--out",
+        os.path.join(out_dir, "grouped")])
+    require(len(results) == 16 and lines[-1].startswith("16 pairs"),
+            f"group_predictions: phase 9's 16 pairs ({lines[-1]})")
+    runs = [os.path.join(out_dir, f"dev-{flag}") for flag in ("true",
+                                                              "false")]
+    lines, _ = tool_lines(analyze.main, [*runs, "--mode", "valid-70"])
+    require(len(lines) == 3, "analyze: a header and a line a run")
+    lines, code = tool_lines(plot.main, [
+        os.path.join(runs[0], "dev-true.train"), "--metric", "rmse",
+        "--out", os.path.join(out_dir, "dev.png")])
+    require(code == 0 and lines, "plot: a figure or a text summary")
+    print(f"[ladder] the six scripts on examples/dev_data, phase 14's runs "
+          f"and phase 9's predictions: RMSD of the 16 pairs from "
+          f"{results[0][1]:.2f} to {results[-1][1]:.2f} A ({card})")
+
+
+def phase_ladder(dev, card, out_dir) -> dict:
+    """Phase 20; returns the launches of its ladder runs, traces and
+    attention levels."""
+    t0 = time.perf_counter()
+    parts = [ladder_runs(dev, card)]
+    ladder_probe(card)
+    parts.append(ladder_traces(dev, card, out_dir))
+    parts.append(attention_levels(dev, card))
+    ladder_scripts(card, out_dir)
+    print(f"[ladder] phase 20 in {time.perf_counter() - t0:.1f} s ({card})")
+    return {k: sum(p[k] for p in parts) for k in COUNTERS}
+
+
 def print_mfu(card, fp32_step, bf16_step) -> None:
     """MFU of phase 6's fp32 and phase 16's bf16 flagship train steps
     against the card's bf16 dense peak (training/flops.py), by wall time
@@ -3764,7 +4046,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev, card = phase_device()
     resources = phase_build()
-    table, structured = phase_kernel(dev, card)
+    table, structured, ladder_k1_errs = phase_kernel(dev, card)
     variant_table, variant_errs, bench_launches = phase_variants(dev, card)
     sc_table, sc_errs = phase_sidechain_kernel(dev, card)
     attn_table = phase_attention_kernel(dev, card)
@@ -3787,6 +4069,7 @@ def main() -> int:
         rebuild_launches = phase_data_tools(dev, card, out_dir)
         multi_gpu_launches = phase_multi_gpu(dev, card, out_dir)
         scale_launches = phase_scale_data(dev, card, out_dir)
+        ladder_launches_all = phase_ladder(dev, card, out_dir)
     source = "protein_transformer_tpu_torch/csrc/"
     replaces = "protein_transformer_tpu/ops/"
     rows = []
@@ -3802,9 +4085,9 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": source + src,
                      "replaces": f"{replaces}drmsd_pallas.py:{line}",
                      "launches": launches,
-                     "max_abs_err": max(t[name][0] for t in
-                                        [*table.values(),
-                                         *structured.values()]),
+                     "max_abs_err": max(ladder_k1_errs[name], *(
+                         t[name][0] for t in [*table.values(),
+                                              *structured.values()])),
                      "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                      "structured_masks": {
@@ -3875,6 +4158,8 @@ def main() -> int:
         row["launches_multi_gpu"] = multi_gpu_launches[row["name"]]
         if scale_launches[row["name"]]:
             row["launches_scale_data"] = scale_launches[row["name"]]
+        if ladder_launches_all[row["name"]]:
+            row["launches_ladder"] = ladder_launches_all[row["name"]]
     require(all(row["launches"] > 0 or row["name"] == "drmsd_grad_b"
                 for row in rows),
             "every kernel of a main path was launched on it (K1c runs only "

@@ -25,8 +25,27 @@ session on one card:
   padded to B=16 x L=256, random seeded weights): device operations and
   device ms per step, from a trace of three steps.
 
-    python -m protein_transformer_tpu_torch.tools.bench_attention
+    python -m protein_transformer_tpu_torch.tools.bench_attention \\
+        [--level kernels|op|eval|all]
     PYTHONPATH=<other checkout> python <this file>
+
+``--level op`` and ``--level eval`` run the JAX tool's two levels instead
+(``--level all``: all three):
+
+* op: masked self-attention forward, and forward + backward (the gradient
+  of the valid rows' sum), at the JAX tool's shapes (B, H, L, d_model) =
+  (8, 8, 256, 512), (4, 8, 500, 1024) and (64, 8, 500, 1024) on its inputs
+  (numpy ``default_rng(0)``, valid lengths from L/2 to L): the materialised
+  masked softmax (the plain version, ``flash_self_attention_torch``)
+  against ``flash_self_attention`` (K3a and the flash backward); the
+  largest difference of the outputs on valid rows and of the gradients,
+  and the p50 ms of each by paired windows of calls chained through q;
+* eval: ``Trainer.eval_step`` (the model and every dRMSD metric) of the
+  conv-enc model at d_model 1024, d_ff 4096, 8 heads, 6 layers, lndrmsd
+  with the backbone term, L = 500, at B = 4 and B = 32, with
+  ``attention_impl`` xla and flash, from the same random seeded weights:
+  the p50 ms of each by paired windows and the largest difference of the
+  packed metrics.
 
 ``--dtype bfloat16`` times the bf16 instances instead: the same inputs
 rounded to bf16, the library call on them, and the training step under
@@ -41,24 +60,38 @@ import argparse
 import json
 import math
 import re
+import statistics
 import tempfile
 
 import numpy as np
 import torch
 
 from protein_transformer_tpu_torch.config import TrainConfig
+from protein_transformer_tpu_torch.data.dataset import collate
 from protein_transformer_tpu_torch.data.synthetic import make_dataset
 from protein_transformer_tpu_torch.device import cuda_device
 from protein_transformer_tpu_torch.ops import attention as A
 from protein_transformer_tpu_torch.tools.bench_drmsd_kernel import (
     card_label, device_ms, device_records)
-from protein_transformer_tpu_torch.training.trainer import Trainer
+from protein_transformer_tpu_torch.training.batch_probe import release_memory
+from protein_transformer_tpu_torch.training.trainer import (
+    Trainer, unpack_metrics)
+
+# The op and eval levels import tools/bench_ladder.py's window helpers where
+# they run: run by path against another checkout's package, the kernels
+# level needs nothing that checkout may lack.
 
 # (B, H, L, D), mask: "ragged" as phase 8 of chip_smoke.py draws it, or
 # "train", the training batches' (15 full rows, one with no valid key)
 CASES = (((8, 8, 256, 64), "ragged"), ((16, 8, 256, 64), "ragged"),
          ((8, 8, 500, 64), "ragged"), ((16, 8, 256, 64), "train"))
 MODEL = "conv-enc|21,11,3|1,1,1"
+# the op level's (B, H, L, d_model), the JAX tool's: head dims 64, 128, 128
+OP_SHAPES = ((8, 8, 256, 512), (4, 8, 500, 1024), (64, 8, 500, 1024))
+# the eval level's batches, and paired windows of k calls, six times
+EVAL_BATCHES = (4, 32)
+WINDOW_CALLS = 20
+WINDOW_REPEATS = 6
 
 
 def attention_inputs(device, shape, seed, mask="ragged",
@@ -174,12 +207,174 @@ def train_step_profile(device, steps: int = 3,
                              for e in on_device) / 1e3 / steps}
 
 
+def op_inputs(device, shape):
+    """q, k, v (B, H, L, d_model / H) and the (B, L) valid mask of the JAX
+    tool's op level, drawn as it draws them, and the softmax scale."""
+    bsz, heads, length, d_model = shape
+    dim = d_model // heads
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=(bsz, heads, length, dim))
+                                .astype(np.float32)).to(device)
+               for _ in range(3))
+    n_valid = np.maximum(rng.integers(length // 2, length + 1, bsz), 1)
+    valid = torch.from_numpy(
+        np.arange(length)[None] < n_valid[:, None]).to(device)
+    return q, k, v, valid, 1.0 / math.sqrt(dim)
+
+
+def valid_rows_diff(a: torch.Tensor, b: torch.Tensor,
+                    valid: torch.Tensor) -> float:
+    """Largest |a - b| of two (B, H, L, D) outputs on the valid rows."""
+    rows = valid[:, None, :, None]
+    return float(torch.where(rows, (a - b).abs(), 0.0).max())
+
+
+def valid_rows_grads(attend, q, k, v, valid) -> tuple:
+    """Gradients in q, k and v of the sum of attend(q, k, v) over the valid
+    rows."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = attend(*leaves)
+    total = torch.where(valid[:, None, :, None], out, 0.0).sum()
+    return torch.autograd.grad(total, leaves)
+
+
+def grads_diff(got, want) -> float:
+    """Largest |got - want| over every entry of paired gradients."""
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
+def chained_p50(step, first, sync, calls: int = WINDOW_CALLS,
+                repeats: int = WINDOW_REPEATS) -> float:
+    """Median ms per call of step(state) -> state by paired windows; each
+    call takes the previous one's result, so a window's calls run in turn
+    on the device. Each window starts from ``first`` after three untimed
+    calls."""
+    from protein_transformer_tpu_torch.tools.bench_ladder import (
+        paired_samples, timed_window)
+    state = [first]
+
+    def run(n):
+        for _ in range(n):
+            state[0] = step(state[0])
+
+    def window(n):
+        state[0] = first
+        run(3)
+        sync()
+        return timed_window(run, n, sync)
+
+    return statistics.median(paired_samples(window, calls, repeats)) * 1e3
+
+
+def bench_op(device, shapes=OP_SHAPES, calls: int = WINDOW_CALLS,
+             repeats: int = WINDOW_REPEATS) -> list[dict]:
+    """The op level: one row a shape."""
+    from protein_transformer_tpu_torch.tools.bench_ladder import synchronizer
+    sync = synchronizer(device)
+    rows = []
+    for shape in shapes:
+        q, k, v, valid, scale = op_inputs(device, shape)
+
+        def xla(q, k, v):
+            return A.flash_self_attention_torch(q, k, v, valid,
+                                                sm_scale=scale)
+
+        def flash(q, k, v):
+            return A.flash_self_attention(q, k, v, valid, sm_scale=scale)
+
+        g_x, g_f = (valid_rows_grads(f, q, k, v, valid) for f in (xla, flash))
+        bsz, heads, length, d_model = shape
+        rows.append({
+            "level": "op", "b": bsz, "h": heads, "l": length, "dm": d_model,
+            "fwd_max_abs_diff": valid_rows_diff(xla(q, k, v), flash(q, k, v),
+                                                valid),
+            "grad_max_abs_diff": grads_diff(g_f, g_x),
+            "grad_max_abs": max(float(g.abs().max()) for g in g_x),
+            "xla_fwd_ms": chained_p50(lambda s: xla(s, k, v), q, sync, calls,
+                                      repeats),
+            "flash_fwd_ms": chained_p50(lambda s: flash(s, k, v), q, sync,
+                                        calls, repeats),
+            "xla_fwdbwd_ms": chained_p50(
+                lambda s: valid_rows_grads(xla, s, k, v, valid)[0], q, sync,
+                calls, repeats),
+            "flash_fwdbwd_ms": chained_p50(
+                lambda s: valid_rows_grads(flash, s, k, v, valid)[0], q,
+                sync, calls, repeats)})
+        del q, k, v, g_x, g_f
+        release_memory()
+    return rows
+
+
+def eval_config(impl: str, b: int, length: int, d_model: int,
+                n_layers: int, n_heads: int, out_dir: str) -> TrainConfig:
+    """The JAX tool's eval-step configuration under ``attention_impl``."""
+    return TrainConfig(
+        model=MODEL, d_model=d_model, d_ff=4 * d_model, n_heads=n_heads,
+        n_layers=n_layers, loss="lndrmsd", backbone_loss=True,
+        optimizer="adam", lr_scheduling="noam", dropout=0.1,
+        max_seq_len=length, bucket_sizes=(length,), batch_size=b,
+        train_only=True, name=f"attnbench-{impl}", out_dir=out_dir,
+        attention_impl=impl)
+
+
+def bench_eval_step(device, b: int = 4, length: int = 500,
+                    d_model: int = 1024, n_layers: int = 6, n_heads: int = 8,
+                    calls: int = WINDOW_CALLS,
+                    repeats: int = WINDOW_REPEATS) -> dict:
+    """The eval level at one batch: ms per eval step with xla and with
+    flash attention, and the largest difference of their packed metrics.
+    Both trainers start from the same weights, drawn from one seed with a
+    random output head (a zero head would predict the same angles under
+    either attention)."""
+    from protein_transformer_tpu_torch.tools.bench_ladder import (
+        paired_samples, synchronizer, timed_window)
+    sync = synchronizer(device)
+    out = {"level": "eval_step", "b": b, "l": length, "dm": d_model}
+    data = make_dataset(n_train=b, n_eval=2, min_len=length - 1,
+                        max_len=length, seed=0, device=device)
+    metrics = {}
+    for impl in ("xla", "flash"):
+        with tempfile.TemporaryDirectory() as out_dir:
+            tr = Trainer(eval_config(impl, b, length, d_model, n_layers,
+                                     n_heads, out_dir), device, data)
+            gen = torch.Generator().manual_seed(0)
+            params = tr.init_params(gen)
+            w = params["head.output_projection.weight"]
+            params["head.output_projection.weight"] = (
+                0.02 * torch.randn(w.shape, generator=gen)).to(device)
+            batch = collate(tr.dm.train, np.arange(b), tr.cfg.bucket_sizes,
+                            tr.dm.max_seq_len,
+                            batch_multiple=tr.dm.batch_multiple).to(device)
+            metrics[impl] = tr.eval_step(params, batch).cpu()
+
+            def run(n):
+                for _ in range(n):
+                    tr.eval_step(params, batch)
+
+            def window(n):
+                run(1)
+                sync()
+                return timed_window(run, n, sync)
+
+            out[f"{impl}_eval_ms"] = statistics.median(
+                paired_samples(window, calls, repeats)) * 1e3
+            del tr, params, batch
+            release_memory()
+    out["speedup"] = out["xla_eval_ms"] / out["flash_eval_ms"]
+    out["metrics_max_abs_diff"] = float(
+        (metrics["xla"] - metrics["flash"]).abs().max())
+    out["metrics_flash"] = unpack_metrics(metrics["flash"])
+    return out
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--dtype", choices=["float32", "bfloat16"],
                         default="float32",
                         help="the kernel instance and the step's compute "
-                             "dtype to time")
+                             "dtype to time (the kernels level)")
+    parser.add_argument("--level", choices=["kernels", "op", "eval", "all"],
+                        default="kernels")
     args = parser.parse_args(argv)
     dtype = getattr(torch, args.dtype)
     device = cuda_device()
@@ -187,7 +382,18 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     card = card_label()
     print(f"# port at {A.__file__}, {args.dtype}")
-    results = {"card": card, "dtype": args.dtype, "attention": {}}
+    results = {"card": card, "dtype": args.dtype}
+    if args.level in ("op", "all"):
+        results["op"] = bench_op(device)
+        for row in results["op"]:
+            print(json.dumps({**row, "card": card}), flush=True)
+    if args.level in ("eval", "all"):
+        results["eval"] = [bench_eval_step(device, b) for b in EVAL_BATCHES]
+        for row in results["eval"]:
+            print(json.dumps({**row, "card": card}), flush=True)
+    if args.level not in ("kernels", "all"):
+        return results
+    results["attention"] = {}
     for shape, mask in CASES:
         t = attention_times(device, shape, mask, dtype=dtype)
         results["attention"]["x".join(map(str, shape)) + " " + mask] = t

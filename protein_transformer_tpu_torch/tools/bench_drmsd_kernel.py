@@ -154,29 +154,45 @@ def event_ms(fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
-def device_records(fn, calls: int) -> list:
-    """The device-side records (kernels, copies, memsets, by name) of a
-    ``torch.profiler`` trace of ``calls`` calls of fn(), after one warm-up
-    call."""
+def traced(fn, calls: int, on_card: bool = True, **profile_kw):
+    """(a ``torch.profiler`` profile of ``calls`` calls of fn(), the traces
+    taken). On the card it records the CPU and CUDA activities, and a trace
+    that comes back without its device records (seen once in ~20 traces on
+    an H100 under torch 2.11) is taken again, up to three traces; off the
+    card it records the CPU alone, once. ``profile_kw`` goes to
+    ``profile``."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    # a trace now and then comes back without its device records (seen once
-    # in ~20 traces on an H100 under torch 2.11): such a trace is taken again
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        activities.append(ProfilerActivity.CUDA)
     for traces in range(1, 4):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        if on_card:
+            torch.cuda.synchronize()
+        with profile(activities=activities, **profile_kw) as prof:
             for _ in range(calls):
                 fn()
-            torch.cuda.synchronize()
-        on_device = [e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-        if on_device:
-            return on_device
+            if on_card:
+                torch.cuda.synchronize()
+        if not on_card or on_device(prof):
+            return prof, traces
         if traces < 3:
             print(f"the trace of {calls} calls recorded no device "
                   f"operation; taking it again")
     raise RuntimeError("the profiler recorded no device operation")
+
+
+def on_device(prof) -> list:
+    """The device-side rows (kernels, copies, memsets, by name) of a
+    profile's ``key_averages()``."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_records(fn, calls: int) -> list:
+    """The device-side records of a trace of ``calls`` calls of fn(), after
+    one warm-up call (``traced``: an empty trace is taken again)."""
+    fn()
+    return on_device(traced(fn, calls)[0])
 
 
 def device_ms(fn, calls: int = 5) -> float:

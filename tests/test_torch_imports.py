@@ -43,7 +43,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
 assert len(names) > 20, names
 # the wandb logging and the dataset tools, the scripts package, the
-# multi-GPU modules, the FLOPs model and the scale-data tools
+# multi-GPU modules, the FLOPs model, the scale-data tools, the config
+# ladder and the trace tools, and the analysis scripts
 expected = {pkg.__name__ + "." + m for m in (
     "parallel.distributed", "parallel.mesh", "parallel.sharding",
     "training.wandb_logging", "protein.measure",
@@ -51,7 +52,11 @@ expected = {pkg.__name__ + "." + m for m in (
     "data.align", "data.acquire", "scripts.proteinnet_to_dataset",
     "scripts.dataset_item_to_pdb", "scripts.export_embeddings_to_tsv",
     "training.flops", "tools.gen_scale_data", "tools.oracle_floor",
-    "tools.stress_pipeline", "tools.gen_dev_data")}
+    "tools.stress_pipeline", "tools.gen_dev_data", "tools.bench_ladder",
+    "tools.trace_ladder", "tools.analyze_trace", "tools.bench_attention",
+    "scripts.compute_dataset_angle_means",
+    "scripts.create_development_datasets", "scripts.downsample_dataset",
+    "scripts.group_predictions", "scripts.analyze", "scripts.plot")}
 assert expected <= set(names), expected - set(names)
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
