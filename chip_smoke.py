@@ -68,7 +68,12 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    launches of that run asserted;
 4. goldens on the card: NeRF coordinates (tests/golden/coords.npz,
    realistic_coords.npz) <= 1e-3 A, and the conv-enc model forward
-   (tests/golden/model_parity_conv-enc.npz) <= 2e-5 with TF32 off;
+   (tests/golden/model_parity_conv-enc.npz) <= 2e-5 with TF32 off; then
+   each of the four model goldens (enc-only, conv-enc, conv-enc-noemb,
+   enc-dec) through the reference-checkpoint route: its flax params as a
+   reference state_dict (the port's key map,
+   models/torch_import.py::reference_names) loaded by
+   ``state_dict_to_port`` into a model on the card, forward <= 2e-5;
 5. the eval slice at the flagship width, conv-enc|21,11,3|1,1,1 (d_model
    512, d_ff 2048, 8 heads, 6 layers), B=8 x L=256, random seeded weights:
    ``Trainer.eval_epoch`` over 2 batches in three arms, interleaved: every
@@ -289,6 +294,21 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    and 32, the packed metrics of xla and flash within 2e-2). (e) the six
    scripts on phase 14's runs, examples/dev_data and phase 9's
    predictions.
+21. the reference-checkpoint import and the bench. (a) A reference-style
+   .chkpt (``model_state_dict`` under the reference's names, with a
+   positional-encoding buffer no port module owns) of the flagship
+   conv-enc from seeded weights, loaded by ``load_reference_checkpoint``
+   into a fresh model on the card: the parameters and the forward on a
+   B=8 x L=256 batch equal the source model's bit for bit. (b) The bench's
+   three modes (``protein_transformer_tpu_torch/bench.py``: the headline
+   train step at B=8 x L=256, the trainer loop, the eval step at d_model
+   1024 x L 500) at full width, BENCH_STEPS=30, each in a process of its
+   own (``--bench-child``): the JSON line with a finite positive value,
+   the card named on stderr, and K1a, K1b, K2a and K2b launched as the
+   steps say (the trainer loop's K2a once more for each logged
+   structure). (c) tools/bench_protocol.py at --runs 2 in raw mode, fresh
+   processes of ``python -m protein_transformer_tpu_torch.bench``: no
+   failed attempt, a warm run 1, the median and the spread.
 
 It prints the time the run took, then the kernel table as one JSON line,
 and as its last line {"ok": true, "device": {...}}. It needs one CUDA
@@ -317,10 +337,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from protein_transformer_tpu_torch import predict
+from protein_transformer_tpu_torch import bench, predict
 from protein_transformer_tpu_torch.config import TrainConfig
 from protein_transformer_tpu_torch.data.dataset import (
-    DataModule, collate, load_dataset)
+    VALID_SPLITS, DataModule, collate, load_dataset)
 from protein_transformer_tpu_torch.data.device_store import plan_batch
 from protein_transformer_tpu_torch.data.synthetic import (
     OUT_OF_TABLE_IDS, atom_mask_case, make_dataset, random_angles,
@@ -328,8 +348,14 @@ from protein_transformer_tpu_torch.data.synthetic import (
 from protein_transformer_tpu_torch.device import cuda_device
 from protein_transformer_tpu_torch.models.conv_encoder import (
     ConvEncoderOnlyTransformer)
+from protein_transformer_tpu_torch.models.enc_dec import Transformer
+from protein_transformer_tpu_torch.models.encoder_only import (
+    EncoderOnlyTransformer)
+from protein_transformer_tpu_torch.models.factory import make_model
 from protein_transformer_tpu_torch.models.flax_import import (
-    flax_names, load_flax_params, params_from_flat_keys)
+    flax_names, flax_to_state_dict, load_flax_params, params_from_flat_keys)
+from protein_transformer_tpu_torch.models.torch_import import (
+    load_reference_checkpoint, reference_names, state_dict_to_port)
 from protein_transformer_tpu_torch.ops import _build
 from protein_transformer_tpu_torch.ops import attention as A
 from protein_transformer_tpu_torch.ops import drmsd as D
@@ -350,15 +376,16 @@ from protein_transformer_tpu_torch.scripts import (
     group_predictions, plot, proteinnet_to_dataset)
 from protein_transformer_tpu_torch.tools import (
     analyze_trace, bench_attention, bench_drmsd_kernel, bench_ladder,
-    gen_dev_data, gen_scale_data, oracle_floor, stress_pipeline,
-    trace_ladder)
+    bench_protocol, gen_dev_data, gen_scale_data, oracle_floor,
+    stress_pipeline, trace_ladder)
 from protein_transformer_tpu_torch.tools.bench_geometry import (
     sync_count, sync_sites)
 from protein_transformer_tpu_torch.training import batch_probe, cli, flops
 from protein_transformer_tpu_torch.training import wandb_logging as W
 from protein_transformer_tpu_torch.training.checkpoint import (
     CheckpointManager)
-from protein_transformer_tpu_torch.training.trainer import Trainer
+from protein_transformer_tpu_torch.training.trainer import (
+    METRIC_KEYS, Trainer)
 from protein_transformer_tpu_torch.utils import TRACE_FILE
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -374,16 +401,22 @@ EVAL_CASE = (8, 3584)    # the eval step's full-atom sweep
 TRAIN_CASE = (16, 3584)  # the train step's full-atom sweep
 # device-only times of K1 at the table's shapes and at the longest proteins
 K1_DEVICE_CASES = (EVAL_CASE, TRAIN_CASE, (8, 7000))
-# (B, L) of K1 on ladder config 5's backbone term (3L atoms), checked only:
-# the train step's B=4, the eval level's B=4 and 32, the --max-batch bench's
-# B=96 and the probe's frontier B=128 (phase 20 and PERF.md)
-LADDER_K1_CASES = ((4, 500), (32, 500), (96, 500), (128, 500))
+# (B, N, masks) of K1 on the later phases' paths, checked only: ladder
+# config 5's backbone term (3 x 500 atoms) at the train step's B=4, the eval
+# level's B=4 and 32, the --max-batch bench's B=96 and the probe's frontier
+# B=128 (phase 20 and PERF.md); then the bench's eval mode, whose ln-dRMSD
+# without the backbone loss sweeps all 14 x 500 atoms at B=4 (phase 21)
+PATH_K1_CASES = ((4, 1500, "backbone"), (32, 1500, "backbone"),
+                 (96, 1500, "backbone"), (128, 1500, "backbone"),
+                 (4, 7000, "structured"))
 # (B, L) of the sidechain kernels: the eval and train steps' batches, the
 # longest proteins, the small sizes of the TPU kernel's tests and rows of
 # one residue; rows of L = 37 and 500 start inside the kernels' blocks of 32
-# and 30 residues. Then a batch with every type of the table and ids outside
-# it.
-SIDECHAIN_CASES = ((8, 256), (16, 256), (8, 500), (3, 37), (1, 1), (5, 1))
+# and 30 residues; then the bench's eval mode (B=4 x L=500) and a logged
+# structure of its trainer loop (one protein of L=256). Then a batch with
+# every type of the table and ids outside it.
+SIDECHAIN_CASES = ((8, 256), (16, 256), (8, 500), (3, 37), (1, 1), (5, 1),
+                   (4, 500), (1, 256))
 SIDECHAIN_TRAIN_CASE = (16, 256)
 SIDECHAIN_TYPES_CASE = (3, 45)
 # (B, H, L, D) of the attention kernels: predict's batches, the training
@@ -695,21 +728,20 @@ def kernel_case(dev, card, rng, bsz, n, structured=False):
     return out
 
 
-def ladder_kernel_cases(dev, card) -> dict:
+def path_kernel_cases(dev, card) -> dict:
     """K1a, K1b and K1c against their plain versions, checked only, at the
-    (B, N) that ladder config 5's path gives them (LADDER_K1_CASES), on the
-    backbone masks; returns {kernel: max abs error}."""
+    (B, N) and on the masks that the later phases' paths give them
+    (PATH_K1_CASES); returns {kernel: max abs error}."""
     rng = np.random.default_rng(5)
     errs = {}
-    for bsz, length in LADDER_K1_CASES:
-        n = 3 * length
-        a, b, m = k1_inputs(dev, rng, bsz, n, "backbone")
-        where = f"B={bsz} N={n} backbone masks"
+    for bsz, n, masks in PATH_K1_CASES:
+        a, b, m = k1_inputs(dev, rng, bsz, n, masks)
+        where = f"B={bsz} N={n} {masks} masks"
         err, ga_err, gb_err, fc, pga = k1_check(a, b, m, where)
         for name, e in (("drmsd_fwd", err), ("drmsd_fwd_grad", ga_err),
                         ("drmsd_grad_b", gb_err)):
             errs[name] = max(errs.get(name, 0.0), e)
-        print(f"[kernel] {where} (ladder config 5's path): counts equal "
+        print(f"[kernel] {where} (a later phase's path): counts equal "
               f"({int(fc.sum())} valid pairs), K1b S == K1a S (bits), same "
               f"bits twice, |d dRMSD| {err:.3e} A, |d dS/da| {ga_err:.3e} "
               f"(max|g| {float(pga.abs().max()):.3e}), |d dS/db| "
@@ -721,13 +753,13 @@ def ladder_kernel_cases(dev, card) -> dict:
 def phase_kernel(dev, card):
     """Returns ({case: kernel_case(...)} on the random masks, the same at
     the table's two shapes on the structured masks, {kernel: max abs error}
-    at ladder config 5's shapes)."""
+    at the later phases' shapes)."""
     rng = np.random.default_rng(0)
     random = {case: kernel_case(dev, card, rng, *case)
               for case in KERNEL_CASES}
     structured = {case: kernel_case(dev, card, rng, *case, structured=True)
                   for case in (TRAIN_CASE, EVAL_CASE)}
-    return random, structured, ladder_kernel_cases(dev, card)
+    return random, structured, path_kernel_cases(dev, card)
 
 
 VARIANT_STATS = {
@@ -940,8 +972,12 @@ def sidechain_case_check(dev, rng, bsz, length, physical, every_type=False):
     where = (f"B={bsz} L={length} "
              f"{'physical' if physical else 'full-range'} angles")
     if bsz * length >= 60:
-        require(set(range(21)) <= set(ids.ravel().tolist()),
-                f"all 20 amino acids and padding in the batch, {where}")
+        # every row but the first ends in padding (id 20), so a batch of
+        # one protein has none
+        require(set(range(21 if bsz > 1 else 20))
+                <= set(ids.ravel().tolist()),
+                f"all 20 amino acids{' and padding' * (bsz > 1)} in the "
+                f"batch, {where}")
     if every_type:
         ids = with_every_type(rng, ids)
         where += ", every type of the table and ids outside it"
@@ -1094,18 +1130,65 @@ def phase_goldens(dev):
         require(err <= 1e-3, f"{name}: coordinate error {err:.3e} <= 1e-3 A")
         print(f"[golden] {name}: max coordinate error {err:.3e} A")
     z = np.load(os.path.join(GOLDEN, "model_parity_conv-enc.npz"))
-    am = np.random.default_rng(1).uniform(-0.5, 0.5, 24).astype(np.float32)
-    model = ConvEncoderOnlyTransformer(
-        n_layers=2, n_heads=2, d_model=32, d_ff=64, max_len=12,
-        vocab_size=22, angle_means=am, conv_kernel_sizes=(5, 3),
-        conv_dim_reductions=(2.0, 2.0)).to(dev)
+    model = golden_model("conv-enc").to(dev)
     load_flax_params(model, params_from_flat_keys(z))
+    err = golden_forward_error("conv-enc", model, z, dev)
+    print(f"[golden] model_parity_conv-enc.npz: max error {err:.3e}")
+    for name in GOLDEN_MODELS:
+        z = np.load(os.path.join(GOLDEN, f"model_parity_{name}.npz"))
+        model = golden_model(name)
+        # the golden's flax params as a reference checkpoint's state_dict:
+        # the port's layouts are the reference's, keyed by the port's map
+        names = reference_names(model)
+        ref = {names[k]: v for k, v in flax_to_state_dict(
+            params_from_flat_keys(z), model).items()}
+        model = state_dict_to_port(ref, golden_model(name).to(dev))
+        err = golden_forward_error(name, model, z, dev)
+        print(f"[golden] model_parity_{name}.npz through the reference "
+              f"checkpoint route (models/torch_import.py): max error "
+              f"{err:.3e}")
+
+
+# the frozen goldens' models (tests/test_torch_models.py,
+# tests/test_torch_enc_dec.py): B=2 x L=12, d_model 32, d_ff 64, 2 heads,
+# 2 layers, the angle means of seed 1
+GOLDEN_SIZES = dict(n_heads=2, d_model=32, d_ff=64, max_len=12,
+                    vocab_size=22, pad_id=VOCAB.pad_id)
+GOLDEN_MODELS = {
+    "enc-only": lambda am: EncoderOnlyTransformer(
+        n_layers=2, angle_means=am, **GOLDEN_SIZES),
+    "conv-enc": lambda am: ConvEncoderOnlyTransformer(
+        n_layers=2, angle_means=am, conv_kernel_sizes=(5, 3),
+        conv_dim_reductions=(2.0, 2.0), **GOLDEN_SIZES),
+    "conv-enc-noemb": lambda am: ConvEncoderOnlyTransformer(
+        n_layers=2, angle_means=am, conv_kernel_sizes=(3,),
+        conv_dim_reductions=(0.5,), use_tanh_out=False, use_embedding=False,
+        **GOLDEN_SIZES),
+    "enc-dec": lambda am: Transformer(
+        n_enc_layers=2, n_dec_layers=2, angle_means=am, **GOLDEN_SIZES),
+}
+
+
+def golden_model(name: str):
+    """A fresh model of a golden's family and sizes, on the CPU."""
+    am = np.random.default_rng(1).uniform(-0.5, 0.5, 24).astype(np.float32)
+    return GOLDEN_MODELS[name](am)
+
+
+def golden_forward_error(name: str, model, z, dev) -> float:
+    """Max |forward - expected| of a golden; fails beyond 2e-5 (rtol
+    1e-4), with TF32 off."""
+    ids = torch.from_numpy(z["ids"]).to(dev)
     with torch.no_grad():
-        out = model.eval()(torch.from_numpy(z["ids"]).to(dev)).cpu().numpy()
+        if name == "enc-dec":
+            out = model.eval()(ids.long(), torch.from_numpy(z["ang"]).to(dev))
+        else:
+            out = model.eval()(ids)
+    out = out.cpu().numpy()
     err = float(np.abs(out - z["expected"]).max())
     require(np.allclose(out, z["expected"], atol=2e-5, rtol=1e-4),
-            f"conv-enc golden forward within 2e-5 (max error {err:.3e})")
-    print(f"[golden] model_parity_conv-enc.npz: max error {err:.3e}")
+            f"{name} golden forward within 2e-5 (max error {err:.3e})")
+    return err
 
 
 def flagship(arm: str, out_dir: str, **kw) -> TrainConfig:
@@ -4013,6 +4096,162 @@ def phase_ladder(dev, card, out_dir) -> dict:
     return {k: sum(p[k] for p in parts) for k in COUNTERS}
 
 
+BENCH_STEPS = 30
+BENCH_MODES = ("raw", "trainer", "eval")
+BENCH_TIMEOUT = 300  # seconds a bench process may take, start-up included
+# the reference's positional-encoding buffer: a checkpoint entry that no
+# module of the port owns, which the import must pass over
+REFERENCE_PE = "encoder.pos_enc.pe"
+
+
+def reference_checkpoint(dev, card, out_dir) -> None:
+    """(a): a reference-style .chkpt of the flagship from seeded weights
+    into a fresh model on the card; the same forward bits on a flagship
+    batch."""
+    cfg = flagship("all", out_dir)
+    am = np.random.default_rng(0).uniform(-0.5, 0.5, 24).astype(np.float32)
+    source = make_model(cfg, am)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in source.parameters():
+            p.copy_(0.05 * torch.randn(p.shape, generator=gen))
+    names = reference_names(source)
+    sd = {names[k]: v.detach().clone() for k, v in source.named_parameters()}
+    sd[REFERENCE_PE] = torch.zeros(1, cfg.max_seq_len, cfg.d_model)
+    path = os.path.join(out_dir, "flagship.chkpt")
+    t0 = time.perf_counter()
+    torch.save({"model_state_dict": sd, "optimizer_state_dict": {},
+                "epoch": 0}, path)
+    fresh = load_reference_checkpoint(path, make_model(cfg, am).to(dev))
+    seconds = time.perf_counter() - t0
+    source = source.to(dev).eval()
+    require(all(torch.equal(a, b) for a, b in zip(
+        source.parameters(), fresh.parameters())),
+            "the loaded parameters are the checkpoint's, bit for bit")
+    data = make_dataset(n_train=8, n_eval=2, min_len=255, max_len=256,
+                        seed=0)
+    batch = collate(DataModule(data, cfg).train, np.arange(8),
+                    cfg.bucket_sizes, 256)
+    ids = torch.as_tensor(batch.seq).to(dev)
+    with torch.no_grad():
+        want, got = source(ids), fresh.eval()(ids)
+    require(got.shape == (8, 256, 24) and bool(torch.isfinite(got).all())
+            and torch.equal(got, want),
+            "the loaded flagship's forward equals the source model's bit "
+            "for bit")
+    print(f"[bench] reference checkpoint of the flagship (conv-enc d_model "
+          f"512, 6 layers, {len(names)} tensors and the PE buffer, "
+          f"{os.path.getsize(path) / 1e6:.1f} MB) written and loaded onto "
+          f"the card in {seconds:.2f} s: forward on B=8 x L=256 equal bit "
+          f"for bit ({card})")
+
+
+def bench_child(out_dir: str) -> int:
+    """One bench process of phase 21, started as ``chip_smoke.py
+    --bench-child DIR`` with BENCH_MODE and BENCH_STEPS set: ``bench.main``
+    on the card, then its kernel launches, its steps and what it computed
+    (the headline's first loss, the eval step's metrics) into
+    DIR/bench-<mode>.json."""
+    reset_launches()
+    result = bench.main([])
+    mode = os.environ.get("BENCH_MODE", "raw")
+    values = ([result["first_loss"]] if "first_loss" in result else
+              result["metrics"].tolist() if "metrics" in result else [])
+    with open(os.path.join(out_dir, f"bench-{mode}.json"), "w") as f:
+        json.dump({"launches": read_launches(),
+                   "steps_run": result["steps_run"], "values": values}, f)
+    return 0
+
+
+def bench_launches(mode: str, steps: int) -> dict:
+    """The launches of ``steps`` steps of a bench mode: a combined-loss
+    train step K1b twice, K2a and K2b once; the trainer loop K2a once more
+    for each structure it logs (train every log_structure_step steps, each
+    validation split every log_val_struct_step); an eval step K1a twice and
+    K2a once."""
+    if mode == "eval":
+        return launched(drmsd_fwd=2 * steps, sidechain_fwd=steps)
+    logged = 0
+    if mode == "trainer":
+        cfg = TrainConfig()
+        logged = sum(1 for s in range(steps)
+                     if s % cfg.log_structure_step == 0) + len(
+            VALID_SPLITS) * sum(1 for s in range(steps)
+                                if s % cfg.log_val_struct_step == 0)
+    return launched(drmsd_fwd_grad=2 * steps, sidechain_fwd=steps + logged,
+                    sidechain_bwd=steps)
+
+
+def bench_modes(card, out_dir) -> dict:
+    """(b): the three modes at full width, each in a process of its own;
+    returns their launches."""
+    total = launched()
+    for mode in BENCH_MODES:
+        env = dict(os.environ, BENCH_MODE=mode, BENCH_STEPS=str(BENCH_STEPS))
+        try:
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--bench-child",
+                 out_dir], cwd=ROOT, env=env, capture_output=True,
+                text=True, timeout=BENCH_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            require(False, f"bench mode {mode} finished within "
+                           f"{BENCH_TIMEOUT} s")
+        require(proc.returncode == 0, f"bench mode {mode} exited with "
+                f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        with open(os.path.join(out_dir, f"bench-{mode}.json")) as f:
+            child = json.load(f)
+        want = bench_launches(mode, child["steps_run"])
+        require(set(line) == {"metric", "value", "unit", "vs_baseline"}
+                and np.isfinite(line["value"]) and line["value"] > 0,
+                f"bench mode {mode}: a finite positive value: {line}")
+        require(f"# card: {card}" in proc.stderr,
+                f"bench mode {mode} names the card: {proc.stderr[-2000:]}")
+        require(np.isfinite(child["values"]).all()
+                and len(child["values"]) == {"raw": 1, "trainer": 0}.get(
+                    mode, len(METRIC_KEYS)),
+                f"bench mode {mode}: finite outputs {child['values']}")
+        require(child["launches"] == want,
+                f"bench mode {mode}: launches {child['launches']} over "
+                f"{child['steps_run']} steps, expected {want}")
+        for ln in proc.stderr.splitlines():
+            if ln.startswith("# "):
+                print(f"[bench] {mode} {ln}")
+        a_run = {k: v for k, v in child["launches"].items() if v}
+        print(f"[bench] {mode}: {json.dumps(line)}; {child['steps_run']} "
+              f"steps, launches {json.dumps(a_run)} ({card})")
+        for k, v in child["launches"].items():
+            total[k] += v
+    return total
+
+
+def bench_protocol_runs(card) -> None:
+    """(c): the protocol at --runs 2 in raw mode; the kernels are built, so
+    run 1 (and run 0) is warm."""
+    lines, out = tool_lines(bench_protocol.main, [
+        "--runs", "2", "--steps", str(BENCH_STEPS), "--per_run_timeout",
+        str(BENCH_TIMEOUT)])
+    rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    runs = [r for r in rows if "run" in r]
+    require(not any("event" in r for r in rows),
+            f"the protocol's runs each passed at their first attempt: {rows}")
+    require(len(runs) == 2 and runs[1]["cold"] is False
+            and out["metric"] == "p50_ms" and np.isfinite(out["median"])
+            and out["median"] > 0 and len(out["spread"]) == 2,
+            f"the protocol: a warm run 1, its median and spread: {out}")
+    print(f"[bench] protocol --runs 2 (raw): {json.dumps(out)} ({card})")
+
+
+def phase_bench(dev, card, out_dir) -> dict:
+    """Phase 21; returns the launches of the bench modes' processes."""
+    t0 = time.perf_counter()
+    reference_checkpoint(dev, card, out_dir)
+    launches = bench_modes(card, out_dir)
+    bench_protocol_runs(card)
+    print(f"[bench] phase 21 in {time.perf_counter() - t0:.1f} s ({card})")
+    return launches
+
+
 def print_mfu(card, fp32_step, bf16_step) -> None:
     """MFU of phase 6's fp32 and phase 16's bf16 flagship train steps
     against the card's bf16 dense peak (training/flops.py), by wall time
@@ -4037,6 +4276,8 @@ def print_mfu(card, fp32_step, bf16_step) -> None:
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--rank-child":
         return rank_child(sys.argv[2], sys.argv[3:])
+    if len(sys.argv) > 2 and sys.argv[1] == "--bench-child":
+        return bench_child(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this smoke run "
               "needs one GPU", file=sys.stderr)
@@ -4046,7 +4287,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev, card = phase_device()
     resources = phase_build()
-    table, structured, ladder_k1_errs = phase_kernel(dev, card)
+    table, structured, path_k1_errs = phase_kernel(dev, card)
     variant_table, variant_errs, bench_launches = phase_variants(dev, card)
     sc_table, sc_errs = phase_sidechain_kernel(dev, card)
     attn_table = phase_attention_kernel(dev, card)
@@ -4070,6 +4311,7 @@ def main() -> int:
         multi_gpu_launches = phase_multi_gpu(dev, card, out_dir)
         scale_launches = phase_scale_data(dev, card, out_dir)
         ladder_launches_all = phase_ladder(dev, card, out_dir)
+        bench_launches_all = phase_bench(dev, card, out_dir)
     source = "protein_transformer_tpu_torch/csrc/"
     replaces = "protein_transformer_tpu/ops/"
     rows = []
@@ -4085,7 +4327,7 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": source + src,
                      "replaces": f"{replaces}drmsd_pallas.py:{line}",
                      "launches": launches,
-                     "max_abs_err": max(ladder_k1_errs[name], *(
+                     "max_abs_err": max(path_k1_errs[name], *(
                          t[name][0] for t in [*table.values(),
                                               *structured.values()])),
                      "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
@@ -4160,6 +4402,8 @@ def main() -> int:
             row["launches_scale_data"] = scale_launches[row["name"]]
         if ladder_launches_all[row["name"]]:
             row["launches_ladder"] = ladder_launches_all[row["name"]]
+        if bench_launches_all[row["name"]]:
+            row["launches_bench"] = bench_launches_all[row["name"]]
     require(all(row["launches"] > 0 or row["name"] == "drmsd_grad_b"
                 for row in rows),
             "every kernel of a main path was launched on it (K1c runs only "

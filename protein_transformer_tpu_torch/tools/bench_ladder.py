@@ -152,6 +152,44 @@ def window_steps(steps: int) -> int:
     return max(5, steps // 10)
 
 
+class StepRunner:
+    """``run(n)`` takes n training steps of ``trainer`` on one ``batch``,
+    from ``state`` on, keeping the last state and metrics and counting the
+    steps."""
+
+    def __init__(self, trainer: Trainer, state, batch):
+        self.trainer, self.state, self.batch = trainer, state, batch
+        self.metrics = None
+        self.steps_run = 0
+
+    def __call__(self, n: int = 1) -> None:
+        for _ in range(n):
+            self.state, self.metrics = self.trainer.train_step(self.state,
+                                                               self.batch)
+            self.steps_run += 1
+
+
+def timed_steps(run: StepRunner, steps: int, sync) -> dict:
+    """The paired-window timing of a train step: two warm-up steps, each
+    ending in a ``sync()``, then WINDOW_REPEATS pairs of a k-step and a
+    2k-step window (k = ``window_steps(steps)``). Returns the seconds per
+    step of each pair ("samples"), each window's seconds in order
+    ("windows") and the first warm-up step's loss ("first_loss")."""
+    run(1)
+    sync()
+    first_loss = float(run.metrics[0])  # METRIC_KEYS[0] == "loss"
+    run(1)
+    sync()
+    windows = []
+
+    def window(n):
+        windows.append(timed_window(run, n, sync))
+        return windows[-1]
+
+    samples = paired_samples(window, window_steps(steps), WINDOW_REPEATS)
+    return {"samples": samples, "windows": windows, "first_loss": first_loss}
+
+
 def probe_batch(idx: int, dtype: str, multiple: int, device: str = "cuda",
                 run=subprocess.run) -> tuple[int, int]:
     """(the frontier MAXB that a ``--probe-only`` subprocess prints, the
@@ -222,30 +260,15 @@ def bench_config(idx: int, steps: int, dtype: str = "float32",
             del trainer
             trainer = ladder_trainer(cfg, device)
         state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
-        batch = ladder_batch(trainer, b)
-        sync = synchronizer(device)
-        metrics = None
-        n_steps = 0
-
-        def run(n):
-            nonlocal state, metrics, n_steps
-            for _ in range(n):
-                state, metrics = trainer.train_step(state, batch)
-                n_steps += 1
-
-        for _ in range(2):
-            run(1)
-            sync()
-        k = window_steps(steps)
-        samples = paired_samples(lambda n: timed_window(run, n, sync), k,
-                                 WINDOW_REPEATS)
+        run = StepRunner(trainer, state, ladder_batch(trainer, b))
+        samples = timed_steps(run, steps, synchronizer(device))["samples"]
         dt = float(np.median(samples))
         p95 = float(np.percentile(samples, 95))
         on_card = device.type == "cuda"
-        measured = (device_profile(lambda: run(1)) if on_card else
+        measured = (device_profile(run) if on_card else
                     dict.fromkeys(("device_ops", "device_ms",
                                    "syncs_per_step")))
-        loss_value = float(metrics[0])
+        loss_value = float(run.metrics[0])
     out.update({
         "b": b, "l": length, "dtype": dtype, "dropout": dropout,
         "optimizer": optimizer, "clip": clip,
@@ -263,7 +286,7 @@ def bench_config(idx: int, steps: int, dtype: str = "float32",
         # (profiler overhead, a miscounted trace) shows as a negative share
         "idle_share": (1.0 - measured["device_ms"] / (dt * 1e3)
                        if on_card else None),
-        "steps_run": n_steps})
+        "steps_run": run.steps_run})
     return out
 
 

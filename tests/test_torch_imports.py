@@ -44,7 +44,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
 assert len(names) > 20, names
 # the wandb logging and the dataset tools, the scripts package, the
 # multi-GPU modules, the FLOPs model, the scale-data tools, the config
-# ladder and the trace tools, and the analysis scripts
+# ladder and the trace tools, the analysis scripts, the reference-checkpoint
+# import, the bench and its protocol
 expected = {pkg.__name__ + "." + m for m in (
     "parallel.distributed", "parallel.mesh", "parallel.sharding",
     "training.wandb_logging", "protein.measure",
@@ -56,7 +57,8 @@ expected = {pkg.__name__ + "." + m for m in (
     "tools.trace_ladder", "tools.analyze_trace", "tools.bench_attention",
     "scripts.compute_dataset_angle_means",
     "scripts.create_development_datasets", "scripts.downsample_dataset",
-    "scripts.group_predictions", "scripts.analyze", "scripts.plot")}
+    "scripts.group_predictions", "scripts.analyze", "scripts.plot",
+    "models.torch_import", "bench", "tools.bench_protocol")}
 assert expected <= set(names), expected - set(names)
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
