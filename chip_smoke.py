@@ -105,7 +105,11 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    rows, config.json, and the kernels launched as often as the steps say;
    the checkpoint restored bit for bit; then ``main`` again with -e 3 on
    the same directory, which must resume from 'best' at epoch 2 and
-   finish. Prints ms per train step and residues/s of the second epoch;
+   finish. Prints ms per train step and residues/s of the second epoch.
+   The checkpoint's cost: ``Trainer._save_checkpoint`` and the restore in
+   ``maybe_restore`` after one train step, at the flagship and at ladder
+   config 5 (d_model 1024 x L 500), timed, with the file's bytes, the
+   restored state equal to the saved one bit for bit;
 8. flash attention (K3a forward; the backward, dQ, dK and dV in one launch)
    against its plain version on the card, on the model's head-split views,
    at (B, H, L, D) = (8, 8, 256, 64), (16, 8, 256, 64), (8, 8, 500, 64),
@@ -153,17 +157,32 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    checkpoint restored bit for bit; ``predict.main`` on the run for 16
    proteins (teacher-forced on the true angles, as the JAX package
    predicts). Prints ms per train step beside the conv-enc CLI step of
-   phase 7, and a profiler count of one step. Scheduled sampling (both
-   fractions 0.5) and ``predict()`` run at L = 32: four train steps with
-   backward, whose decoder passes must be those the sampling generator's
-   seed gives (a seed chosen for three teacher-forced steps, then one
-   sampled with 14 predictions fed back);
+   phase 7, and a profiler count of one step. The enc-dec step's host
+   time: conv-enc and enc-dec flagship epochs interleaved, each with its
+   wall ms, device operations, device ms and loop-profile phases a step
+   and the five costliest Python sites of one step (cProfile). Scheduled
+   sampling, every fed-back decoder pass recomputed in the backward: at
+   L = 32 (both fractions 0.5) four train steps with backward, whose
+   decoder passes must be those the sampling generator's seed gives (a
+   seed chosen for three teacher-forced steps, then one sampled with 14
+   predictions fed back), and ``predict()``; at the reference's lengths
+   (-fctf 0 -fsstf 0.5) one teacher-forced and two sampled steps at B=8 x
+   L=256 and one sampled step at B=2 x L=500, each with its passes, ms,
+   peak ``max_memory_allocated`` beside the prediction, stream
+   synchronisations (none beyond the teacher-forced step's) and, at
+   L = 256, device operations and device ms (from a traced teacher-forced
+   step and a traced sampled step of few passes), then ``predict()`` at
+   L = 256;
 12. structure logging, inside phase 11's second CLI run
    (--log_structure_step 2 --log_val_struct_step 4): for every logged step
    <step>_pred.pdb, <step>_pred.glb and <step>_scene.glb, and true.pdb and
    true.glb, under structures/train and structures/V10, each parsed (PDB
    atoms finite, the .glb container valid); ms per train step with logging
-   on beside logging off;
+   on beside logging off. Then ``tools/bench_logging.py`` on the flagship
+   conv-enc loop: logging at the default cadences (10, 50) against off,
+   epochs interleaved, ms, device operations, device ms and loop-profile
+   phases a step, and no stream synchronisation on the train loop in
+   either arm (the worker's own copies to the host apart);
 13. the training loop's data paths at the flagship width (B=16 x L=256
    training, B=8 x L=256 eval): every batch of one train epoch and one eval
    epoch gathered from the device store equals collate(...).to(device) bit
@@ -263,7 +282,7 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    oracle_floor at its defaults on the card (K2a and K1a once): each
    chain's dRMSD within 1e-3 A of the plain CPU path's, and mean, median,
    min and max within 0.01 A of the JAX tool's 27.59 / 24.76 / 11.66 /
-   54.00. (c) stress_pipeline at 2,000 and 8,000 training chains (the
+   54.00. (c) stress_pipeline at 1,000 and 4,000 training chains (the
    generator a subprocess on the card, the store on the card): a line for
    every stage, plan and collate counting the same proteins, each stage at
    4x the chains within 8x the time plus 1 s. (d) the training CLI on (a)'s
@@ -376,8 +395,8 @@ from protein_transformer_tpu_torch.scripts import (
     group_predictions, plot, proteinnet_to_dataset)
 from protein_transformer_tpu_torch.tools import (
     analyze_trace, bench_attention, bench_drmsd_kernel, bench_ladder,
-    bench_protocol, gen_dev_data, gen_scale_data, oracle_floor,
-    stress_pipeline, trace_ladder)
+    bench_logging, bench_protocol, gen_dev_data, gen_scale_data,
+    oracle_floor, stress_pipeline, trace_ladder)
 from protein_transformer_tpu_torch.tools.bench_geometry import (
     sync_count, sync_sites)
 from protein_transformer_tpu_torch.training import batch_probe, cli, flops
@@ -1621,8 +1640,8 @@ def check_restore(argv, best, dev, steps_per_epoch) -> int:
 
 
 def phase_cli(dev, card, out_dir):
-    """The training CLI for two epochs and a resumed third. Returns (the
-    launches of the first run, ms per train step of its second epoch)."""
+    """The training CLI for two epochs and a resumed third, then the
+    checkpoint's cost. Returns the launches of the first run."""
     data = make_dataset(n_train=16, n_eval=8, min_len=255, max_len=256,
                         seed=0, device=dev)
     valid = ("valid-10", "valid-90")
@@ -1695,7 +1714,67 @@ def phase_cli(dev, card, out_dir):
           f"ms/train step, {n_res / seconds:.0f} res/s, data path "
           f"{epochs.paths[1]}; launches of the first run "
           f"{json.dumps(launches)} ({card})")
-    return launches, 1e3 * seconds / n
+    checkpoint_cost(dev, card, out_dir, data, 1e3 * seconds / n)
+    return launches
+
+
+def checkpoint_cost(dev, card, out_dir, data, step_ms) -> dict:
+    """Seconds and bytes of ``Trainer._save_checkpoint`` (parameters and
+    Adam moments, full tensors, one file) and of the restore in
+    ``maybe_restore``, each after one train step, at the flagship (on
+    phase 7's data) and at ladder config 5 (conv-enc d_model 1024 x L 500,
+    B=4): the restored state equal to the saved one bit for bit. The train
+    loop waits for the whole write: ``train()`` saves between epochs, after
+    the evaluation, synchronously."""
+    out = {}
+    for label, cfg, bsz in (
+            ("flagship", flagship("all", out_dir, name="ckpt-flagship",
+                                  optimizer="adam", lr_scheduling="noam",
+                                  max_seq_len=256), 8),
+            ("ladder config 5", bench_ladder.ladder_config(
+                5, 4, out_dir, name="ckpt-ladder5"), 4)):
+        cases = data if label == "flagship" else make_dataset(
+            n_train=bsz, n_eval=1, min_len=cfg.max_seq_len - 1,
+            max_len=cfg.max_seq_len, seed=3, device=dev)
+        tr = Trainer(cfg, device=dev, data=cases)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        state = tr.train_step(state, bench_ladder.ladder_batch(tr, bsz))[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr._save_checkpoint(state, 0, 1.0, [1.0])
+        save_s = time.perf_counter() - t0
+        path = os.path.join(tr.out_dir, "checkpoints", "best")
+        n_bytes = os.path.getsize(path)
+        again = Trainer(cfg, device=dev, data=cases)
+        fresh = again.init_state(torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            restored = again.maybe_restore(fresh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in state.params.values())
+        require(restored.step == state.step == 1 and all(
+            torch.equal(restored.params[k], v)
+            for k, v in state.params.items()) and all(
+            torch.equal(a, b) for a, b in zip(restored.opt_state.mu
+                                              + restored.opt_state.nu,
+                                              state.opt_state.mu
+                                              + state.opt_state.nu)),
+                f"{label}: the restored state is the saved one bit for bit")
+        out[label] = {"bytes": n_bytes, "save_s": save_s, "load_s": load_s}
+        print(f"[checkpoint] {label} ({cfg.model}, d_model {cfg.d_model}, "
+              f"{n_params:,} parameters): {n_bytes / 1e6:.1f} MB written in "
+              f"{save_s:.3f} s ({n_bytes / 1e9 / save_s:.2f} GB/s), restored "
+              f"in {load_s:.3f} s; the train loop waits for the write "
+              f"(synchronous, between epochs, at most once an epoch)"
+              + (f": {1e3 * save_s / step_ms:.0f} flagship train steps of "
+                 f"phase 7" if label == "flagship" else "") + f" ({card})")
+        del tr, again, state, restored, fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def head_split(rng, dev, shape, gains=(1.0, 1.0, 1.0), dtype=torch.float32):
@@ -2174,9 +2253,9 @@ ENC_DEC_SAMPLING_SEED = 11_736
 def enc_dec_sampling(dev, card, out_dir):
     """Scheduled sampling (both fractions 0.5) and ``predict()`` at full
     width and L = 32: four train steps with backward, of which the seed
-    below draws the fourth as the sampled path. At L = 256 that path keeps
-    up to 255 full decoder passes alive for the backward, which one card
-    does not hold at this width, so it is driven at L = 32 only."""
+    below draws the fourth as the sampled path, whose fed-back passes the
+    backward recomputes (one more decoder call each). The reference's
+    lengths: ``enc_dec_sampling_full``."""
     data = make_dataset(n_train=16, n_eval=2, min_len=31, max_len=32, seed=4,
                         device=dev)
     tr = Trainer(flagship("all", out_dir, model="enc-dec",
@@ -2216,9 +2295,14 @@ def enc_dec_sampling(dev, card, out_dir):
         times.append(1e3 * (time.perf_counter() - t0))
         losses.append(float(out[0]))
     hook.remove()
-    require(passes == want_passes and max(passes) > 1 and min(passes) == 1,
-            f"decoder passes per step {passes}: expected {want_passes}, "
-            "teacher-forced and sampled steps both")
+    # each fed-back pass runs again in the backward
+    require(passes == [2 * n - 1 for n in want_passes]
+            and max(passes) > 1 and min(passes) == 1,
+            f"decoder calls per step {passes}: expected "
+            f"{[2 * n - 1 for n in want_passes]} (passes {want_passes}, the "
+            "fed-back ones recomputed), teacher-forced and sampled steps "
+            "both")
+    passes = want_passes
     require(all(np.isfinite(x) and x > 0 for x in losses),
             f"finite losses through the sampled path: {losses}")
 
@@ -2247,10 +2331,262 @@ def enc_dec_sampling(dev, card, out_dir):
           f"({card})")
 
 
-def phase_enc_dec(dev, card, out_dir, conv_enc_ms):
+# the sampled path at the reference's lengths, full width, -fctf 0 -fsstf
+# 0.5: (B, L, sampled steps); at L = 256 a teacher-forced step first
+SAMPLED_FULL = ((8, 256, 2), (2, 500, 1))
+SAMPLED_SEED = 19
+# -fsstf of the short sampled step traced for the operations of a pass
+SHORT_FRACTION = 0.95
+# the peak max_memory_allocated that PERF.md predicts for a sampled step:
+# the encoder, one decoder pass (~1.35 GB at B=8 x L=256) and the
+# parameters, moments and gradients
+PREDICTED_PEAK_GB = {256: 3.0, 500: 2.2}
+
+
+def enc_dec_sampling_full(dev, card, out_dir) -> tuple:
+    """Scheduled sampling at the reference's lengths and full width (d_model
+    512, d_ff 2048, 8 heads, 6 + 6 layers, dropout 0.1, combined loss),
+    ``fraction_complete_tf`` 0 and ``fraction_subseq_tf`` 0.5, every
+    fed-back pass recomputed in the backward: at B=8 x L=256 one
+    teacher-forced step and two sampled steps with backward, then a
+    teacher-forced step and a sampled one at -fsstf 0.95 traced for the
+    device operations and device ms of a step and of a fed-back pass, and
+    ``predict()``; at B=2 x L=500 one sampled step. Each step's decoder
+    passes must be those the sampling generator's replayed draws give, its
+    loss finite, its stream synchronisations no more than the
+    teacher-forced step's; prints passes, ms, peak ``max_memory_allocated``
+    beside the prediction, and synchronisations a step. Returns (the
+    steps' rows, the kernel launches of all the steps)."""
+    rows, tf_syncs, n_steps = [], None, 0
+    datasets = {length: make_dataset(n_train=bsz, n_eval=1,
+                                     min_len=length - 1, max_len=length,
+                                     seed=5, device=dev)
+                for bsz, length, _ in SAMPLED_FULL}
+    reset_launches()  # making the datasets ran K2a
+    for bsz, length, n_sampled in SAMPLED_FULL:
+        data = datasets[length]
+        tr = Trainer(flagship("all", out_dir, model="enc-dec",
+                              name=f"encdec-sampled-{length}",
+                              optimizer="adam", lr_scheduling="noam",
+                              max_seq_len=length, bucket_sizes=(length,),
+                              batch_size=bsz, fraction_complete_tf=0.0,
+                              fraction_subseq_tf=0.5, seed=SAMPLED_SEED),
+                     device=dev, data=data)
+        params = tr.init_params(torch.Generator().manual_seed(0))
+        w = params["output_projection.weight"]
+        params["output_projection.weight"] = (0.02 * torch.randn(
+            w.shape, generator=torch.Generator().manual_seed(1))).to(dev)
+        state = tr.state_from(params)
+        batch = bench_ladder.ladder_batch(tr, bsz)
+        model = tr.model
+        replay = torch.Generator().manual_seed(
+            tr.sampling_generator.initial_seed())
+        calls = [0]
+        hook = model.decoder.register_forward_hook(
+            lambda *_: calls.__setitem__(0, calls[0] + 1))
+        box = {"state": state}
+
+        def step(kind):
+            nonlocal n_steps
+            model.fraction_complete_tf = (1.0 if kind == "teacher-forced"
+                                          else 0.0)
+            box["state"], box["out"] = tr.train_step(box["state"], batch)
+            n_steps += 1
+
+        def want_passes(kind, fraction=0.5) -> int:
+            if kind == "teacher-forced":
+                return 1
+            torch.rand(1, generator=replay)  # forward's first draw
+            draws = torch.rand(length, generator=replay)
+            return 1 + int((draws[1:] > fraction).sum())
+
+        kinds = (["teacher-forced"] if length == 256 else []) + (
+            ["sampled"] * n_sampled)
+        try:
+            for kind in kinds:
+                want = want_passes(kind)
+                calls[0] = 0
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                before = torch.cuda.memory_allocated(dev)
+                t0 = time.perf_counter()
+                sites = sync_sites(lambda: step(kind))
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                peak = torch.cuda.max_memory_allocated(dev)
+                loss = float(box["out"][0])
+                require(calls[0] == 2 * want - 1,
+                        f"B={bsz} x L={length}, {kind} step: {calls[0]} "
+                        f"decoder calls, expected {2 * want - 1} ({want} "
+                        "passes as the sampling generator draws them, the "
+                        "fed-back ones recomputed once)")
+                require(math.isfinite(loss) and loss > 0,
+                        f"B={bsz} x L={length}, {kind} step: loss {loss}")
+                if kind == "teacher-forced":
+                    tf_syncs = len(sites)
+                require(len(sites) <= tf_syncs,
+                        f"B={bsz} x L={length}, {kind} step: {len(sites)} "
+                        f"stream synchronisations ({where(sites)}), the "
+                        f"teacher-forced step {tf_syncs}")
+                rows.append({"B": bsz, "L": length, "kind": kind,
+                             "passes": want, "ms": ms,
+                             "peak_gb": peak / 1e9,
+                             "before_gb": before / 1e9,
+                             "syncs": len(sites), "loss": loss})
+            if length == 256:
+                # a sampled step is ~1,500 device operations a fed-back
+                # pass, ~2 x 10^5 in all, whose trace takes ~50 s to read:
+                # trace the teacher-forced step and a sampled one with few
+                # fed-back passes, and count the steps above from them
+                traced = {}
+                for kind, fraction in (("teacher-forced", 0.5),
+                                       ("sampled", SHORT_FRACTION)):
+                    model.fraction_subseq_tf = fraction
+                    want = want_passes(kind, fraction)
+                    calls[0] = 0
+                    traced[kind] = (want, *bench_logging.device_activity(
+                        lambda: step(kind)))
+                    require(calls[0] == 2 * want - 1,
+                            f"traced {kind} step: {calls[0]} decoder calls, "
+                            f"expected {2 * want - 1}")
+                model.fraction_subseq_tf = 0.5
+                (_, tf_ops, tf_ms), (short, s_ops, s_ms) = (
+                    traced["teacher-forced"], traced["sampled"])
+                if tf_ops is not None and s_ops is not None and short > 1:
+                    pass_ops = (s_ops - tf_ops) / (short - 1)
+                    pass_ms = (s_ms - tf_ms) / (short - 1)
+                    for r in rows:
+                        r["device_ops"] = tf_ops + (r["passes"] - 1) * pass_ops
+                        r["device_ms"] = tf_ms + (r["passes"] - 1) * pass_ms
+                    print(f"[enc-dec] traced at B={bsz} x L={length}: the "
+                          f"teacher-forced step {tf_ops} device operations "
+                          f"and {tf_ms:.1f} device ms, a sampled step of "
+                          f"{short} passes (-fsstf {SHORT_FRACTION}) {s_ops} "
+                          f"and {s_ms:.1f}: {pass_ops:.1f} device operations "
+                          f"and {pass_ms:.2f} device ms a fed-back pass "
+                          f"({card})")
+                else:
+                    print("[enc-dec] a trace without device records: the "
+                          "steps' device operations not measured")
+        finally:
+            hook.remove()
+        if length == 256:
+            tr.model.load_state_dict({k: v.detach()
+                                      for k, v in box["state"].params.items()})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tr.model.predict(batch.seq)
+            torch.cuda.synchronize()
+            predict_ms = 1e3 * (time.perf_counter() - t0)
+            with torch.no_grad():
+                forced = tr.model.eval().forward_tf(batch.seq, batch.ang)
+            require(out.shape == (*batch.seq.shape, 24)
+                    and torch.isfinite(out).all().item()
+                    and float(out.abs().max()) <= 1.0,
+                    "predict() at L = 256 gives finite sin/cos of the "
+                    "expected shape")
+            first = float((out[:, 0] - forced[:, 0]).abs().max())
+            require(first <= 1e-5, f"predict()'s first position at L = 256 "
+                                   f"is teacher forcing's ({first:.2e})")
+        for r in (r for r in rows if r["L"] == length):
+            ops = ("" if r.get("device_ops") is None else
+                   f", {r['device_ops']:.0f} device operations and "
+                   f"{r['device_ms']:.1f} device ms (from the traced steps)")
+            print(f"[enc-dec] {r['kind']} step at d_model 512 x 6 + 6 "
+                  f"layers, B={bsz} x L={length}, -fctf "
+                  f"{1 if r['kind'] == 'teacher-forced' else 0} -fsstf 0.5: "
+                  f"{r['passes']} decoder passes, {r['ms']:.1f} ms, peak "
+                  f"max_memory_allocated {r['peak_gb']:.3f} GB, "
+                  f"{r['peak_gb'] - r['before_gb']:.3f} GB above the "
+                  f"{r['before_gb']:.3f} GB held before the step (predicted "
+                  f"~{PREDICTED_PEAK_GB[length]} GB for a sampled step, "
+                  "parameters and moments included), "
+                  f"{r['syncs']} stream synchronisations{ops}; loss "
+                  f"{r['loss']:.4f} ({card})")
+        if length == 256:
+            print(f"[enc-dec] predict() at B={bsz} x L={length} ({length} "
+                  f"decoder passes): {predict_ms:.1f} ms ({card})")
+        del tr, box, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    expected = launched(drmsd_fwd_grad=2 * n_steps, sidechain_fwd=n_steps,
+                        sidechain_bwd=n_steps)
+    require(launches == expected,
+            f"sampled enc-dec launches {launches}: expected {expected} for "
+            f"{n_steps} train steps (K1b twice, K2a and K2b once a step)")
+    return rows, launches
+
+
+def enc_dec_host_time(dev, card, out_dir, data) -> dict:
+    """The conv-enc and the enc-dec flagship train steps (d_model 512, 6
+    and 6 + 6 layers, combined loss, dropout 0.1, Adam, Noam, teacher
+    forcing) on one dataset, epochs of ``Trainer.train_epoch`` interleaved
+    (conv-enc, enc-dec, enc-dec, conv-enc) under PTT_LOOP_PROFILE=1: wall
+    ms a step and the loop's phases; device operations and device ms a
+    step from a trace of three steps; the five costliest Python sites of
+    one step of each under cProfile."""
+    trainers = {name: Trainer(flagship("all", out_dir, model=model,
+                                       name=f"host-{name}", optimizer="adam",
+                                       lr_scheduling="noam",
+                                       repeat_train=TRAIN_REPEAT),
+                              device=dev, data=data)
+                for name, model in (("conv-enc", MODEL),
+                                    ("enc-dec", "enc-dec"))}
+    states = {name: tr.init_state(torch.Generator().manual_seed(0))
+              for name, tr in trainers.items()}
+    wall = {name: [] for name in trainers}
+    phases = {name: [] for name in trainers}
+    for name in ("conv-enc", "enc-dec", "enc-dec", "conv-enc"):
+        states[name], seconds, steps, ph = bench_logging.epoch(
+            trainers[name], states[name])
+        wall[name].append(1e3 * seconds / steps)
+        phases[name].append(ph)
+    out = {}
+    for name, tr in trainers.items():
+        batch = next(tr.dm.train_batches(np.random.default_rng(0))).to(dev)
+
+        def step(tr=tr, name=name):
+            states[name] = tr.train_step(states[name], batch)[0]
+
+        n_ops, dev_ms = profile_steps(step)
+
+        def synced_step():
+            step()
+            torch.cuda.synchronize()
+
+        synced_step()
+        # the host's own work: no wait for the device in it
+        sites = bench_logging.costliest_sites(step)
+        torch.cuda.synchronize()
+        out[name] = {"ms": statistics.median(wall[name]),
+                     "ms_each": wall[name], "device_ops": n_ops,
+                     "device_ms": dev_ms, "phases": phases[name][-1],
+                     "sites": sites}
+        print(f"[enc-dec host] {name}: {out[name]['ms']:.2f} ms a train "
+              f"step (epochs " + ", ".join(f"{t:.2f}" for t in wall[name])
+              + f"), {n_ops:.0f} device operations, {dev_ms:.2f} device ms; "
+              "loop profile ms a step: " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in phases[name][-1].items())
+              + "; costliest Python sites of one step (own ms, calls): "
+              + "; ".join(f"{s} {t:.2f} ms x {n:.0f}" for s, t, n in sites)
+              + f" ({card})")
+    ce, ed = out["conv-enc"], out["enc-dec"]
+    print(f"[enc-dec host] enc-dec / conv-enc: wall {ed['ms'] / ce['ms']:.2f}"
+          f"x, device operations {ed['device_ops'] / ce['device_ops']:.2f}x, "
+          f"device ms {ed['device_ms'] / ce['device_ms']:.2f}x; host ms an "
+          f"operation {ed['ms'] / ed['device_ops'] * 1e3:.1f} us against "
+          f"{ce['ms'] / ce['device_ops'] * 1e3:.1f} us ({card})")
+    return out
+
+
+def phase_enc_dec(dev, card, out_dir):
     """The encoder-decoder family through the CLI and predict at full width,
-    without and with structure logging, and its sampled paths at L = 32.
-    Returns the launches of the CLI run that logs structures."""
+    without and with structure logging; structure logging's cost on the
+    flagship loop; the enc-dec step's host time beside the conv-enc
+    step's; its sampled paths at L = 32 and at the reference's lengths.
+    Returns the launches of the CLI run that logs structures and of the
+    sampled steps at full length."""
     data = make_dataset(n_train=16, n_eval=16, min_len=255, max_len=256,
                         seed=2, device=dev)
     for split in [k for k in data if k.startswith("valid-")]:
@@ -2316,37 +2652,17 @@ def phase_enc_dec(dev, card, out_dir, conv_enc_ms):
         require(len(names) > 4 * 255 - 1 and np.isfinite(xyz).all(),
                 f"{os.path.basename(path)} is well formed")
 
-    # device operations of one train step, for the idle share
-    tr = Trainer(cli.config_from_args(base + ["--name", "encdec-profile"]
-                                      + arms["off"][2:]), device=dev,
-                 data=data)
-    state = tr.init_state(torch.Generator().manual_seed(0))
-    batch = next(tr.dm.train_batches(np.random.default_rng(0)))
-
-    def step():
-        nonlocal state
-        state = tr.train_step(state, batch)[0]
-
-    n_ops, dev_ms = profile_steps(step)
-    direct = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        direct.append(1e3 * (time.perf_counter() - t0))
+    host = enc_dec_host_time(dev, card, out_dir, data)["enc-dec"]
     print(f"[enc-dec] d_model 512 x 6 + 6 layers, combined loss, dropout "
-          f"0.1, teacher forcing, epochs of {steps} train steps of "
-          f"B={batch.seq.shape[0]} x L={batch.seq.shape[1]} and {n_eval} "
-          f"eval steps through the CLI ({epochs.paths[-1]}): "
-          f"{step_ms['off']:.2f} ms/train step (second epoch) beside {conv_enc_ms:.2f} ms for the conv-enc CLI "
-          f"step of this call; {n_ops:.0f} device operations and "
-          f"{dev_ms:.2f} ms of device time per step, idle share "
-          f"{1 - dev_ms / step_ms['off']:.2f}; {statistics.median(direct):.2f} "
-          f"ms for Trainer.train_step called alone (median of 5, "
-          f"synchronised); restored bit for bit; predict "
-          f"wrote {len(paths)} PDB files; launches "
-          f"{json.dumps(launches['off'])} ({card})")
+          f"0.1, teacher forcing, epochs of {steps} train steps of B=16 x "
+          f"L=256 and {n_eval} eval steps through the CLI "
+          f"({epochs.paths[-1]}): {step_ms['off']:.2f} ms/train step "
+          f"(second epoch); {host['device_ops']:.0f} device operations and "
+          f"{host['device_ms']:.2f} ms of device time per step, idle share "
+          f"{1 - host['device_ms'] / host['ms']:.2f} (beside the conv-enc "
+          f"step: [enc-dec host]); restored bit for bit; predict wrote "
+          f"{len(paths)} PDB files; launches {json.dumps(launches['off'])} "
+          f"({card})")
     print(f"[structure-log] --log_structure_step {LOG_EVERY} "
           f"--log_val_struct_step {LOG_VAL_EVERY}, one validation split: "
           f"{n_files} files (pred.pdb, pred.glb, scene.glb per logged step; "
@@ -2354,8 +2670,27 @@ def phase_enc_dec(dev, card, out_dir, conv_enc_ms):
           f"{step_ms['on']:.2f} ms/step with logging on beside "
           f"{step_ms['off']:.2f} with it off (second epochs; launches with "
           f"logging {json.dumps(launches['on'])}) ({card})")
+    logging_cost(dev, card)
     enc_dec_sampling(dev, card, out_dir)
-    return launches["on"]
+    _, sampled_launches = enc_dec_sampling_full(dev, card, out_dir)
+    return launches["on"], sampled_launches
+
+
+def logging_cost(dev, card) -> dict:
+    """Structure logging at the default cadences (10 and 50) against off,
+    on the flagship conv-enc loop (``tools/bench_logging.py``: epochs of 27
+    steps interleaved off, on, on, off): ms, device operations and device
+    ms a step, the loop profile's phases, and no stream synchronisation on
+    the train loop with logging on (the worker's copies to the host
+    apart)."""
+    results = bench_logging.run(dev, repeat=25)
+    for arm in ("off", "on"):
+        loop = results[arm]["loop_syncs"]
+        require(not loop, f"structure logging {arm}: {len(loop)} stream "
+                          f"synchronisations on the train loop ({where(loop)})")
+    require(results["on"]["files"] > 0 and results["off"]["files"] == 0,
+            "the logging arm wrote structures, the other none")
+    return results
 
 
 # the data paths of phase 13: the device store, prefetched host batches, and
@@ -3644,7 +3979,7 @@ ORACLE_CHAINS, ORACLE_LENGTH = 20, 150
 SCALE_COORD_TOL = 1e-3
 # stress_pipeline's training chains; at 4x the chains a stage may take 8x
 # the time plus 1 s (linear work takes 4x; an O(n^2) stage ~16x)
-STRESS_SIZES = (2000, 8000)
+STRESS_SIZES = (1000, 4000)
 STRESS_STAGES = ("gen", "load", "split", "store", "plan", "collate")
 # The recipe of the JAX package's convergence run c4 (STATUS.md: conv-enc,
 # d_model 256, 6 layers, the combined loss, Adam + Noam), with the flags it
@@ -4285,33 +4620,43 @@ def main() -> int:
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev, card = phase_device()
-    resources = phase_build()
-    table, structured, path_k1_errs = phase_kernel(dev, card)
-    variant_table, variant_errs, bench_launches = phase_variants(dev, card)
-    sc_table, sc_errs = phase_sidechain_kernel(dev, card)
-    attn_table = phase_attention_kernel(dev, card)
-    bf16_table = phase_bf16_kernels(dev, card)
-    phase_goldens(dev)
+
+    def timed(fn, *args):
+        """fn(*args), with a line giving the seconds it took."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    dev, card = timed(phase_device)
+    resources = timed(phase_build)
+    table, structured, path_k1_errs = timed(phase_kernel, dev, card)
+    variant_table, variant_errs, bench_launches = timed(phase_variants, dev,
+                                                        card)
+    sc_table, sc_errs = timed(phase_sidechain_kernel, dev, card)
+    attn_table = timed(phase_attention_kernel, dev, card)
+    bf16_table = timed(phase_bf16_kernels, dev, card)
+    timed(phase_goldens, dev)
     with tempfile.TemporaryDirectory() as out_dir:
-        eval_launches = phase_slice(dev, card, out_dir)
-        train_launches, fp32_step = phase_train(dev, card, out_dir)
-        cli_launches, cli_step_ms = phase_cli(dev, card, out_dir)
-        predict_launches = phase_predict(dev, card, out_dir)
-        flash_launches = phase_flash_train(dev, card, out_dir)
-        enc_dec_launches = phase_enc_dec(dev, card, out_dir, cli_step_ms)
-        phase_data_path(dev, card, out_dir)
-        phase_dev_data(dev, card, out_dir)
-        phase_tools(dev, card, out_dir)
-        bf16_flash_launches, bf16_predict_launches, bf16_step = phase_bf16(
-            dev, card, out_dir)
+        eval_launches = timed(phase_slice, dev, card, out_dir)
+        train_launches, fp32_step = timed(phase_train, dev, card, out_dir)
+        cli_launches = timed(phase_cli, dev, card, out_dir)
+        predict_launches = timed(phase_predict, dev, card, out_dir)
+        flash_launches = timed(phase_flash_train, dev, card, out_dir)
+        enc_dec_launches, sampled_launches = timed(
+            phase_enc_dec, dev, card, out_dir)
+        timed(phase_data_path, dev, card, out_dir)
+        timed(phase_dev_data, dev, card, out_dir)
+        timed(phase_tools, dev, card, out_dir)
+        bf16_flash_launches, bf16_predict_launches, bf16_step = timed(
+            phase_bf16, dev, card, out_dir)
         print_mfu(card, fp32_step, bf16_step)
-        probe_launches = phase_wandb(dev, card, out_dir)
-        rebuild_launches = phase_data_tools(dev, card, out_dir)
-        multi_gpu_launches = phase_multi_gpu(dev, card, out_dir)
-        scale_launches = phase_scale_data(dev, card, out_dir)
-        ladder_launches_all = phase_ladder(dev, card, out_dir)
-        bench_launches_all = phase_bench(dev, card, out_dir)
+        probe_launches = timed(phase_wandb, dev, card, out_dir)
+        rebuild_launches = timed(phase_data_tools, dev, card, out_dir)
+        multi_gpu_launches = timed(phase_multi_gpu, dev, card, out_dir)
+        scale_launches = timed(phase_scale_data, dev, card, out_dir)
+        ladder_launches_all = timed(phase_ladder, dev, card, out_dir)
+        bench_launches_all = timed(phase_bench, dev, card, out_dir)
     source = "protein_transformer_tpu_torch/csrc/"
     replaces = "protein_transformer_tpu/ops/"
     rows = []
@@ -4404,6 +4749,9 @@ def main() -> int:
             row["launches_ladder"] = ladder_launches_all[row["name"]]
         if bench_launches_all[row["name"]]:
             row["launches_bench"] = bench_launches_all[row["name"]]
+        # the enc-dec steps with scheduled sampling at full length
+        if sampled_launches[row["name"]]:
+            row["launches_enc_dec_sampled"] = sampled_launches[row["name"]]
     require(all(row["launches"] > 0 or row["name"] == "drmsd_grad_b"
                 for row in rows),
             "every kernel of a main path was launched on it (K1c runs only "

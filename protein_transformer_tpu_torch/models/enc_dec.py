@@ -20,7 +20,14 @@ decode:
   positions. The JAX package runs a decode for every timestep inside
   ``lax.scan`` and drops those it does not feed back; here a timestep that
   keeps its target runs none, which gives the same output. Gradients flow
-  through the fed predictions;
+  through the fed predictions. Each fed-back pass is recomputed in the
+  backward rather than kept (``torch.utils.checkpoint``), so the sampled
+  path holds one pass's activations and a (B, L, 24) input per pass, where
+  keeping them all would take ~1.35 GB a pass at d_model 512 x 6 layers,
+  B=8 x L=256, and ~255 passes at most. The recomputation replays the
+  pass's dropout masks from the dropout generator's state saved before the
+  pass, then puts the generator back where it stood, so outputs, gradients
+  and the generator's state are those of a loop that keeps every pass;
 * ``predict``: fully autoregressive decoding in eval mode.
 
 The draws of ``forward`` come from ``sampling_generator``, a CPU
@@ -42,10 +49,13 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from protein_transformer_tpu_torch.models.encoder_only import (
     key_padding_mask)
-from protein_transformer_tpu_torch.models.transformer import Decoder, Encoder
+from protein_transformer_tpu_torch.models.transformer import (
+    Decoder, Dropout, Encoder)
 from protein_transformer_tpu_torch.protein.constants import (
     NUM_PREDICTED_ANGLES)
 
@@ -96,10 +106,22 @@ class Transformer(nn.Module):
         shifted[:, 0, :] = SOS_VALUE
         return shifted
 
-    def _decode(self, dec_input, enc_out, causal, src_mask):
-        out = self.decoder(dec_input, enc_out, causal, src_mask)
-        return torch.tanh(self.output_projection(
-            out.to(self.output_projection.weight.dtype)))
+    def _decode(self, dec_input, enc_out, causal, src_mask, weights=None):
+        """The decoder and the output head, on ``weights`` where given: the
+        two modules' parameters by name, as ``functional_call`` takes them."""
+        dec_w, head_w = weights if weights is not None else (None, None)
+        out = self._call(self.decoder, dec_w, dec_input, enc_out, causal,
+                         src_mask)
+        head = self.output_projection
+        dtype = (head.weight if head_w is None else head_w["weight"]).dtype
+        return torch.tanh(self._call(head, head_w, out.to(dtype)))
+
+    @staticmethod
+    def _call(module, params, *args):
+        """``module(*args)``, on ``params`` where given."""
+        if params is None:
+            return module(*args)
+        return functional_call(module, params, args)
 
     def forward_tf(self, ids, tgt_angles):
         src_mask, causal = self._masks(ids)
@@ -129,13 +151,59 @@ class Transformer(nn.Module):
         work = self._shift_right(tgt_angles)
         length = ids.shape[1]
         draws = self._uniform(length)
+        # the weights the passes compute with: under functional_call the
+        # caller's, which the recomputation in the backward, after that call
+        # has returned, must take again
+        weights = (dict(self.decoder.named_parameters()),
+                   dict(self.output_projection.named_parameters()))
+        generators = self._dropout_generators()
         for t in range(1, length):
             if draws[t] > self.fraction_subseq_tf:
-                out = self._decode(work, enc_out, causal, src_mask)
-                # a new tensor: the old one is saved for the backward
-                work = torch.cat([work[:, :t], out[:, t - 1:t],
-                                  work[:, t + 1:]], dim=1)
+                work = checkpoint(self._sampled_pass(weights, generators),
+                                  work, enc_out, causal, src_mask, t,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
         return self._decode(work, enc_out, causal, src_mask)
+
+    def _dropout_generators(self) -> list:
+        """The generators the decoder's dropout masks come from in this
+        mode, each once."""
+        generators = []
+        for m in self.decoder.modules():
+            if (isinstance(m, Dropout) and m.training and m.p > 0
+                    and m.generator is not None
+                    and all(g is not m.generator for g in generators)):
+                generators.append(m.generator)
+        return generators
+
+    def _sampled_pass(self, weights: tuple, generators: list):
+        """One fed-back pass on ``weights`` (the decoder's and the head's,
+        as ``_decode`` takes them), ``(work, enc_out, causal, src_mask, t)
+        -> work`` with the prediction for t in row t. A second call is the
+        backward's recomputation: it draws the first call's dropout masks
+        again from the generators' states taken here, and leaves the
+        generators as it found them, also when the recomputation stops
+        early."""
+        states = [g.get_state() for g in generators]
+        first = True
+
+        def run(work, enc_out, causal, src_mask, t):
+            nonlocal first
+            restore = []
+            if not first:
+                restore = [g.get_state() for g in generators]
+                for g, s in zip(generators, states):
+                    g.set_state(s)
+            first = False
+            try:
+                out = self._decode(work, enc_out, causal, src_mask, weights)
+            finally:
+                for g, s in zip(generators, restore):
+                    g.set_state(s)
+            return torch.cat([work[:, :t], out[:, t - 1:t], work[:, t + 1:]],
+                             dim=1)
+
+        return run
 
     @torch.no_grad()
     def predict(self, ids):

@@ -641,11 +641,17 @@ class Trainer:
         coordinates on the device and hand them to the structure logger,
         whose worker thread makes the copies to the host. ``batch`` is a host
         batch or a ``LazyBatch``, whose fields the first access gathers
-        once on the device. Under a mesh every rank predicts (the model's
-        collectives need them all) and rank 0 alone logs."""
+        once on the device (its ``protein_mask`` is the plan's host array:
+        the index reads nothing from the device). A host batch's rows go to
+        the device without waiting for it (``non_blocking``: the copy from
+        pageable memory is staged before it returns). Under a mesh every
+        rank predicts (the model's collectives need them all) and rank 0
+        alone logs."""
         idx = max(int(batch.protein_mask.sum()) - 1, 0)
-        seq = torch.as_tensor(batch.seq[idx:idx + 1]).to(self.device).long()
-        ang = torch.as_tensor(batch.ang[idx:idx + 1]).to(self.device)
+        seq = torch.as_tensor(batch.seq[idx:idx + 1]).to(
+            self.device, non_blocking=True).long()
+        ang = torch.as_tensor(batch.ang[idx:idx + 1]).to(
+            self.device, non_blocking=True)
         was_training = self.model.training
         self.model.eval()
         pred = functional_call(self.model, params,

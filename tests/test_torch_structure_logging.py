@@ -3,6 +3,9 @@
 * ``protein/gltf.py`` (the port's own copy): ``structure_bonds``,
   ``coords_to_glb`` and ``scene_to_glb`` byte for byte against the
   original's, and the ``.glb`` container parsed;
+* ``PdbWriter.lines`` line for line against the JAX package's writer,
+  with missing (NaN), all-zero and every kind of residue, on each chain
+  label;
 * ``kabsch_align`` against the original's and on a known rigid motion;
 * ``StructureLogger``: the files of one structure equal to the JAX logger's
   (PDB text and ``.glb`` bytes), a tensor handed over as it is, a failure of
@@ -22,6 +25,7 @@ import pytest
 import torch
 
 from protein_transformer_tpu.protein import gltf as jgltf
+from protein_transformer_tpu.protein import pdb as jpdb
 from protein_transformer_tpu.training import structure_logging as jsl
 from protein_transformer_tpu_torch.config import TrainConfig as TConfig
 from protein_transformer_tpu_torch.data import synthetic as tsyn
@@ -62,6 +66,21 @@ def parse_glb(blob):
     body = blob[28 + json_len:]
     assert len(body) == bin_len == gltf["buffers"][0]["byteLength"]
     return gltf, body
+
+
+@pytest.mark.parametrize("seed,n_res", [(0, 500), (1, 37), (2, 1)])
+def test_pdb_lines_equal_the_jax_writers(seed, n_res):
+    rng = np.random.default_rng(seed)
+    seq = "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWYX"), n_res))
+    crd = rng.normal(0, 30, (n_res, 14, 3))
+    crd[rng.random((n_res, 14)) < 0.1] = np.nan
+    crd[rng.random((n_res, 14)) < 0.1] = 0.0
+    for chain in (" ", "A", ""):
+        assert (tpdb.PdbWriter(crd, seq, chain).lines("t")
+                == jpdb.PdbWriter(crd, seq, chain).lines("t"))
+    empty = np.zeros((n_res, 14, 3))
+    assert (tpdb.PdbWriter(empty, seq).lines()
+            == jpdb.PdbWriter(empty, seq).lines())
 
 
 @pytest.mark.parametrize("seed,n_res", [(0, 40), (1, 7), (2, 1)])

@@ -10,7 +10,11 @@ probe (and the CLI's ``-adbs``), the profiler hook and ``LoopProfiler``.
   failed try, outside the except block;
 * ``probe_trainer_batch_size`` on the CPU through both data paths;
 * ``-adbs`` replaces the batch size before training (as
-  ``tests/test_cli.py:62``);
+  ``tests/test_cli.py:62``); against a step that runs out of memory above
+  a frontier, the port's probe makes the JAX probe's tries and gives its
+  answer, and the binned sampler at that batch size draws the JAX
+  sampler's rows, more than the answer (the residue budget is
+  ``batch_size`` x 500: inherited, and the port matches it);
 * ``maybe_profile`` writes a Chrome trace on the CPU, and
   ``Trainer.train`` with ``profile_dir`` traces its first epoch;
 * ``LoopProfiler``'s report equals the JAX one for the same adds, and
@@ -21,21 +25,25 @@ import os
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
 import torch
 
+from protein_transformer_tpu.config import TrainConfig as JConfig
+from protein_transformer_tpu.data.dataset import DataModule as JDataModule
 from protein_transformer_tpu.training import batch_probe as jprobe
 from protein_transformer_tpu.training.trainer import (
     LoopProfiler as JLoopProfiler)
 from protein_transformer_tpu_torch.config import TrainConfig as TConfig
+from protein_transformer_tpu_torch.data.dataset import DataModule
 from protein_transformer_tpu_torch.data.prefetch import prefetch
 from protein_transformer_tpu_torch.data.synthetic import make_dataset
 from protein_transformer_tpu_torch.training import batch_probe as probe
 from protein_transformer_tpu_torch.training import cli as tcli
 from protein_transformer_tpu_torch.training.trainer import (
-    LoopProfiler, Trainer)
+    METRIC_KEYS, LoopProfiler, Trainer)
 from protein_transformer_tpu_torch.utils import TRACE_FILE, maybe_profile
 
 CPU = torch.device("cpu")
@@ -223,6 +231,54 @@ def test_cli_adbs_overrides_batch_size(data, tmp_path, monkeypatch):
                "-adbs", "True", "--device", "cpu"])
     assert probed == {"initial_batch": 4, "store": True}
     assert trained == {"batch_size": 6, "adbs": False}
+
+
+@pytest.mark.parametrize("frontier", [3, 6, 13])
+def test_probe_answer_and_sampler_rows_match_jax(data, tmp_path, frontier):
+    """-adbs and the binned sampler count rows differently, in both
+    packages alike: on one dataset, with a step that runs out of memory
+    above ``frontier`` rows, the port's probe tries the JAX probe's batches
+    at the longest bucket and answers as it does; at that batch size the
+    sampler's residue budget (``batch_size`` x 500) draws the JAX sampler's
+    rows, every batch more of them than the answer."""
+    kw = {k: v for k, v in TINY.items() if k != "cluster"}
+    tr = Trainer(TConfig(**kw, device_data="false", name="rows",
+                         out_dir=str(tmp_path)), device=CPU, data=data)
+    ours, theirs = [], []
+
+    def step(state, batch, *_):
+        ours.append(batch.seq.shape)
+        if batch.seq.shape[0] > frontier:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory.")
+        return state, torch.zeros(len(METRIC_KEYS))
+
+    def jstep(params, opt_state, step, batch, rng, lr_scale):
+        theirs.append(batch.seq.shape)
+        if batch.seq.shape[0] > frontier:
+            raise RuntimeError("RESOURCE_EXHAUSTED: out of memory")
+        return params, opt_state, step, 0, None
+
+    tr.train_step = step
+    jcfg = JConfig(**kw).finalize()
+    jtr = types.SimpleNamespace(
+        dm=JDataModule(data, jcfg), train_store=None, mesh=None, rng=None,
+        init_state=lambda: types.SimpleNamespace(params={}, opt_state={},
+                                                 step=0),
+        _train_step_fn=lambda: jstep)
+    got = probe.probe_trainer_batch_size(tr, verbose=False)
+    want = jprobe.probe_trainer_batch_size(jtr, verbose=False)
+    # a try is padded up to its row bucket, which must fit: 0.8 of it
+    assert got == want and 1 <= got <= 0.8 * frontier
+    assert ours == theirs and {s[1] for s in ours} == {TINY["max_seq_len"]}
+    at = {**kw, "batch_size": got}
+    rows = [list(DataModule(data, TConfig(**at).finalize())
+                 .train_index_batches(np.random.default_rng(7))),
+            list(JDataModule(data, JConfig(**at).finalize())
+                 .train_index_batches(np.random.default_rng(7)))]
+    assert len(rows[0]) == len(rows[1]) > 0
+    for a, b in zip(*rows):
+        np.testing.assert_array_equal(a, b)
+        assert len(a) > got
 
 
 # --------------------------------------------------------------- profiling
