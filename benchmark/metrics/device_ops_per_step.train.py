@@ -1,0 +1,6 @@
+"""Device operations a training step in the profiled epoch."""
+from benchmark import readers
+
+
+def read(run):
+    return readers.device_ops_per_step(run, "train")

@@ -1,0 +1,6 @@
+"""Model FLOP utilisation of the training window at real lengths."""
+from benchmark import readers
+
+
+def read(run):
+    return readers.step_mfu(run, "train")
