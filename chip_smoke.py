@@ -207,7 +207,9 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    --profile_dir, whose Chrome trace must parse and hold the epoch's CPU
    operations (its count of device kernel events is printed, and a trace
    without any is named as the profiler's known empty-trace fault); one
-   epoch under PTT_LOOP_PROFILE=1, whose report must name every phase;
+   epoch under PTT_LOOP_PROFILE=1, whose spans must hold every phase
+   (the report is printed from them), the --profile_dir epoch's spans.json
+   each span a range of its trace;
 16. bf16 (--compute_dtype bfloat16). Right after phase 8, K3a-bf16 and the
    bf16 backward (csrc/attention.cu's bf16 instances: wgmma products, TMA
    staging) against their plain versions on phase 8's cases and at D = 32
@@ -335,6 +337,7 @@ device and no network.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import csv
 import gc
@@ -356,7 +359,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from protein_transformer_tpu_torch import bench, predict
+from protein_transformer_tpu_torch import bench, predict, tracing
 from protein_transformer_tpu_torch.config import TrainConfig
 from protein_transformer_tpu_torch.data.dataset import (
     VALID_SPLITS, DataModule, collate, load_dataset)
@@ -404,8 +407,8 @@ from protein_transformer_tpu_torch.training import wandb_logging as W
 from protein_transformer_tpu_torch.training.checkpoint import (
     CheckpointManager)
 from protein_transformer_tpu_torch.training.trainer import (
-    METRIC_KEYS, Trainer)
-from protein_transformer_tpu_torch.utils import TRACE_FILE
+    METRIC_KEYS, LoopProfiler, Trainer)
+from protein_transformer_tpu_torch.utils import SPANS_FILE, TRACE_FILE
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
@@ -2699,9 +2702,10 @@ DATA_PATHS = {"store": "true", "prefetch": "false", "sync": "false"}
 DATA_PATH_LABELS = {"store": "device store",
                     "prefetch": "prefetched host batches",
                     "sync": "synchronous host batches"}
-# the phases LoopProfiler reports from a training epoch on a GPU
-LOOP_PHASES = ("plan/collate", "dispatch", "watchdog poll", "structure log",
-               "flush/CSV", "flush:drain-wait")
+# the spans of every training epoch, which LoopProfiler reports as phases
+LOOP_PHASES = ("train.batch", "train.step", "train.forward",
+               "train.backward", "train.optimizer", "train.fetch",
+               "train.watchdog", "train.flush")
 # the probe's dataset: more proteins than the probed batch takes, so that
 # the epoch after the probe trains batches of the probed size
 PROBE_PROTEINS = 1536
@@ -3041,26 +3045,47 @@ def phase_tools(dev, card, out_dir):
     require("aten::index" in names and "aten::convolution" in names,
             "the trace holds the epoch's CPU operations (the store's "
             "gather, the convolutions)")
+    with open(os.path.join(trace_dir, SPANS_FILE)) as f:
+        spans = json.load(f)
+    ranges = collections.Counter(e.get("name") for e in events
+                                 if e.get("cat") == "user_annotation")
+    steps = spans["count"].get("train.step", 0)
+    require(steps > 0 and all(ranges[k] == n
+                              for k, n in spans["count"].items()),
+            f"{SPANS_FILE} holds the epoch's spans, each a range of the "
+            f"trace ({spans['count']} against {dict(ranges)})")
     print(f"[profile-dir] --profile_dir: {TRACE_FILE} "
           f"({os.path.getsize(os.path.join(trace_dir, TRACE_FILE))} bytes) "
           f"parses: {len(cpu_ops)} CPU operations, {len(kernels)} device "
           f"kernel events"
           + ("" if kernels else " (none: the profiler's known empty-trace "
-             "fault)") + f" ({card})")
+             "fault)") + f"; {SPANS_FILE}: {steps} train.step spans, every "
+          f"span a range of the trace ({card})")
 
-    os.environ["PTT_LOOP_PROFILE"] = "1"
-    err = io.StringIO()
+    sessions = []
+    train_epoch = Trainer.train_epoch
+
+    def recording(self, *args, **kwargs):
+        out = train_epoch(self, *args, **kwargs)
+        sessions.append(tracing.last_session())
+        return out
+
+    os.environ[tracing.SWITCH] = "1"
+    Trainer.train_epoch = recording
     try:
-        with contextlib.redirect_stderr(err):
+        with contextlib.redirect_stderr(io.StringIO()):
             run_cli(argv + ["--name", "loop-profiled"])
     finally:
-        del os.environ["PTT_LOOP_PROFILE"]
-    report = err.getvalue()
-    missing = [p for p in LOOP_PHASES if f"#   {p:<18} " not in report]
-    require(report.startswith("# loop profile:") and not missing,
-            f"PTT_LOOP_PROFILE=1 reports every phase (missing {missing})")
+        Trainer.train_epoch = train_epoch
+        del os.environ[tracing.SWITCH]
+    session = sessions[-1]
+    missing = [p for p in LOOP_PHASES if p not in session["count"]]
+    require(not missing, f"PTT_LOOP_PROFILE=1 records every span of the "
+            f"training epoch (missing {missing})")
+    report = LoopProfiler.of(session).report(
+        session["total_ms"]["train.epoch"] / 1e3)
     print(f"[loop-profile] PTT_LOOP_PROFILE=1, one epoch through the CLI "
-          f"({card}):\n{report.rstrip()}")
+          f"({card}):\n{report}")
 
 
 # the bf16 instances' kernels, as ptxas names their templates

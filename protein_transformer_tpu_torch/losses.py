@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from protein_transformer_tpu_torch import tracing
 from protein_transformer_tpu_torch.protein.constants import (
     NUM_PREDICTED_ANGLES, NUM_PREDICTED_COORDS, SC_ANGLES_START_POS)
 from protein_transformer_tpu_torch.ops.drmsd import DIST_CLAMP, drmsd_stats
@@ -170,7 +171,9 @@ def kabsch_rmsd_masked(a: torch.Tensor, b: torch.Tensor,
     ac = (a - am[..., None, :]) * w
     bc = (b - bm[..., None, :]) * w
     h = torch.sum(ac[..., :, :, None] * bc[..., :, None, :], dim=-3)
-    u, _s, vt = torch.linalg.svd(h)
+    # on a GPU the call waits for the device
+    with tracing.wait("kabsch_svd"):
+        u, _s, vt = torch.linalg.svd(h)
     d = torch.sign(torch.linalg.det(matmul3(u, vt)))
     flip = torch.ones_like(u[..., 0, :])
     flip = torch.cat([flip[..., :2], d[..., None]], dim=-1)

@@ -19,7 +19,9 @@ the device events: kernels, copies and fills (the ``kernel``,
   kernel counts where its forward operation was called from. Then the
   device ms a step by the innermost frame of this package on the launching
   stack, the device's idle share over the traced window, and its five
-  longest idle gaps.
+  longest idle gaps, each with the innermost of the program's spans
+  (``tracing``: the trace's ``user_annotation`` ranges) that the host was
+  in at its midpoint, which a trace without Python stacks holds too.
 
     python -m protein_transformer_tpu_torch.tools.analyze_trace \\
         <trace file or directory> [--by op|source] [--steps N] [--top 25]
@@ -277,7 +279,29 @@ def by_source(events, steps: int = 1) -> dict:
             "linked_share": linked / len(evs) if evs else None,
             "window_ms": window / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / window if window else None,
-            "gaps_ms": [(g / 1e3, at / 1e3) for g, at in gaps[:5]]}
+            "gaps_ms": [(g / 1e3, at / 1e3) for g, at in gaps[:5]],
+            "gap_spans": gap_spans(events, evs, gaps[:5])}
+
+
+def gap_spans(events, evs, gaps) -> list:
+    """[(gap ms, start offset ms, span)] of idle gaps of the device events
+    ``evs``: the innermost of the program's spans (``tracing``; the trace's
+    ``user_annotation`` ranges) open on the host at each gap's midpoint, or
+    "(no span)". Needs no Python stacks in the trace."""
+    if not evs:
+        return []
+    origin = min(e["ts"] for e in evs)
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("ph") == "X" and "dur" in e]
+    out = []
+    for g, at in gaps:
+        mid = origin + at + g / 2
+        inner = min((e for e in ranges
+                     if e["ts"] <= mid <= e["ts"] + e["dur"]),
+                    key=lambda e: e["dur"], default=None)
+        out.append((g / 1e3, at / 1e3,
+                    inner["name"] if inner else "(no span)"))
+    return out
 
 
 def print_by_op(agg: dict, top: int = 25) -> None:
@@ -310,6 +334,8 @@ def print_by_source(res: dict, top: int = 25) -> None:
               f"({res['window_ms']:.3f} ms, {res['busy_ms']:.3f} busy); "
               f"longest idle gaps: " + ", ".join(
                   f"{g:.3f} ms at +{at:.3f}" for g, at in res["gaps_ms"]))
+        print("longest idle gaps by the span the host was in: " + ", ".join(
+            f"{g:.3f} ms in {name}" for g, _, name in res["gap_spans"]))
 
 
 def main(argv=None) -> dict:

@@ -15,7 +15,7 @@ weights in two arms, epochs interleaved (off, on, on, off, ...):
 For each arm: ms a train step (host clock around an epoch that ends in
 ``torch.cuda.synchronize()`` and, in the on arm, the logger's ``close()``,
 which waits for its last files; median over the arm's epochs), the loop
-profile's host ms a step by phase (``PTT_LOOP_PROFILE=1``), the stream
+profile's host ms a step by span (``PTT_LOOP_PROFILE=1``), the stream
 synchronisations of its epochs on the train loop (the logger's worker
 copies the structures to the host, and waits for the device there, by
 design: those are counted apart), and the device operations and device ms
@@ -24,7 +24,8 @@ epoch.
 
 Times the port whose ``protein_transformer_tpu_torch`` this imports. Run as
 a script with another checkout's root first on ``PYTHONPATH`` it times that
-checkout's logger and loop instead, so that two versions are compared in
+checkout's logger and loop instead (a checkout whose port has
+``tracing.py``), so that two versions are compared in
 one run on one card (in turns: parent, change, change, parent):
 
     python -m protein_transformer_tpu_torch.tools.bench_logging
@@ -48,19 +49,20 @@ import contextlib
 import io
 import json
 import os
-import re
 import statistics
 import tempfile
 import time
 
 import torch
 
+from protein_transformer_tpu_torch import tracing
 from protein_transformer_tpu_torch.config import TrainConfig
 from protein_transformer_tpu_torch.data.synthetic import make_dataset
 from protein_transformer_tpu_torch.tools.bench_drmsd_kernel import (
     card_label, on_device)
 from protein_transformer_tpu_torch.tools.bench_geometry import sync_sites
-from protein_transformer_tpu_torch.training.trainer import Trainer
+from protein_transformer_tpu_torch.training.trainer import (
+    LoopProfiler, Trainer)
 
 MODEL = "conv-enc|21,11,3|1,1,1"
 DEFAULTS = TrainConfig()
@@ -90,21 +92,21 @@ def synchronize(device: torch.device) -> None:
 
 def epoch(tr: Trainer, state):
     """One train epoch and the logger's close(): (state, seconds, steps,
-    the loop profile's ms a step by phase)."""
-    err = io.StringIO()
-    os.environ["PTT_LOOP_PROFILE"] = "1"
+    the loop profile's ms a step by phase: each span's own host ms, as
+    ``LoopProfiler`` reports them)."""
+    os.environ[tracing.SWITCH] = "1"
     try:
         synchronize(tr.device)
         t0 = time.perf_counter()
-        with contextlib.redirect_stderr(err):
+        with contextlib.redirect_stderr(io.StringIO()):
             new = tr.train_epoch(state)
         synchronize(tr.device)
         tr.structure_logger.close()
         seconds = time.perf_counter() - t0
     finally:
-        del os.environ["PTT_LOOP_PROFILE"]
-    phases = {m[1].strip(): float(m[2]) for m in re.finditer(
-        r"#   (.+?)\s+(-?[\d.]+) ms/step", err.getvalue())}
+        del os.environ[tracing.SWITCH]
+    prof = LoopProfiler.of(tracing.last_session())
+    phases = {k: 1e3 * v / max(prof.steps, 1) for k, v in prof.t.items()}
     return new, seconds, new.step - state.step, phases
 
 

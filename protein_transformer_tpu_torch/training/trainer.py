@@ -26,7 +26,9 @@ the validation splits after each, plateau scheduling and early stopping on
 the monitored metric, 'best' / 'latest' checkpoints, resume, the CSV log,
 structure logging (``training/structure_logging.py``), the test split at
 the end, a profiler trace of the first epoch (``--profile_dir``) and the
-per-phase host-time report of ``LoopProfiler`` (``PTT_LOOP_PROFILE=1``).
+per-phase host-time report of ``LoopProfiler`` (``PTT_LOOP_PROFILE=1``),
+made from the loops' spans (``tracing``), which a profiler trace holds as
+ranges.
 
 With ``use_wandb`` the loop logs to Weights & Biases
 (``training/wandb_logging.py``) where the JAX package does: each train row
@@ -75,6 +77,7 @@ from torch.func import functional_call
 from protein_transformer_tpu_torch.training import metrics as M
 from protein_transformer_tpu_torch.training import wandb_logging as W
 from protein_transformer_tpu_torch import losses as L
+from protein_transformer_tpu_torch import tracing
 from protein_transformer_tpu_torch.config import TrainConfig
 from protein_transformer_tpu_torch.data import device_store as DS
 from protein_transformer_tpu_torch.data.dataset import (
@@ -150,16 +153,30 @@ def unpack_metrics(row) -> dict:
 
 
 class LoopProfiler:
-    """Per-phase host-time accumulator for train_epoch (PTT_LOOP_PROFILE=1).
-
-    Accumulates wall time spent in each host-side phase of the step loop so
-    the wall-vs-device-step residue can be attributed (sampler/plan, step
-    dispatch, watchdog poll, metric flush, structure logging) instead of
-    guessed. Near-zero overhead: two perf_counter calls per phase."""
+    """The report of ``PTT_LOOP_PROFILE=1``, printed at the end of each
+    training epoch: host ms a step by phase, and what the phases leave
+    unaccounted of the epoch's wall time. ``of`` fills it from the epoch's
+    spans (``tracing``): each span name is a phase, at its own time (its
+    children's taken out, so no time counts twice), and the steps are the
+    ``train.step`` spans."""
 
     def __init__(self):
         self.t = {}
         self.steps = 0
+
+    @classmethod
+    def of(cls, session: dict) -> "LoopProfiler":
+        spans = session["spans"]
+        own = [(s["end_ns"] - s["start_ns"]) / 1e9 for s in spans]
+        for s in spans:
+            if s["parent"] >= 0:
+                own[s["parent"]] -= (s["end_ns"] - s["start_ns"]) / 1e9
+        prof = cls()
+        for s, dt in zip(spans, own):
+            if s["parent"] >= 0:  # the root is the wall time
+                prof.add(s["name"], dt)
+        prof.steps = session["count"].get("train.step", 0)
+        return prof
 
     def add(self, phase: str, dt: float) -> None:
         self.t[phase] = self.t.get(phase, 0.0) + dt
@@ -549,15 +566,21 @@ class Trainer:
         already on the device, with the model in train mode; with_pred puts
         the predictions in the dict. Under a mesh the loss and metrics are
         this rank's shares of the global batch's, and the gradients are
-        this rank's share too: ``train_step`` sums them over 'data'."""
-        self.model.train()
-        loss, out = compute_losses(self.model, params, batch, self.cfg,
-                                   impl=self.drmsd_impl,
-                                   sidechain_impl=self.sidechain_impl,
-                                   with_pred=with_pred,
-                                   counts=self._global_counts(batch))
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True, materialize_grads=True)
+        this rank's share too: ``train_step`` sums them over 'data'. The
+        loss and the metrics come back detached: the step's graph is
+        released here, with the backward that consumed it."""
+        with tracing.span("train.forward"):
+            self.model.train()
+            loss, out = compute_losses(self.model, params, batch, self.cfg,
+                                       impl=self.drmsd_impl,
+                                       sidechain_impl=self.sidechain_impl,
+                                       with_pred=with_pred,
+                                       counts=self._global_counts(batch))
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+            loss, out = loss.detach(), {k: v.detach() for k, v in out.items()}
         return loss, out, grads
 
     def train_step(self, state: TrainState, batch: Batch,
@@ -576,10 +599,10 @@ class Trainer:
                              f"keep {MAX_STEPS} (2^24) steps apart at most")
         _, out, grads = self.loss_and_grads(
             state.params, self._put(batch), with_pred=with_pred)
-        *grads, metrics = self._sum_over_data(
-            [*grads, pack_metrics(out).detach()])
-        opt_state = self.tx.update(state.params, grads, state.opt_state,
-                                   lr_scale)
+        *grads, metrics = self._sum_over_data([*grads, pack_metrics(out)])
+        with tracing.span("train.optimizer"):
+            opt_state = self.tx.update(state.params, grads, state.opt_state,
+                                       lr_scale)
         new = (TrainState(state.params, opt_state, state.step + 1), metrics)
         if not with_pred:
             return new
@@ -785,8 +808,9 @@ class Trainer:
         window. The NaN watchdog does not wait for the window: after every
         step it reads the rows whose copies have arrived, oldest first, and
         a loss that is not finite raises FloatingPointError at once, after
-        the rows before it are recorded. Under PTT_LOOP_PROFILE=1 the host
-        time of each phase of the loop is reported on stderr."""
+        the rows before it are recorded. The loop's phases are spans
+        (``tracing``); under PTT_LOOP_PROFILE=1 their host time a step is
+        reported on stderr (``LoopProfiler``)."""
         mode = "train"
         self.metrics = M.reset_for_epoch(self.metrics, mode)
         step = state.step
@@ -810,8 +834,6 @@ class Trainer:
         # row | None, wandb's (real proteins, predictions, seq ids) | None]
         pending: list = []
         t_last_flush = time.time()
-        prof = LoopProfiler() if os.environ.get("PTT_LOOP_PROFILE") else None
-        t_epoch0 = time.perf_counter()
 
         def drain(rows) -> None:
             """Record fetched rows, each at an even share of the time since
@@ -834,80 +856,73 @@ class Trainer:
 
         def flush() -> None:
             nonlocal pending, t_last_flush
-            if prof and pending[-1][1] is not None:
-                # the wait for the device, apart from reading the rows
-                t_d0 = time.perf_counter()
-                pending[-1][1].synchronize()
-                prof.add("flush:drain-wait", time.perf_counter() - t_d0)
             for p in pending:
                 if p[4] is None:
                     if p[1] is not None:
-                        p[1].synchronize()
+                        with tracing.wait("train.flush"):
+                            p[1].synchronize()
                     p[4] = p[0].numpy().copy()
             drain(pending)
             t_last_flush = time.time()
             pending = []
 
-        batch_it = iter(batches)
-        while True:
-            t0 = time.perf_counter()
-            nxt = next(batch_it, None)
-            if nxt is None:
-                break
-            batch, payload = nxt
-            if prof:
-                t1 = time.perf_counter()
-                prof.add("plan/collate", t1 - t0)
-                prof.steps += 1
-                t0 = t1
-            if wandb_every and step % wandb_every == 0:
-                state, out, pred = self.train_step(state, payload, lr_scale,
-                                                   with_pred=True)
-                host, event, pred = self._start_fetch(out, host_rows,
-                                                      len(pending), pred)
-                # the host's own ids: a LazyBatch's seq would gather
-                logged = (int(batch.protein_mask.sum()), pred,
-                          batch.host_seq if isinstance(batch, DS.LazyBatch)
-                          else batch.seq)
-            else:
-                state, out = self.train_step(state, payload, lr_scale)
-                host, event, _ = self._start_fetch(out, host_rows,
-                                                   len(pending))
-                logged = None
-            if prof:
-                t1 = time.perf_counter()
-                prof.add("dispatch", t1 - t0)
-                t0 = t1
-            pending.append([host, event, batch.n_res, step, None, logged])
-            check_ready()
-            if prof:
-                t1 = time.perf_counter()
-                prof.add("watchdog poll", t1 - t0)
-                t0 = t1
-            # at dispatch, so the logged parameters are those after this
-            # step's update, labelled with its number
-            if (self.cfg.log_structure_step
-                    and step % self.cfg.log_structure_step == 0):
-                self._log_structure(state.params, batch, step)
-            if (self.cfg.log_val_struct_step
-                    and step % self.cfg.log_val_struct_step == 0):
-                self._log_validation_structures(state.params, step)
-            if prof:
-                t1 = time.perf_counter()
-                prof.add("structure log", t1 - t0)
-                t0 = t1
-            step += 1
-            if len(pending) >= self.FLUSH_EVERY:
-                flush()
-            if prof:
-                prof.add("flush/CSV", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        if pending:
-            flush()
-        if prof:
-            prof.add("flush/CSV", time.perf_counter() - t0)
-            print(prof.report(time.perf_counter() - t_epoch0),
-                  file=sys.stderr)
+        cfg = self.cfg
+        with tracing.epoch("train.epoch", step):
+            batch_it = iter(batches)
+            while True:
+                with tracing.span("train.batch", step):
+                    nxt = next(batch_it, None)
+                if nxt is None:
+                    break
+                batch, payload = nxt
+                if wandb_every and step % wandb_every == 0:
+                    with tracing.span("train.step", step):
+                        state, out, pred = self.train_step(
+                            state, payload, lr_scale, with_pred=True)
+                    with tracing.span("train.fetch", step):
+                        host, event, pred = self._start_fetch(
+                            out, host_rows, len(pending), pred)
+                    # the host's own ids: a LazyBatch's seq would gather
+                    logged = (int(batch.protein_mask.sum()), pred,
+                              batch.host_seq
+                              if isinstance(batch, DS.LazyBatch)
+                              else batch.seq)
+                else:
+                    with tracing.span("train.step", step):
+                        state, out = self.train_step(state, payload,
+                                                     lr_scale)
+                    with tracing.span("train.fetch", step):
+                        host, event, _ = self._start_fetch(out, host_rows,
+                                                           len(pending))
+                    logged = None
+                pending.append([host, event, batch.n_res, step, None,
+                                logged])
+                with tracing.span("train.watchdog", step):
+                    check_ready()
+                # at dispatch, so the logged parameters are those after this
+                # step's update, labelled with its number
+                log_train = (cfg.log_structure_step
+                             and step % cfg.log_structure_step == 0)
+                log_val = (cfg.log_val_struct_step
+                           and step % cfg.log_val_struct_step == 0)
+                if log_train or log_val:
+                    with tracing.span("train.structure_log", step):
+                        if log_train:
+                            self._log_structure(state.params, batch, step)
+                        if log_val:
+                            self._log_validation_structures(state.params,
+                                                            step)
+                step += 1
+                if len(pending) >= self.FLUSH_EVERY:
+                    with tracing.span("train.flush", step - 1):
+                        flush()
+            if pending:
+                with tracing.span("train.flush", step - 1):
+                    flush()
+        if tracing.switched_on():
+            session = tracing.last_session()
+            print(LoopProfiler.of(session).report(
+                session["total_ms"]["train.epoch"] / 1e3), file=sys.stderr)
         self.batch_status.clear()
         self.metrics = M.end_of_epoch(self.metrics, mode)
         return state
@@ -924,18 +939,13 @@ class Trainer:
         self.metrics = M.reset_for_epoch(self.metrics, mode)
         if batches is None:
             batches = self._eval_batch_stream(mode)
-        it = iter(batches)
-        first = next(it, None)
-        chained = (itertools.chain([first], it) if first is not None
-                   else iter(()))
-        pairs = (self._host_stream(chained) if isinstance(first, Batch)
-                 else chained)
-        pending: list = []
-        t_last_flush = time.time()
 
         def flush() -> None:
             nonlocal pending, t_last_flush
-            rows = torch.stack([p[0] for p in pending]).cpu().numpy()
+            rows = torch.stack([p[0] for p in pending])
+            with tracing.wait("eval.flush"):
+                rows = rows.cpu()
+            rows = rows.numpy()
             t_now = time.time()
             dt = (t_now - t_last_flush) / len(pending)
             for i, (row, (_, n_res)) in enumerate(zip(rows, pending)):
@@ -946,12 +956,33 @@ class Trainer:
             t_last_flush = t_now
             pending = []
 
-        for batch, payload in pairs:
-            pending.append((self.eval_step(params, payload), batch.n_res))
-            if len(pending) >= self.FLUSH_EVERY:
-                flush()
-        if pending:
-            flush()
+        with tracing.epoch("eval.epoch", 0):
+            it = iter(batches)
+            with tracing.span("eval.batch", 0):
+                first = next(it, None)
+            chained = (itertools.chain([first], it) if first is not None
+                       else iter(()))
+            pairs = iter(self._host_stream(chained)
+                         if isinstance(first, Batch) else chained)
+            pending: list = []
+            t_last_flush = time.time()
+            i = 0
+            while True:
+                with tracing.span("eval.batch", i):
+                    nxt = next(pairs, None)
+                if nxt is None:
+                    break
+                batch, payload = nxt
+                with tracing.span("eval.step", i):
+                    out = self.eval_step(params, payload)
+                pending.append((out, batch.n_res))
+                i += 1
+                if len(pending) >= self.FLUSH_EVERY:
+                    with tracing.span("eval.flush", i - 1):
+                        flush()
+            if pending:
+                with tracing.span("eval.flush", i - 1):
+                    flush()
         self.batch_status.clear()
         self.metrics = M.end_of_epoch(self.metrics, mode)
         if logger:

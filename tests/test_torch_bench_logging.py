@@ -30,9 +30,10 @@ def test_both_arms_run_and_only_the_logging_arm_writes(monkeypatch):
         assert len(out["ms_each"]) == 1 and out["ms"] > 0
         assert out["device_ops"] is None and out["device_ms"] is None
         assert out["loop_syncs"] == [] and out["worker_syncs"] == 0
-        # the loop profile's phases of a training epoch
-        assert {"dispatch", "structure log"} <= set(out["phases_ms"])
+        # the loop profile's phases of a training epoch: its spans
+        assert {"train.step", "train.forward"} <= set(out["phases_ms"])
     assert results["off"]["files"] == 0
+    assert "train.structure_log" not in results["off"]["phases_ms"]
     # step 0 at least: a train structure and one of each validation split,
     # with the true structures' two files once a split
     assert results["on"]["files"] >= 8 * (3 + 2)

@@ -45,7 +45,7 @@ assert len(names) > 20, names
 # the wandb logging and the dataset tools, the scripts package, the
 # multi-GPU modules, the FLOPs model, the scale-data tools, the config
 # ladder and the trace tools, the analysis scripts, the reference-checkpoint
-# import, the bench and its protocol
+# import, the bench and its protocol, the spans
 expected = {pkg.__name__ + "." + m for m in (
     "parallel.distributed", "parallel.mesh", "parallel.sharding",
     "training.wandb_logging", "protein.measure",
@@ -58,7 +58,7 @@ expected = {pkg.__name__ + "." + m for m in (
     "scripts.compute_dataset_angle_means",
     "scripts.create_development_datasets", "scripts.downsample_dataset",
     "scripts.group_predictions", "scripts.analyze", "scripts.plot",
-    "models.torch_import", "bench", "tools.bench_protocol")}
+    "models.torch_import", "bench", "tools.bench_protocol", "tracing")}
 assert expected <= set(names), expected - set(names)
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)

@@ -18,7 +18,7 @@ probe (and the CLI's ``-adbs``), the profiler hook and ``LoopProfiler``.
 * ``maybe_profile`` writes a Chrome trace on the CPU, and
   ``Trainer.train`` with ``profile_dir`` traces its first epoch;
 * ``LoopProfiler``'s report equals the JAX one for the same adds, and
-  ``PTT_LOOP_PROFILE=1`` reports the loop's phases.
+  ``PTT_LOOP_PROFILE=1`` reports the loop's spans as its phases.
 """
 import json
 import os
@@ -316,10 +316,10 @@ def test_train_traces_its_first_epoch(data, tmp_path):
 
 def test_loop_profiler_report_equals_jax(monkeypatch, data, tmp_path,
                                          capsys):
-    adds = [("dispatch", 0.004), ("plan/collate", 0.0015),
-            ("dispatch", 0.002), ("flush/CSV", 0.0001),
-            ("watchdog poll", 0.00002), ("structure log", 0.0),
-            ("flush:drain-wait", 0.003)]
+    adds = [("train.step", 0.004), ("train.batch", 0.0015),
+            ("train.forward", 0.002), ("train.flush", 0.0001),
+            ("train.watchdog", 0.00002), ("train.structure_log", 0.0),
+            ("wait:train.flush", 0.003)]
     ours, theirs = LoopProfiler(), JLoopProfiler()
     for prof in (ours, theirs):
         for phase, dt in adds:
@@ -334,7 +334,10 @@ def test_loop_profiler_report_equals_jax(monkeypatch, data, tmp_path,
     state = tr.train_epoch(tr.init_state(torch.Generator().manual_seed(0)))
     report = capsys.readouterr().err
     assert report.startswith(f"# loop profile: {state.step} steps, ")
-    # on the CPU no copy is in flight: no drain wait
-    for phase in ("plan/collate", "dispatch", "watchdog poll",
-                  "structure log", "flush/CSV", "(unaccounted)"):
+    # the spans of the loop and of the step; on the CPU no copy is in
+    # flight: no wait in the flush
+    for phase in ("train.batch", "train.step", "train.forward",
+                  "train.backward", "train.optimizer", "train.fetch",
+                  "train.watchdog", "train.flush", "(unaccounted)"):
         assert f"#   {phase:<18} " in report, phase
+    assert "wait:" not in report
