@@ -6,13 +6,13 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
 
 1. device: card name, torch and CUDA versions, nvidia-smi name and power
    limit;
-2. build: compiles the five kernel libraries from this checkout at once,
+2. build: compiles the six kernel libraries from this checkout at once,
    one nvcc each: csrc/drmsd_fwd.cu (K1a), csrc/drmsd_train.cu (K1b, K1c),
-   csrc/drmsd_variants.cu (K4a, K4b, K4c), csrc/sidechain.cu (K2a, K2b)
-   and csrc/attention.cu (K3a and the flash backward, float32 and bf16
-   instances); prints each bf16 kernel's registers and spill bytes for
-   every head dimension from the build's ptxas -v, and fails on a spill at
-   D = 64;
+   csrc/drmsd_variants.cu (K4a, K4b, K4c), csrc/sidechain.cu (K2a, K2b),
+   csrc/attention.cu (K3a and the flash backward, float32 and bf16
+   instances) and csrc/kabsch.cu (K5); prints each bf16 kernel's
+   registers and spill bytes for every head dimension from the build's
+   ptxas -v, and fails on a spill at D = 64;
 3. kernels against their plain PyTorch versions on the card.
    dRMSD (K1a, K1b, K1c), ~70% of atoms valid and one protein all masked,
    at B=8 x N = 600, 768, 3584, 7000 and at the training step's B=16 x
@@ -65,7 +65,14 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    over 495 TFLOP/s TF32 are the third term) and device-only times at both
    bench shapes; then the tool itself through its ``main`` (parity, then
    the bench: cur / sqrt1 / mxu forward, cur / mxu gradient), with the
-   launches of that run asserted;
+   launches of that run asserted.
+   The superposition RMSD (K5) through tools/bench_kabsch.py's ``main``
+   at the scoring step's B=32 x N = 7000 and 1500 (random walks and
+   their noisy rotated copies, 2% of the atoms missing): within 1e-6
+   relative of the tensor path run in float64 on the same inputs, and of
+   the float32 tensor path up to that one's own gap; one launch and no
+   stream synchronisation a call (the tensor path: its SVD's two); times
+   by CUDA events, device-only times and the bound (bytes over 3.35 TB/s);
 4. goldens on the card: NeRF coordinates (tests/golden/coords.npz,
    realistic_coords.npz) <= 1e-3 A, and the conv-enc model forward
    (tests/golden/model_parity_conv-enc.npz) <= 2e-5 with TF32 off; then
@@ -77,10 +84,13 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
 5. the eval slice at the flagship width, conv-enc|21,11,3|1,1,1 (d_model
    512, d_ff 2048, 8 heads, 6 layers), B=8 x L=256, random seeded weights:
    ``Trainer.eval_epoch`` over 2 batches in three arms, interleaved: every
-   kernel on, the dRMSD kernels on with the plain sidechain build, and all
-   plain; metrics finite and equal to the all-plain arm's within 1e-4
-   (dRMSD family, RMSD) and 1e-6 (MSE); ms per eval step and residues/s of
-   each arm; per step K1a launched twice, K2a once, K2b never;
+   kernel on, the dRMSD kernels and K5 on with the plain sidechain build,
+   and all plain (the RMSD by the tensor path); metrics finite and equal
+   to the all-plain arm's within 1e-4 (dRMSD family, RMSD; with the plain
+   sidechain build the RMSD within 5e-6 relative: K5 against the tensor
+   path on the same coordinates) and 1e-6 (MSE); ms per eval step and
+   residues/s of each arm; per step K1a launched twice, K2a and K5 once,
+   K2b never;
 6. the training slice at the same width (combined loss, Adam, Noam,
    coupled weight decay, clip 1.0, dropout 0.1), residue-budget batches of
    15 proteins of length 255-256 padded to B=16 x L=256:
@@ -95,8 +105,8 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    operations and device time per step (a batch gathered from the store,
    then the step) with torch.profiler, and the stream synchronisations of
    one such step with torch.cuda.set_sync_debug_mode("warn"), with the
-   lines that make them: none in a train step, at most two in an eval step
-   with every kernel;
+   lines that make them: none in a train step, none in an eval step that
+   runs K5 (two, both in the SVD, in the all-plain arm's);
 7. the training CLI at the same width: a synthetic dataset (train, two
    validation splits, test; lengths 255-256) written with torch.save, then
    ``training.cli.main`` for two epochs into a temporary run directory:
@@ -382,6 +392,7 @@ from protein_transformer_tpu_torch.ops import _build
 from protein_transformer_tpu_torch.ops import attention as A
 from protein_transformer_tpu_torch.ops import drmsd as D
 from protein_transformer_tpu_torch.ops import drmsd_variants as V
+from protein_transformer_tpu_torch.ops import kabsch as K
 from protein_transformer_tpu_torch.ops import sidechain as S
 from protein_transformer_tpu_torch.protein import geometry as G
 from protein_transformer_tpu_torch.protein.constants import (
@@ -397,8 +408,8 @@ from protein_transformer_tpu_torch.scripts import (
     dataset_item_to_pdb, downsample_dataset, export_embeddings_to_tsv,
     group_predictions, plot, proteinnet_to_dataset)
 from protein_transformer_tpu_torch.tools import (
-    analyze_trace, bench_attention, bench_drmsd_kernel, bench_ladder,
-    bench_logging, bench_protocol, gen_dev_data, gen_scale_data,
+    analyze_trace, bench_attention, bench_drmsd_kernel, bench_kabsch,
+    bench_ladder, bench_logging, bench_protocol, gen_dev_data, gen_scale_data,
     oracle_floor, stress_pipeline, trace_ladder)
 from protein_transformer_tpu_torch.tools.bench_geometry import (
     sync_count, sync_sites)
@@ -414,7 +425,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 DEV_DATA = os.path.join(ROOT, "examples", "dev_data")
 LIBRARIES = ("drmsd_fwd", "drmsd_train", "drmsd_variants", "sidechain",
-             "attention")
+             "attention", "kabsch")
 # (B, N): the sizes of the TPU kernel's tests, then the training step's
 # full-atom (14 x 256) and backbone (3 x 256) sweeps at B=16
 KERNEL_CASES = ((8, 600), (8, 768), (8, 3584), (8, 7000), (16, 768),
@@ -453,11 +464,13 @@ FLASH_TRAIN_REPEAT = 4   # 16 proteins x 4 / (8 x 500 residues) -> 5 steps
 TIMED_RUNS = bench_drmsd_kernel.TIMED_RUNS
 TRAIN_REPEAT = 8         # 16 proteins x 8 / (8 x 500 residues) -> 9 steps
 MODEL = "conv-enc|21,11,3|1,1,1"
-# stream synchronisations an eval step may make on the store path: both in
-# torch.linalg.svd of the RMSD's Kabsch superposition (losses.py), as read
-# on an H100 (the run prints the lines that make them)
-EVAL_SYNCS = 2
-# arm -> (drmsd_impl, sidechain_impl)
+# stream synchronisations an eval step may make on the store path: none,
+# the RMSD's Kabsch superposition being one kernel (ops/kabsch.py); the run
+# prints the lines of any it finds
+EVAL_SYNCS = 0
+# arm -> (drmsd_impl, sidechain_impl); drmsd_impl also picks the eval
+# step's superposition RMSD: K5 in the "all" and "drmsd" arms, the tensor
+# path with its SVD in the "plain" arm
 ARMS = {"all": ("cuda", "cuda"), "drmsd": ("cuda", "torch"),
         "plain": ("torch", "torch")}
 
@@ -1141,6 +1154,45 @@ def phase_sidechain_kernel(dev, card):
     return table, errs
 
 
+# K5 against the tensor path run in float64 on the same card inputs: the
+# largest relative gap over bench_kabsch's two shapes, and K5's against the
+# float32 tensor path, at most K5_REL_TOL plus that path's own gap
+K5_REL_TOL = 1e-6
+# bench_kabsch's shape of the K5 row: the scoring step's full-atom batch
+K5_CASE = "32x7000"
+
+
+def phase_kabsch_kernel(card) -> dict:
+    """K5 through bench_kabsch's ``main``: at the scoring step's B = 32 x
+    N = 7,000 and 1,500, within K5_REL_TOL of float64, one launch and no
+    stream synchronisation a call, against the tensor path's two
+    synchronisations. Returns the tool's results."""
+    out = bench_kabsch.main()
+    for shape in (f"{b}x{n}" for b, n in bench_kabsch.SHAPES):
+        k5, plain = out[shape]["cuda"], out[shape]["torch"]
+        require(k5["gap_fp64"]["rel"] <= K5_REL_TOL,
+                f"K5 at {shape}: {k5['gap_fp64']['rel']:.3e} relative from "
+                f"the float64 tensor path, at most {K5_REL_TOL}")
+        require(k5["gap_plain"]["rel"]
+                <= K5_REL_TOL + plain["gap_fp64"]["rel"],
+                f"K5 at {shape}: {k5['gap_plain']['rel']:.3e} relative from "
+                f"the float32 tensor path, whose own gap to float64 is "
+                f"{plain['gap_fp64']['rel']:.3e}")
+        require(k5["launches"] == 1 and plain["launches"] == 0
+                and k5["syncs"] == 0,
+                f"K5 at {shape}: one launch and no synchronisation a call, "
+                f"none on the tensor path: {k5}, {plain}")
+        print(f"[kernel] K5 B x N = {shape}: {k5['gap_fp64']['rel']:.2e} "
+              f"relative from float64 (tensor path in float32 "
+              f"{plain['gap_fp64']['rel']:.2e}); {k5['ms']:.4f} ms "
+              f"({k5['device_ms']:.4f} on the device) vs plain "
+              f"{plain['ms']:.4f} ({plain['device_ms']:.4f}, "
+              f"{plain['device_ops']:.0f} operations, {plain['syncs']} "
+              f"synchronisations); bound {out[shape]['bound_ms']:.5f} ms by "
+              f"{out[shape]['bound_by']} ({card})")
+    return out
+
+
 def phase_goldens(dev):
     for name in ("coords.npz", "realistic_coords.npz"):
         z = np.load(os.path.join(GOLDEN, name))
@@ -1250,7 +1302,8 @@ COUNTERS = {"drmsd_fwd": (D.drmsd_stats_cuda, "launches"),
             "flash_attn_bwd_bf16": (A.flash_attn_bwd_cuda, "launches_bf16"),
             "drmsd_fwd_sqrt1": (V.drmsd_stats_sqrt1_cuda, "launches"),
             "drmsd_fwd_mxu": (V.drmsd_stats_mxu_cuda, "launches"),
-            "drmsd_grad_a_mxu": (V.drmsd_grad_a_mxu_cuda, "launches")}
+            "drmsd_grad_a_mxu": (V.drmsd_grad_a_mxu_cuda, "launches"),
+            "kabsch_rmsd": (K.kabsch_rmsd_cuda, "launches")}
 
 
 def reset_launches() -> None:
@@ -1314,9 +1367,10 @@ def phase_slice(dev, card, out_dir):
     got, seconds = timed_epoch(trainers["all"], params, split)
     launches = read_launches()
     require(launches == launched(drmsd_fwd=2 * n_batches,
-                                 sidechain_fwd=n_batches),
-            f"eval launches {launches}: expected per step K1a twice and K2a "
-            f"once for {n_batches} steps, no other kernel")
+                                 sidechain_fwd=n_batches,
+                                 kabsch_rmsd=n_batches),
+            f"eval launches {launches}: expected per step K1a twice, K2a "
+            f"and K5 once for {n_batches} steps, no other kernel")
     times = {arm: [] for arm in ARMS}
     times["all"].append(seconds)
     metrics = {"all": got}
@@ -1333,9 +1387,11 @@ def phase_slice(dev, card, out_dir):
             p = metrics["plain"][f"epoch-{key}"]
             # combined = 0.5 ln-dRMSD / 0.02 + 0.5 MSE / 0.01: 25x the ln
             # gate. With the plain sidechain build the coordinates are the
-            # plain arm's own, and the RMSD agrees to 1e-6.
+            # plain arm's own, and the RMSD differs only by K5 (float64
+            # inside) against the tensor path's float32 sums and SVD, which
+            # read ~4e-7 of the value from float64 in phase 3.
             tol = {"mse": 1e-6, "combined": 2.5e-3,
-                   "rmsd": 1e-4 if arm == "all" else 1e-6}.get(
+                   "rmsd": 1e-4 if arm == "all" else 5e-6 * abs(p)}.get(
                        key.split("-")[0], 1e-4)
             require(np.isfinite(g) and np.isfinite(p), f"{key} finite")
             require(abs(g - p) <= tol, f"{key}: {arm} arm {g} vs plain {p} "
@@ -1352,8 +1408,8 @@ def phase_slice(dev, card, out_dir):
             tr.eval_step(params, stored_batch(tr, split, idx))
         n_ops, dev_ms = profile_steps(step)
         sites = sync_sites(step)
-        require(arm != "all" or len(sites) <= EVAL_SYNCS,
-                f"eval step with every kernel on the store path: "
+        require(arm == "plain" or len(sites) <= EVAL_SYNCS,
+                f"eval step with K5, {arm} arm, on the store path: "
                 f"{len(sites)} stream synchronisations ({where(sites)}), at "
                 f"most {EVAL_SYNCS}")
         print(f"[profile] eval step, {arm}, {data_path(tr)}: {n_ops:.0f} "
@@ -1367,7 +1423,7 @@ def phase_slice(dev, card, out_dir):
           + ", ".join(f"{label} {steps[arm]:.2f} "
                       f"({1e3 * n_res / (steps[arm] * n_batches):.0f})"
                       for arm, label in (("all", "all kernels"),
-                                         ("drmsd", "dRMSD kernels only"),
+                                         ("drmsd", "dRMSD and K5 kernels"),
                                          ("plain", "all plain")))
           + f", medians of 3 epochs each, interleaved, data path "
           f"{data_path(trainers['all'])}; launches in the "
@@ -1674,7 +1730,7 @@ def phase_cli(dev, card, out_dir):
     n_eval = 2 * sum(eval_steps[s] for s in valid) + eval_steps["test"]
     expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * 2 * steps,
                         sidechain_fwd=2 * steps + n_eval,
-                        sidechain_bwd=2 * steps)
+                        sidechain_bwd=2 * steps, kabsch_rmsd=n_eval)
     require(launches == expected,
             f"CLI launches {launches}: expected {expected} for 2 epochs of "
             f"{steps} train steps and {n_eval} eval steps")
@@ -2010,11 +2066,12 @@ def phase_predict(dev, card, out_dir):
     launches = read_launches()
     expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * steps,
                         sidechain_fwd=steps + n_eval, sidechain_bwd=steps,
-                        flash_attn_fwd=6 * n_eval)
+                        flash_attn_fwd=6 * n_eval, kabsch_rmsd=n_eval)
     require(launches == expected,
             f"flash CLI launches {launches}: expected {expected} ({steps} "
             f"train steps at dropout 0.1, which keep the materialised "
-            f"attention, and {n_eval} eval steps of 6 K3a launches)")
+            f"attention, and {n_eval} eval steps of 6 K3a launches and one "
+            f"K5)")
     run_dir = os.path.join(out_dir, "flash")
     with open(os.path.join(run_dir, "config.json")) as f:
         saved = json.load(f)
@@ -2622,13 +2679,14 @@ def phase_enc_dec(dev, card, out_dir):
             + len(range(0, total, LOG_VAL_EVERY)))
         expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * total,
                             sidechain_fwd=total + n_eval + n_logged,
-                            sidechain_bwd=total)
+                            sidechain_bwd=total, kabsch_rmsd=n_eval)
         require(len(steps) == 2 and min(steps) >= 4
                 and launches[arm] == expected,
                 f"enc-dec CLI launches, logging {arm}: {launches[arm]}; "
                 f"expected {expected} for epochs of {steps} train steps "
                 f"(K1b twice, K2a and K2b once a step), {n_eval} eval steps "
-                f"(K1a twice, K2a once) and {n_logged} logged structures "
+                f"(K1a twice, K2a and K5 once) and {n_logged} logged "
+                f"structures "
                 "(K2a once each), no K3")
         require("[ Epoch 1 ]" in out and "(Valid-10)" in out
                 and "(Test)" in out, "two epochs, validation and test ran")
@@ -2920,13 +2978,13 @@ def phase_dev_data(dev, card, out_dir):
         total = sum(steps)
         expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * total,
                             sidechain_fwd=total + n_eval,
-                            sidechain_bwd=total)
+                            sidechain_bwd=total, kabsch_rmsd=n_eval)
         require(len(steps) == 2 and min(steps) >= 2
                 and launches == expected,
                 f"dev data CLI launches, --device_data {flag}: {launches}; "
                 f"expected {expected} for epochs of {steps} train steps (K1b "
                 f"twice, K2a and K2b once a step) and {n_eval} eval steps "
-                "(K1a twice, K2a once)")
+                "(K1a twice, K2a and K5 once)")
         want_path = "device store" if flag == "true" else \
             "prefetched host batches"
         require(epochs.paths == [want_path] * 2,
@@ -3370,7 +3428,7 @@ def phase_bf16(dev, card, out_dir):
     cli_launches = read_launches()
     expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * steps,
                         sidechain_fwd=steps + n_eval, sidechain_bwd=steps,
-                        flash_attn_fwd_bf16=6 * n_eval)
+                        flash_attn_fwd_bf16=6 * n_eval, kabsch_rmsd=n_eval)
     require(cli_launches == expected,
             f"bf16 CLI launches {cli_launches}: expected {expected}")
     run_dir = os.path.join(out_dir, "bf16")
@@ -3561,7 +3619,7 @@ def phase_wandb(dev, card, out_dir):
     expected = launched(drmsd_fwd=2 * n_eval,
                         drmsd_fwd_grad=2 * (steps + 2),
                         sidechain_fwd=steps + 2 + n_eval + 1,
-                        sidechain_bwd=steps + 2)
+                        sidechain_bwd=steps + 2, kabsch_rmsd=n_eval)
     require(epochs.paths == ["device store"] * 2 and launches == expected,
             f"wandb CLI launches {launches}: expected {expected} for "
             f"{steps} train steps on the store, 2 probes and {n_eval} eval "
@@ -4180,11 +4238,13 @@ def scale_convergence(dev, card, data_dir, out_dir, floor):
     steps = sum(n for _, n, _ in epochs)
     n_eval = CONVERGENCE_EPOCHS * eval_steps["valid-70"] + eval_steps["test"]
     expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * steps,
-                        sidechain_fwd=steps + n_eval, sidechain_bwd=steps)
+                        sidechain_fwd=steps + n_eval, sidechain_bwd=steps,
+                        kabsch_rmsd=n_eval)
     require(len(epochs) == CONVERGENCE_EPOCHS and launches == expected,
             f"convergence launches {launches}: expected {expected} for "
             f"{len(epochs)} epochs of {steps} train steps in all and "
-            f"{n_eval} eval steps (K1a, K1b, K2a and K2b each launched)")
+            f"{n_eval} eval steps (K1a, K1b, K2a, K2b and K5 each "
+            f"launched)")
     _, rows = csv_rows(os.path.join(out_dir, "scale", "scale.train"))
     by_mode = {mode: [r for r in rows if r["mode"] == mode
                       and r["granularity"] == "epoch"]
@@ -4527,10 +4587,11 @@ def bench_launches(mode: str, steps: int) -> dict:
     """The launches of ``steps`` steps of a bench mode: a combined-loss
     train step K1b twice, K2a and K2b once; the trainer loop K2a once more
     for each structure it logs (train every log_structure_step steps, each
-    validation split every log_val_struct_step); an eval step K1a twice and
-    K2a once."""
+    validation split every log_val_struct_step); an eval step K1a twice, K2a
+    and K5 once."""
     if mode == "eval":
-        return launched(drmsd_fwd=2 * steps, sidechain_fwd=steps)
+        return launched(drmsd_fwd=2 * steps, sidechain_fwd=steps,
+                        kabsch_rmsd=steps)
     logged = 0
     if mode == "trainer":
         cfg = TrainConfig()
@@ -4659,6 +4720,7 @@ def main() -> int:
     variant_table, variant_errs, bench_launches = timed(phase_variants, dev,
                                                         card)
     sc_table, sc_errs = timed(phase_sidechain_kernel, dev, card)
+    k5_table = timed(phase_kabsch_kernel, card)
     attn_table = timed(phase_attention_kernel, dev, card)
     bf16_table = timed(phase_bf16_kernels, dev, card)
     timed(phase_goldens, dev)
@@ -4750,6 +4812,22 @@ def main() -> int:
                                     "spill_loads"), res))
                 for (kernel, dim), res in sorted(resources.items())
                 if kernel == name + "_kernel"}
+    k5 = k5_table[K5_CASE]
+    rows.append({"name": "kabsch_rmsd", "route": "cuda",
+                 "source": source + "kabsch.cu",
+                 # no TPU kernel: the JAX package's SVD is XLA's
+                 "replaces": None,
+                 "reached_from": "protein_transformer_tpu/losses.py:254",
+                 "launches": eval_launches["kabsch_rmsd"],
+                 "max_abs_err": max(k5_table[f"{b}x{n}"]["cuda"]["gap_fp64"]
+                                    ["abs"] for b, n in bench_kabsch.SHAPES),
+                 "max_rel_err": max(k5_table[f"{b}x{n}"]["cuda"]["gap_fp64"]
+                                    ["rel"] for b, n in bench_kabsch.SHAPES),
+                 "ms": k5["cuda"]["ms"], "device_ms": k5["cuda"]["device_ms"],
+                 "plain_ms": k5["torch"]["ms"],
+                 "plain_device_ms": k5["torch"]["device_ms"],
+                 "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+                 "library_ms": None})
     # no one PyTorch call computes a masked pair statistic: no library time
     for name, line in (("drmsd_fwd_sqrt1", 42), ("drmsd_fwd_mxu", 84),
                        ("drmsd_grad_a_mxu", 105)):

@@ -104,8 +104,9 @@ class TrainConfig:
     # bfloat16 with the parameters, the output head and the losses kept in
     # float32, as the JAX package's flax modules cast them.
     compute_dtype: str = "float32"           # float32 | bfloat16
-    # dRMSD pair sweep: cuda (hand-written kernel) | torch (plain) | auto
-    # (cuda for a CUDA device, torch otherwise).
+    # dRMSD pair sweep and the RMSD's superposition: cuda (hand-written
+    # kernels) | torch (plain) | auto (cuda for a CUDA device, torch
+    # otherwise).
     drmsd_impl: str = "auto"
     # Sidechain build: cuda (hand-written kernels) | torch (plain) | auto,
     # as drmsd_impl.

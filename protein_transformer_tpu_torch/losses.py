@@ -9,6 +9,9 @@ compact-then-reduce semantics.
 The dRMSD pair sweep goes through ``ops.drmsd``: the CUDA kernels for CUDA
 tensors (impl "cuda"), the plain PyTorch versions otherwise ("torch"). It is
 differentiable in the predicted coordinates (``ops.drmsd.DrmsdStats``).
+The superposition RMSD, a metric without a gradient, goes through
+``ops.kabsch`` likewise: one kernel launch on CUDA tensors, the tensor body
+with its SVD otherwise.
 
 Every batch loss is a quotient: a sum over the batch's valid entries (or
 real proteins) over their count. A rank that holds only its rows of the
@@ -25,6 +28,7 @@ import torch
 from protein_transformer_tpu_torch import tracing
 from protein_transformer_tpu_torch.protein.constants import (
     NUM_PREDICTED_ANGLES, NUM_PREDICTED_COORDS, SC_ANGLES_START_POS)
+from protein_transformer_tpu_torch.ops import kabsch
 from protein_transformer_tpu_torch.ops.drmsd import DIST_CLAMP, drmsd_stats
 from protein_transformer_tpu_torch.ops.nerf import matmul3
 from protein_transformer_tpu_torch.protein.geometry import (
@@ -157,13 +161,22 @@ def combine_drmsd_mse(d, mse, w: float = 0.5, lndrmsd_norm: float = 0.02,
 
 
 def kabsch_rmsd_masked(a: torch.Tensor, b: torch.Tensor,
-                       w: torch.Tensor) -> torch.Tensor:
+                       w: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Superposition RMSD of masked point sets, batched.
 
     a, b: (..., N, 3); w: (..., N) 0/1 weights. Aligns a onto b over the
     selected points (weighted Kabsch with a 3x3 SVD) and returns their RMSD
     (...,). SVD sign conventions differ between libraries; the determinant
-    correction makes the RMSD independent of them. An all-zero w gives 0."""
+    correction makes the RMSD independent of them. An all-zero w gives 0.
+
+    impl "cuda" runs the kernel (``ops.kabsch``: float32 CUDA tensors, a
+    bool w, no gradient; one launch and no wait for the device), "torch"
+    the tensor body below, "auto" picks by a's device."""
+    if kabsch.resolve_impl(impl, a.device) == "cuda":
+        lead, n = a.shape[:-2], a.shape[-2]
+        return kabsch.kabsch_rmsd_cuda(
+            a.reshape(-1, n, 3).contiguous(), b.reshape(-1, n, 3).contiguous(),
+            w.reshape(-1, n).contiguous()).reshape(lead)
     w = w.to(a.dtype)[..., None]
     total = torch.clamp(torch.sum(w, dim=-2), min=1.0)       # (..., 1)
     am = torch.sum(a * w, dim=-2) / total
@@ -187,12 +200,14 @@ def kabsch_rmsd_masked(a: torch.Tensor, b: torch.Tensor,
 def batch_rmsd(pred_crd: torch.Tensor, true_crd: torch.Tensor,
                atom_mask: torch.Tensor,
                protein_mask: Optional[torch.Tensor] = None,
-               n_proteins: Optional[torch.Tensor] = None) -> torch.Tensor:
+               n_proteins: Optional[torch.Tensor] = None,
+               impl: str = "auto") -> torch.Tensor:
     """Mean per-protein masked superposition RMSD over a batch (over
     ``n_proteins`` real ones, by default this batch's), on the tensors'
-    device (the JAX package's ``batch_rmsd_jax``)."""
+    device (the JAX package's ``batch_rmsd_jax``); ``impl`` as
+    ``kabsch_rmsd_masked`` takes it."""
     bsz = pred_crd.shape[0]
     vals = kabsch_rmsd_masked(pred_crd.reshape(bsz, -1, 3),
                               true_crd.reshape(bsz, -1, 3),
-                              atom_mask.reshape(bsz, -1))
+                              atom_mask.reshape(bsz, -1), impl)
     return _masked_mean(vals, protein_mask, n_proteins)

@@ -8,7 +8,9 @@ interface; it may include the ``csrc/*.cuh`` headers. It is compiled with
 headers and the flags, so an edited source or header is rebuilt and a stale
 library is never loaded. A failed build raises; nothing falls back to a
 plain version. What ``ptxas -v`` says of each kernel (registers, shared
-memory, spills) is kept beside the library (``ptxas_log``).
+memory, spills) is kept beside the library (``ptxas_log``). Each op module
+picks its path with ``resolve_impl`` and calls its library through
+``launch``.
 
 Nothing here runs at import time: the CPU tests import this module on
 machines that have no CUDA toolkit.
@@ -23,12 +25,26 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+IMPLS = ("auto", "cuda", "torch")
+
+
+def resolve_impl(impl: str, device: torch.device, what: str) -> str:
+    """'auto' -> 'cuda' for tensors on a CUDA device, else 'torch'; raises
+    for a value outside IMPLS, naming the op ``what``."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown {what} impl {impl!r}; expected one of "
+                         f"{IMPLS}")
+    if impl == "auto":
+        return "cuda" if torch.device(device).type == "cuda" else "torch"
+    return impl
 
 
 def find_nvcc() -> str:
@@ -87,3 +103,16 @@ def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load the kernel library ``name``, once per
     process."""
     return ctypes.CDLL(str(build(name)))
+
+
+def launch(lib: ctypes.CDLL, name: str, fn: str, device, *args) -> None:
+    """Call ``fn`` of the loaded library ``name`` with ``args`` and the
+    current stream of ``device``; raise with the library's
+    ``<name>_error_string`` on a non-zero CUDA error code."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib, fn)(*args, stream)
+    if err:
+        raise RuntimeError(f"{fn} kernel launch failed: "
+                           + getattr(lib, f"{name}_error_string")(err)
+                           .decode())

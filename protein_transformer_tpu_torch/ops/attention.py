@@ -67,20 +67,13 @@ import torch
 from protein_transformer_tpu_torch.ops import _build
 
 HEAD_DIMS = (16, 32, 64, 128)
-IMPLS = ("auto", "cuda", "torch")
 # the dtypes of q, k, v that have a kernel instance -> the C entry points'
 # suffix
 DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
-def resolve_impl(impl: str, device: torch.device) -> str:
-    """'auto' -> 'cuda' for tensors on a CUDA device, else 'torch'."""
-    if impl not in IMPLS:
-        raise ValueError(f"unknown attention impl {impl!r}; expected one of "
-                         f"{IMPLS}")
-    if impl == "auto":
-        return "cuda" if torch.device(device).type == "cuda" else "torch"
-    return impl
+# (impl, device) -> "cuda" or "torch" (``_build.resolve_impl``)
+resolve_impl = functools.partial(_build.resolve_impl, what="attention")
 
 
 def flash_self_attention_torch(q: torch.Tensor, k: torch.Tensor,
@@ -191,17 +184,10 @@ def _launch(fn: str, device, pointers, ints, scale, strided) -> None:
     dtype) on the current stream of ``device`` with the element strides
     (batch, head, row) of those tensors; raise on a non-zero CUDA error
     code."""
-    lib = _lib()
-    fn += DTYPES[strided[0].dtype]
     flat = [s for t in strided for s in t.stride()[:3]]
     strides = (ctypes.c_longlong * len(flat))(*flat)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = getattr(lib, fn)(*pointers, *ints, float(scale), strides,
-                               stream)
-    if err:
-        raise RuntimeError(f"{fn} kernel launch failed: "
-                           + lib.attention_error_string(err).decode())
+    _build.launch(_lib(), "attention", fn + DTYPES[strided[0].dtype], device,
+                  *pointers, *ints, float(scale), strides)
 
 
 def _count(wrapper, dtype) -> None:

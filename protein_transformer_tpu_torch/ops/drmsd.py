@@ -58,17 +58,8 @@ DIST_CLAMP = 1e-30
 # Row-block size of the plain versions (rows x N distances per step).
 ROW_BLOCK = 512
 
-IMPLS = ("auto", "cuda", "torch")
-
-
-def resolve_impl(impl: str, device: torch.device) -> str:
-    """'auto' -> 'cuda' for tensors on a CUDA device, else 'torch'."""
-    if impl not in IMPLS:
-        raise ValueError(f"unknown dRMSD impl {impl!r}; expected one of "
-                         f"{IMPLS}")
-    if impl == "auto":
-        return "cuda" if torch.device(device).type == "cuda" else "torch"
-    return impl
+# (impl, device) -> "cuda" or "torch" (``_build.resolve_impl``)
+resolve_impl = functools.partial(_build.resolve_impl, what="dRMSD")
 
 
 def _flatten(a, b, mask):
@@ -202,16 +193,9 @@ def _launch(name: str, fn: str, a, b, mask, *ptrs) -> None:
     """Call ``fn`` of library ``name`` on the current stream; raise on a
     non-zero CUDA error code. A bool tensor is one byte per element, 0 or 1:
     the kernels read the mask as uint8 without a conversion pass."""
-    lib = _lib(name)
     bsz, n = mask.numel() // mask.shape[-1], mask.shape[-1]
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
-        err = getattr(lib, fn)(a.data_ptr(), b.data_ptr(), mask.data_ptr(),
-                               bsz, n, *ptrs, stream)
-    if err:
-        raise RuntimeError(f"{fn} kernel launch failed: "
-                           + getattr(lib, f"{name}_error_string")(err)
-                           .decode())
+    _build.launch(_lib(name), name, fn, a.device, a.data_ptr(), b.data_ptr(),
+                  mask.data_ptr(), bsz, n, *ptrs)
 
 
 def _k1_scratch(name: str, bsz: int, n: int, device) -> torch.Tensor:

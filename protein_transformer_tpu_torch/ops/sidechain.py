@@ -48,7 +48,8 @@ MAX_SC_ATOMS = 10
 N_OUT_POINTS = 14
 N_TYPES = ff.SC_NUM_ATOMS.shape[0]
 
-IMPLS = ("auto", "cuda", "torch")
+# (impl, device) -> "cuda" or "torch" (``_build.resolve_impl``)
+resolve_impl = functools.partial(_build.resolve_impl, what="sidechain")
 
 # The packed force-field table: one record of RECORD float32 a residue type,
 # field -> (offset in the record, the ``_ff14sb`` array it holds, whose rows
@@ -90,16 +91,6 @@ def table_field(records: torch.Tensor, name: str, dtype) -> torch.Tensor:
     shape = arr.shape[1:]
     return records[..., start:start + math.prod(shape)].reshape(
         *records.shape[:-1], *shape).to(dtype)
-
-
-def resolve_impl(impl: str, device: torch.device) -> str:
-    """'auto' -> 'cuda' for tensors on a CUDA device, else 'torch'."""
-    if impl not in IMPLS:
-        raise ValueError(f"unknown sidechain impl {impl!r}; expected one of "
-                         f"{IMPLS}")
-    if impl == "auto":
-        return "cuda" if torch.device(device).type == "cuda" else "torch"
-    return impl
 
 
 def sidechain_inputs(bb: torch.Tensor, angles: torch.Tensor,
@@ -216,18 +207,6 @@ def _check_cuda(fn: str, floats: dict, seq: torch.Tensor) -> None:
         raise ValueError(f"{fn} takes contiguous tensors")
 
 
-def _launch(fn: str, device, *args) -> None:
-    """Call ``fn`` of the library on the current stream of ``device``; raise
-    on a non-zero CUDA error code."""
-    lib = _lib()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = getattr(lib, fn)(*args, stream)
-    if err:
-        raise RuntimeError(f"{fn} kernel launch failed: "
-                           + lib.sidechain_error_string(err).decode())
-
-
 def _seq_args(seq: torch.Tensor) -> tuple:
     return seq.data_ptr(), int(seq.dtype == torch.int64)
 
@@ -249,9 +228,10 @@ def sidechain_fwd_cuda(bb: torch.Tensor, angles: torch.Tensor,
                       device=bb.device)
     if seq.numel() == 0:
         return out
-    _launch("sidechain_fwd", bb.device, bb.data_ptr(), angles.data_ptr(),
-            *_seq_args(seq), ff_table(bb.device).data_ptr(), bsz * length,
-            length, out.data_ptr())
+    _build.launch(_lib(), "sidechain", "sidechain_fwd", bb.device,
+                  bb.data_ptr(), angles.data_ptr(), *_seq_args(seq),
+                  ff_table(bb.device).data_ptr(), bsz * length, length,
+                  out.data_ptr())
     sidechain_fwd_cuda.launches += 1
     return out
 
@@ -278,10 +258,10 @@ def sidechain_bwd_cuda(built: torch.Tensor, angles: torch.Tensor,
     g_angles = torch.empty((bsz, length, NUM_PREDICTED_ANGLES), **f32)
     if seq.numel() == 0:
         return g_bb, g_angles
-    _launch("sidechain_bwd", built.device, built.data_ptr(),
-            angles.data_ptr(), *_seq_args(seq),
-            ff_table(built.device).data_ptr(), g_out.data_ptr(),
-            bsz * length, length, g_bb.data_ptr(), g_angles.data_ptr())
+    _build.launch(_lib(), "sidechain", "sidechain_bwd", built.device,
+                  built.data_ptr(), angles.data_ptr(), *_seq_args(seq),
+                  ff_table(built.device).data_ptr(), g_out.data_ptr(),
+                  bsz * length, length, g_bb.data_ptr(), g_angles.data_ptr())
     sidechain_bwd_cuda.launches += 1
     return g_bb, g_angles
 

@@ -118,9 +118,9 @@ def create_parser() -> argparse.ArgumentParser:
                           "is used only when asked for")
     gpu.add_argument("--drmsd_impl", choices=["auto", "cuda", "torch"],
                      default="auto",
-                     help="dRMSD pair sweep: the hand-written CUDA kernels, "
-                          "the plain PyTorch version, or auto (cuda on a "
-                          "CUDA device)")
+                     help="dRMSD pair sweep and the RMSD's superposition: "
+                          "the hand-written CUDA kernels, the plain PyTorch "
+                          "versions, or auto (cuda on a CUDA device)")
     gpu.add_argument("--sidechain_impl", choices=["auto", "cuda", "torch"],
                      default="auto",
                      help="sidechain build: as --drmsd_impl")

@@ -203,8 +203,9 @@ def compute_losses(model, params, batch: Batch, cfg: TrainConfig,
     Returns (loss, dict of scalar metrics); with_pred adds the (B, L, 24)
     predictions under "pred". MSE is always computed; the
     dRMSD family when the loss needs it or with_drmsd. impl selects the
-    dRMSD pair sweep (see ops.drmsd.resolve_impl) and sidechain_impl the
-    sidechain build (see ops.sidechain.resolve_impl). The model runs in
+    dRMSD pair sweep (see ops.drmsd.resolve_impl) and the RMSD's
+    superposition (ops.kabsch) and sidechain_impl the sidechain build (see
+    ops.sidechain.resolve_impl). The model runs in
     whatever train/eval mode it is in: the train step puts it in train, the
     eval step in eval.
 
@@ -274,11 +275,11 @@ def compute_losses(model, params, batch: Batch, cfg: TrainConfig,
         if bb_only:
             out["rmsd-full"] = L.batch_rmsd(
                 pred_crd[:, :, :3], batch.crd[:, :, :3],
-                batch.crd_mask[:, :, :3], batch.protein_mask, den[3])
+                batch.crd_mask[:, :, :3], batch.protein_mask, den[3], impl)
         else:
             out["rmsd-full"] = L.batch_rmsd(pred_crd, batch.crd,
                                             batch.crd_mask,
-                                            batch.protein_mask, den[3])
+                                            batch.protein_mask, den[3], impl)
     out["loss"] = loss
     if with_pred:
         out["pred"] = pred
