@@ -13,6 +13,20 @@ from protein_transformer_tpu_torch.protein.constants import MAX_SEQ_LEN
 
 LOSSES = ("mse", "drmsd", "lndrmsd", "combined")
 COMPUTE_DTYPES = ("float32", "bfloat16")
+# The 'mla-moe' family's architecture (models/mla_moe.py): the keys of a
+# published DeepSeek-V3 config.json that it reads, and the two balancing
+# constants that such a config does not give: bias_update_speed (gamma of
+# the aux-loss-free bias update) and seq_aux_alpha (alpha of the
+# sequence-wise balance loss). The family is the published variant whose
+# other keys take one value each: no query compression (q_lora_rank null),
+# every layer after the dense ones an expert layer, a sigmoid router with
+# noaux_tc top-k over one group, normalised top-k weights, seq_aux.
+MLA_MOE_KEYS = ("kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+                "v_head_dim", "rope_theta", "first_k_dense_replace",
+                "moe_intermediate_size", "n_routed_experts",
+                "num_experts_per_tok", "n_shared_experts",
+                "routed_scaling_factor", "rms_norm_eps", "bias_update_speed",
+                "seq_aux_alpha")
 
 
 @dataclasses.dataclass
@@ -76,6 +90,10 @@ class TrainConfig:
     conv3_reduc: Optional[float] = None
     use_embedding: bool = True
     conv_out_matches_dm: bool = True
+    # model 'mla-moe': {key: value} of every MLA_MOE_KEYS entry (d_model,
+    # n_layers, n_heads and d_ff are the published hidden_size,
+    # num_hidden_layers, num_attention_heads and intermediate_size)
+    mla_moe: Optional[dict] = None
 
     # Saving / logging
     log_structure_step: int = 10
@@ -141,6 +159,8 @@ class TrainConfig:
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}; "
                              f"got {self.compute_dtype!r}")
+        if self.model == "mla-moe":
+            self._check_mla_moe()
         if not self.early_stopping_metric:
             self.early_stopping_metric = f"train-{self.loss}"
         parts = self.early_stopping_metric.split("-")
@@ -162,6 +182,41 @@ class TrainConfig:
             suffix = "-linear-out" if "linear-out" in self.model else ""
             self.model = "conv-enc" + suffix
         return self
+
+    def _check_mla_moe(self) -> None:
+        """The 'mla-moe' fields: every key given, the widths whole, and the
+        settings the family does not take."""
+        arch = self.mla_moe or {}
+        missing = [k for k in MLA_MOE_KEYS if k not in arch]
+        unknown = sorted(set(arch) - set(MLA_MOE_KEYS))
+        if missing or unknown:
+            raise ValueError(f"model 'mla-moe': mla_moe lacks {missing} "
+                             f"and has unknown keys {unknown}")
+        for k in ("kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+                  "v_head_dim", "moe_intermediate_size", "n_routed_experts",
+                  "num_experts_per_tok", "n_shared_experts"):
+            if not isinstance(arch[k], int) or arch[k] < 1:
+                raise ValueError(f"mla_moe {k} must be a positive integer; "
+                                 f"got {arch[k]!r}")
+        checks = (
+            (arch["qk_rope_head_dim"] % 2 == 0,
+             "qk_rope_head_dim must be even: RoPE rotates pairs"),
+            (arch["num_experts_per_tok"] <= arch["n_routed_experts"],
+             "num_experts_per_tok must not exceed n_routed_experts"),
+            (0 <= arch["first_k_dense_replace"] <= self.n_layers,
+             "first_k_dense_replace must lie in 0..n_layers"),
+            (self.attention_impl in ("auto", "xla"),
+             "attention_impl flash: the flash kernels stop at D 128 with "
+             "D_v = D_qk; MLA takes the materialised branch"),
+            (self.dropout == 0.0,
+             "dropout must be 0.0: the family has no dropout"),
+            ((self.fraction_complete_tf, self.fraction_subseq_tf) ==
+             (1.0, 1.0),
+             "scheduled sampling belongs to enc-dec"),
+        )
+        for ok, msg in checks:
+            if not ok:
+                raise ValueError(f"model 'mla-moe': {msg}")
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

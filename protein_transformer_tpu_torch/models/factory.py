@@ -2,7 +2,8 @@
 
 Supports the reference's model-name sugar: 'conv-enc|k1,k2,k3|r1,r2,r3'
 encodes the convolution topology, and a 'linear-out' substring drops the
-output tanh.
+output tanh. 'mla-moe' is the latent-attention, sparse-expert trunk of
+``models/mla_moe.py``, its architecture in ``cfg.mla_moe``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from protein_transformer_tpu_torch.models.conv_encoder import (
 from protein_transformer_tpu_torch.models.enc_dec import Transformer
 from protein_transformer_tpu_torch.models.encoder_only import (
     EncoderOnlyTransformer)
+from protein_transformer_tpu_torch.models.mla_moe import MLAMoETransformer
 
 
 def parse_conv_kernel_info_from_model_name(mname: str):
@@ -67,6 +69,12 @@ def make_model(cfg, angle_means) -> nn.Module:
             conv_kernel_sizes=kernels, conv_dim_reductions=reducs,
             use_embedding=cfg.use_embedding,
             conv_out_matches_dm=cfg.conv_out_matches_dm, **common)
+    if name == "mla-moe":
+        return MLAMoETransformer(
+            n_layers=cfg.n_layers, n_heads=cfg.n_heads, d_model=cfg.d_model,
+            d_ff=cfg.d_ff, max_len=cfg.max_seq_len,
+            vocab_size=cfg.vocab_size, angle_means=common["angle_means"],
+            arch=cfg.mla_moe, pad_id=cfg.pad_id, dtype=common["dtype"])
     if name == "enc-dec":
         common.pop("n_layers")
         common.pop("use_tanh_out")

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from protein_transformer_tpu_torch.models.flax_import import flax_names
+from protein_transformer_tpu_torch.models.mla_moe import MLAMoETransformer
 
 
 def _torch_key_for(parts: Sequence[str]) -> str:
@@ -124,6 +125,9 @@ def state_dict_to_port(state_dict: Mapping, model: nn.Module) -> nn.Module:
     reference state_dict (name -> tensor or array); returns ``model``.
     Raises KeyError for a parameter whose reference tensor is missing,
     naming both, and ValueError for a tensor of another shape."""
+    if isinstance(model, MLAMoETransformer):
+        raise ValueError("the reference's checkpoints hold no 'mla-moe' "
+                         "model: nothing to import")
     params = dict(model.named_parameters())
     values = {}
     for name, key in reference_names(model).items():

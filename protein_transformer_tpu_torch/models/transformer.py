@@ -107,6 +107,9 @@ def set_model_parallel(model: nn.Module, axis) -> None:
     are the slices of ``parallel.sharding.shard_params``."""
     if axis.size == 1:
         return
+    if not getattr(model, "tensor_parallel", True):
+        raise ValueError(f"{type(model).__name__} has no tensor-parallel "
+                         "layout: run it without a 'model' mesh axis")
     for m in model.modules():
         if isinstance(m, MultiHeadedAttention):
             dim = m.wq.in_features
@@ -155,10 +158,11 @@ class Dense(nn.Linear):
     """``nn.Linear`` computing in ``compute_dtype`` as flax's
     ``nn.Dense(dtype=...)``: input, weight and bias cast, the product
     rounded to that dtype and the bias added in it (two roundings, as flax
-    takes them). None: the plain ``nn.Linear``."""
+    takes them). None: the plain ``nn.Linear``. ``bias=False``: no bias."""
 
-    def __init__(self, d_in: int, d_out: int, compute_dtype=None):
-        super().__init__(d_in, d_out)
+    def __init__(self, d_in: int, d_out: int, compute_dtype=None,
+                 bias: bool = True):
+        super().__init__(d_in, d_out, bias=bias)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -234,6 +238,26 @@ class Embeddings(nn.Module):
         return F.embedding(ids, self.embed.weight.to(self.dtype)) * self.scale
 
 
+def materialised_attention(q, k, v, mask, dtype, dropout=None):
+    """softmax(q k^T / sqrt(D_qk), masked) v over materialised (B, H, Lq,
+    Lk) probabilities. q, k: (B, H, L, D_qk); v: (B, H, Lk, D_v), where D_v
+    may differ from D_qk; mask broadcastable to the scores, True where a
+    key may be attended to. Masked scores get the smallest fp32 value (not
+    -inf). With a ``dtype`` the scores come in fp32 from the upcast
+    compute-dtype operands, the scale, mask, softmax and ``dropout`` (a
+    module, or None for none) run in fp32, and the probabilities are cast
+    to ``dtype`` for P v."""
+    if dtype is not None:
+        q, k = q.float(), k.float()
+    scores = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(q.shape[-1])
+    if mask is not None:
+        scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    if dropout is not None:
+        probs = dropout(probs)
+    return torch.matmul(cast(probs, dtype), v)
+
+
 class MultiHeadedAttention(nn.Module):
     """Multi-head attention; mask broadcastable to (B, 1, Lq, Lk), True where
     a key may be attended to.
@@ -300,15 +324,8 @@ class MultiHeadedAttention(nn.Module):
             out = attention.flash_self_attention(
                 q, k, v, mask[:, 0, 0, :], sm_scale=1.0 / math.sqrt(dk))
         else:
-            if self.dtype is not None:
-                # fp32 scores from the compute-dtype operands
-                q, k = q.float(), k.float()
-            scores = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(dk)
-            if mask is not None:
-                scores = scores.masked_fill(~mask,
-                                            torch.finfo(torch.float32).min)
-            probs = self.dropout(torch.softmax(scores, dim=-1))
-            out = torch.matmul(cast(probs, self.dtype), v)
+            out = materialised_attention(q, k, v, mask, self.dtype,
+                                         self.dropout)
         out = out.transpose(1, 2).reshape(bsz, lq, n_heads * dk)
         if self.mp is None:
             return self.wo(out)

@@ -77,6 +77,8 @@ def shard_layout(model: torch.nn.Module, size: int) -> dict:
     ``models.transformer.set_model_parallel``: the rules' leaves whose dim
     divides, in blocks that the model splits (an attention block whose heads
     do not divide stays replicated, numbers and all)."""
+    if size <= 1:
+        return {}
     from protein_transformer_tpu_torch.models.flax_import import flax_names
     modules = dict(model.named_modules())
     params = dict(model.named_parameters())

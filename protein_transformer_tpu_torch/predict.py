@@ -65,7 +65,9 @@ def load_run(run_dir: str, modifier: str = "best",
         raise FileNotFoundError(
             f"no '{modifier}' checkpoint in {run_dir}/checkpoints")
     arrays, _meta = result
-    model.load_state_dict(arrays["params"])
+    # a state with buffers (a sparse-expert model's correction biases)
+    # saved them beside the parameters
+    model.load_state_dict({**arrays["params"], **arrays.get("buffers", {})})
     return cfg, model.to(device).eval()
 
 

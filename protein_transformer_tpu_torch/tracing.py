@@ -34,6 +34,14 @@ being recorded and the newest finished one; ``last_session()`` returns the
 latter as plain host data. Spans opened outside a session are ranges in a
 trace and nothing more.
 
+**Counters.** ``count(name, value)`` adds a device tensor to a counter of
+the session being recorded, under the step of the innermost open span; a
+no-op outside a session. Nothing is read while the session runs: the
+recorder copies every counter to the host once, in one transfer, when the
+session closes, which is after the epoch's own flush has drained the
+device's queue. So a counter adds no synchronisation to a step, and with
+spans off nothing is kept.
+
 Spans are opened on the loop's thread only.
 """
 from __future__ import annotations
@@ -55,6 +63,7 @@ _recording = None       # the session being recorded: [name, parent, step,
                         # start ns, end ns] a span
 _last = None            # the newest finished session, as last_session()
 _sessions = 0           # sessions finished so far: the newest one's id
+_counters: dict = {}    # the session's counters: {name: [(step, tensor)]}
 
 
 class _Span:
@@ -64,12 +73,12 @@ class _Span:
         self.name, self.step, self.root = name, step, root
 
     def __enter__(self):
-        global _recording
+        global _recording, _counters
         parent = _open[-1] if _open else None
         if self.step is None:
             self.step = parent.step if parent is not None else -1
         if self.root and parent is None:
-            _recording = []
+            _recording, _counters = [], {}
         self.range = None
         if _profiling():
             self.range = torch.autograd.profiler.record_function(self.name)
@@ -84,7 +93,7 @@ class _Span:
         return self
 
     def __exit__(self, *exc):
-        global _recording, _last, _sessions
+        global _recording, _last, _sessions, _counters
         end = time.perf_counter_ns()
         _open.pop()
         if self.index >= 0:
@@ -93,11 +102,30 @@ class _Span:
             self.range.__exit__(*exc)
         if self.root and not _open and _recording is not None:
             _sessions += 1
-            _last, _recording = _session(_sessions, _recording), None
+            _last = _session(_sessions, _recording, _counters)
+            _recording, _counters = None, {}
         return False
 
 
-def _session(n: int, records: list) -> dict:
+def _read_counters(counters: dict) -> dict:
+    """{name: {"steps": [...], "values": [[...], ...]}}, one entry a
+    ``count`` call, copied to the host in one transfer."""
+    items = [(name, step, t) for name, calls in counters.items()
+             for step, t in calls]
+    if not items:
+        return {}
+    flat = torch.cat([t.reshape(-1).double() for _, _, t in items]).cpu()
+    out: dict = {}
+    at = 0
+    for name, step, t in items:
+        entry = out.setdefault(name, {"steps": [], "values": []})
+        entry["steps"].append(step)
+        entry["values"].append(flat[at:at + t.numel()].tolist())
+        at += t.numel()
+    return out
+
+
+def _session(n: int, records: list, counters: dict) -> dict:
     total: dict = {}
     count: dict = {}
     for name, _, _, start, end in records:
@@ -107,7 +135,8 @@ def _session(n: int, records: list) -> dict:
             "spans": [{"name": name, "parent": p, "step": step,
                        "start_ns": a, "end_ns": b}
                       for name, p, step, a, b in records],
-            "total_ms": total, "count": count}
+            "total_ms": total, "count": count,
+            "counters": _read_counters(counters)}
 
 
 def span(name: str, step: int | None = None):
@@ -135,6 +164,16 @@ def epoch(name: str, step: int | None = None):
     return _OFF
 
 
+def count(name: str, value: torch.Tensor) -> None:
+    """Add ``value`` (a tensor, left where it is) to the counter ``name``
+    of the session being recorded, under the innermost open span's step;
+    nothing outside a session."""
+    if _recording is None:
+        return
+    step = _open[-1].step if _open else -1
+    _counters.setdefault(name, []).append((step, value.detach()))
+
+
 def switched_on() -> bool:
     """Whether ``PTT_LOOP_PROFILE`` was set when the last epoch began."""
     return _switch
@@ -145,5 +184,7 @@ def last_session() -> dict | None:
 
     ``{"id": n, "spans": [{"name", "parent" (index, -1 for none), "step",
     "start_ns", "end_ns"}, ...], "total_ms": {name: host ms},
-    "count": {name: spans}}``, the spans in the order they opened."""
+    "count": {name: spans}, "counters": {name: {"steps": [step, ...],
+    "values": [[float, ...], ...]}}}``, the spans in the order they
+    opened, a counter's entries in the order of its ``count`` calls."""
     return _last

@@ -19,9 +19,12 @@ sums of the sliced gradients are summed over the 'model' axis, and the
 replicated ones are counted once. The moments take their parameter's
 layout. The multi-tensor
 ``torch._foreach_*`` ops keep the launch count per step flat in the number
-of parameter tensors. The step count lives on the host, so the schedule
-never reads the device. ``PlateauState`` and ``EarlyStopping`` are the JAX
-package's host-side state machines, copied as plain Python.
+of parameter tensors; the update after the clip runs over groups of at
+most ``GROUP_BYTES`` of parameters, so that a model of billions of
+parameters does not hold three full-size temporaries at once. The step
+count lives on the host, so the schedule never reads the device.
+``PlateauState`` and ``EarlyStopping`` are the JAX package's host-side
+state machines, copied as plain Python.
 """
 from __future__ import annotations
 
@@ -32,6 +35,10 @@ import torch
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.98, 1e-9
 WEIGHT_DECAY = 1e-2
+# Adam's update runs over groups of parameters of at most this many bytes:
+# its three temporaries a parameter then stay under three times this (a
+# model under it updates in one group, the same launches as without)
+GROUP_BYTES = 1 << 30
 
 Schedule = Callable[[int], float]
 
@@ -116,18 +123,37 @@ class Optimizer:
         if self.weight_decay:
             torch._foreach_add_(gs, ps, alpha=self.weight_decay)
         count = state.count + 1
-        if self.optimizer == "adam":
-            mu, nu = state.mu, state.nu
-            torch._foreach_lerp_(mu, gs, 1.0 - ADAM_B1)
-            torch._foreach_mul_(nu, ADAM_B2)
-            torch._foreach_addcmul_(nu, gs, gs, value=1.0 - ADAM_B2)
-            mu_hat = torch._foreach_div(mu, 1.0 - ADAM_B1 ** count)
-            denom = torch._foreach_div(nu, 1.0 - ADAM_B2 ** count)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, ADAM_EPS)
-            gs = torch._foreach_div(mu_hat, denom)
-        torch._foreach_add_(ps, gs, alpha=-self.lr(state.count) * lr_scale)
+        lr = -self.lr(state.count) * lr_scale
+        for part in _groups(ps, GROUP_BYTES):
+            p_, g_ = [ps[i] for i in part], [gs[i] for i in part]
+            if self.optimizer == "adam":
+                mu = [state.mu[i] for i in part]
+                nu = [state.nu[i] for i in part]
+                torch._foreach_lerp_(mu, g_, 1.0 - ADAM_B1)
+                torch._foreach_mul_(nu, ADAM_B2)
+                torch._foreach_addcmul_(nu, g_, g_, value=1.0 - ADAM_B2)
+                mu_hat = torch._foreach_div(mu, 1.0 - ADAM_B1 ** count)
+                denom = torch._foreach_div(nu, 1.0 - ADAM_B2 ** count)
+                torch._foreach_sqrt_(denom)
+                torch._foreach_add_(denom, ADAM_EPS)
+                g_ = torch._foreach_div(mu_hat, denom)
+                del mu_hat, denom
+            torch._foreach_add_(p_, g_, alpha=lr)
         return OptState(count, state.mu, state.nu)
+
+
+def _groups(tensors: list, limit: int) -> list:
+    """Consecutive index groups of ``tensors``, each of at most ``limit``
+    bytes or one tensor: the whole list while it fits."""
+    out, cur, size = [], [], 0
+    for i, t in enumerate(tensors):
+        n = t.numel() * t.element_size()
+        if cur and size + n > limit:
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(i)
+        size += n
+    return out + [cur] if cur else out
 
 
 def make_optimizer(optimizer: str, learning_rate: Union[float, Schedule],

@@ -209,6 +209,12 @@ def compute_losses(model, params, batch: Batch, cfg: TrainConfig,
     whatever train/eval mode it is in: the train step puts it in train, the
     eval step in eval.
 
+    ``params`` may hold buffers besides the parameters
+    (``TrainState.variables``). A model that leaves a ``balance`` after its
+    forward (the 'mla-moe' family's expert balance term and loads) has the
+    term added to the returned loss in train mode; the metrics besides
+    "loss" leave it out.
+
     Under ``grad_semantics="reference"`` with a dRMSD-family loss the
     returned loss keeps its value but carries the gradient of the sum over
     real proteins of per-protein ln-dRMSD (plus the MSE term of "combined"),
@@ -280,6 +286,9 @@ def compute_losses(model, params, batch: Batch, cfg: TrainConfig,
             out["rmsd-full"] = L.batch_rmsd(pred_crd, batch.crd,
                                             batch.crd_mask,
                                             batch.protein_mask, den[3], impl)
+    balance = getattr(model, "balance", None)
+    if balance is not None and model.training:
+        loss = loss + balance[0]
     out["loss"] = loss
     if with_pred:
         out["pred"] = pred
@@ -290,10 +299,20 @@ def compute_losses(model, params, batch: Batch, cfg: TrainConfig,
 class TrainState:
     """params: dict of leaf tensors that require grad, updated in place by
     the optimizer; opt_state: the optimizer's state; step: updates so far
-    (a host integer)."""
+    (a host integer); buffers: the model's persistent buffers by name,
+    which a rule of the model updates in place after each step (a
+    sparse-expert model's correction biases), none for the other
+    families."""
     params: dict
     opt_state: OptState
     step: int
+    buffers: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def variables(self) -> dict:
+        """What the model's forward reads: the parameters and buffers."""
+        return {**self.params, **self.buffers} if self.buffers else \
+            self.params
 
 
 class Trainer:
@@ -338,8 +357,26 @@ class Trainer:
                     f"{', '.join(s for s in self.dm.eval_splits if s != 'test')})")
         angle_means = (np.zeros(24, np.float32) if cfg.without_angle_means
                        else self.dm.angle_means)
-        self.model = make_model(cfg, angle_means).to(self.device).eval()
+        model = make_model(cfg, angle_means)
+        if getattr(model, "template_on_host", False):
+            # the module's parameters are only the template of
+            # ``state.params`` (names, shapes, the head's angle-mean bias),
+            # which every step swaps in through functional_call: a model of
+            # billions keeps them on the host, its buffers on the device
+            for m in model.modules():
+                for k, b in m._buffers.items():
+                    if b is not None:
+                        m._buffers[k] = b.to(self.device)
+            self.model = model.eval()
+        else:
+            self.model = model.to(self.device).eval()
         set_model_parallel(self.model, self.model_axis)
+        # the rule that updates the state's buffers after each optimizer
+        # step (a sparse-expert model's correction biases)
+        self.update_buffers = getattr(self.model, "update_buffers", None)
+        if self.update_buffers is not None and self.data_axis.size > 1:
+            raise ValueError(f"model {cfg.model!r} runs on one device: its "
+                             "expert loads are not summed over 'data'")
         # {parameter name: its sharded dim} of the parameters that are
         # slices over 'model'
         self.layout = shard_layout(self.model, self.model_axis.size)
@@ -431,7 +468,8 @@ class Trainer:
         xavier-uniform weights (Linear, Conv1d, Embedding), zero biases, unit
         LayerNorm scales, and the output head: the angle-mean bias under a
         zero weight (encoder models) or a tiny-gain Xavier weight
-        (encoder-decoder)."""
+        (encoder-decoder). A stack of experts' matrices (``.experts.``)
+        draws each matrix at its own Xavier bound."""
         params = {}
         for name, p in self.model.named_parameters():
             t = torch.empty(p.shape, dtype=p.dtype)
@@ -444,6 +482,9 @@ class Trainer:
                                               generator=generator)
             elif name.endswith("bias") or name.startswith("head."):
                 t.zero_()
+            elif ".experts." in name:
+                for m in t:
+                    torch.nn.init.xavier_uniform_(m, generator=generator)
             else:
                 torch.nn.init.xavier_uniform_(t, generator=generator)
             params[name] = t.to(self.device)
@@ -457,7 +498,15 @@ class Trainer:
                                  for k, v in params.items()}, self.mesh)
         params = {k: v.requires_grad_() for k, v in shard_params(
             params, self.layout, self.model_axis).items()}
-        return TrainState(params, self.tx.init(params), 0)
+        return TrainState(params, self.tx.init(params), 0, self._buffers())
+
+    def _buffers(self) -> dict:
+        """Copies of the model's persistent buffers on the device: a fresh
+        state's."""
+        keep = self.model.state_dict().keys() - dict(
+            self.model.named_parameters()).keys()
+        return {k: b.detach().to(self.device).clone()
+                for k, b in self.model.named_buffers() if k in keep}
 
     def init_state(self, generator: torch.Generator) -> TrainState:
         """Step 0 from fresh parameters drawn from ``generator``."""
@@ -512,6 +561,8 @@ class Trainer:
                                for k in state.params}, self.layout,
                               self.model_axis)
         params = {k: v.requires_grad_() for k, v in params.items()}
+        buffers = {k: arrays["buffers"][k].to(self.device)
+                   for k in state.buffers}
         step = int(arrays["step"])
         self.start_epoch = int(meta.get("epoch", -1)) + 1
         self.start_time -= float(meta.get("elapsed", 0.0))
@@ -523,7 +574,7 @@ class Trainer:
         self.dropout_generator.manual_seed(self._seed("dropout", step))
         self.sampling_generator.manual_seed(self._seed("sampling", step))
         print(f"[Info] Resumed from '{modifier}' at epoch {self.start_epoch}.")
-        return TrainState(params, opt_state, step)
+        return TrainState(params, opt_state, step, buffers)
 
     # ---------------- steps ----------------
 
@@ -562,17 +613,20 @@ class Trainer:
             flat.split([t.numel() for t in tensors]), tensors)]
 
     def loss_and_grads(self, params: dict, batch: Batch,
-                       with_pred: bool = False):
+                       with_pred: bool = False, buffers=None):
         """(loss, metrics dict, gradients in the params' order) of one batch
         already on the device, with the model in train mode; with_pred puts
-        the predictions in the dict. Under a mesh the loss and metrics are
+        the predictions in the dict; ``buffers``: the state's. Under a mesh
+        the loss and metrics are
         this rank's shares of the global batch's, and the gradients are
         this rank's share too: ``train_step`` sums them over 'data'. The
         loss and the metrics come back detached: the step's graph is
         released here, with the backward that consumed it."""
         with tracing.span("train.forward"):
             self.model.train()
-            loss, out = compute_losses(self.model, params, batch, self.cfg,
+            loss, out = compute_losses(self.model,
+                                       {**params, **(buffers or {})},
+                                       batch, self.cfg,
                                        impl=self.drmsd_impl,
                                        sidechain_impl=self.sidechain_impl,
                                        with_pred=with_pred,
@@ -599,12 +653,16 @@ class Trainer:
             raise ValueError(f"step {state.step + 1}: the generator seeds "
                              f"keep {MAX_STEPS} (2^24) steps apart at most")
         _, out, grads = self.loss_and_grads(
-            state.params, self._put(batch), with_pred=with_pred)
+            state.params, self._put(batch), with_pred=with_pred,
+            buffers=state.buffers)
         *grads, metrics = self._sum_over_data([*grads, pack_metrics(out)])
         with tracing.span("train.optimizer"):
             opt_state = self.tx.update(state.params, grads, state.opt_state,
                                        lr_scale)
-        new = (TrainState(state.params, opt_state, state.step + 1), metrics)
+        if self.update_buffers is not None:
+            self.update_buffers(state.buffers)
+        new = (TrainState(state.params, opt_state, state.step + 1,
+                          state.buffers), metrics)
         if not with_pred:
             return new
         return (*new, assemble(out["pred"].detach(), 0, self.data_axis))
@@ -648,7 +706,8 @@ class Trainer:
             self._seed("probe_sampling", state.step))
         try:
             _, _, grads = self.loss_and_grads(
-                state.params, self._put(batch, non_blocking=True))
+                state.params, self._put(batch, non_blocking=True),
+                buffers=state.buffers)
         finally:
             for g, st in zip(gens, saved):
                 g.set_state(st)
@@ -909,10 +968,11 @@ class Trainer:
                 if log_train or log_val:
                     with tracing.span("train.structure_log", step):
                         if log_train:
-                            self._log_structure(state.params, batch, step)
+                            self._log_structure(state.variables, batch,
+                                                step)
                         if log_val:
-                            self._log_validation_structures(state.params,
-                                                            step)
+                            self._log_validation_structures(
+                                state.variables, step)
                 step += 1
                 if len(pending) >= self.FLUSH_EVERY:
                     with tracing.span("train.flush", step - 1):
@@ -936,7 +996,8 @@ class Trainer:
         (LazyBatch, device Batch) pairs of the device-data path; by default
         the split ``mode`` through whichever data path is active. Metric
         vectors stay on the device and are fetched every FLUSH_EVERY steps
-        in one copy."""
+        in one copy. ``params``: what the forward reads
+        (``TrainState.variables``)."""
         self.metrics = M.reset_for_epoch(self.metrics, mode)
         if batches is None:
             batches = self._eval_batch_stream(mode)
@@ -999,13 +1060,16 @@ class Trainer:
     def _arrays(state: TrainState) -> dict:
         """What a checkpoint holds of a state: tensors and plain Python
         values only, the optimizer's moments keyed by parameter name (empty
-        for SGD)."""
+        for SGD), and the buffers where the state has any."""
         opt = state.opt_state
-        return {"params": state.params,
-                "opt_state": {"count": opt.count,
-                              "mu": dict(zip(state.params, opt.mu)),
-                              "nu": dict(zip(state.params, opt.nu))},
-                "step": state.step}
+        arrays = {"params": state.params,
+                  "opt_state": {"count": opt.count,
+                                "mu": dict(zip(state.params, opt.mu)),
+                                "nu": dict(zip(state.params, opt.nu))},
+                  "step": state.step}
+        if state.buffers:
+            arrays["buffers"] = state.buffers
+        return arrays
 
     def _full_arrays(self, state: TrainState) -> dict:
         """``_arrays`` of the full tensors: under 'model' the slices of the
@@ -1090,7 +1154,8 @@ class Trainer:
                     self.dm.train_eval_index_batches(te_rng))
                     if self.train_store is not None
                     else self.dm.train_eval_batches(te_rng))
-                self.eval_epoch(state.params, "train", te_batches, logger)
+                self.eval_epoch(state.variables, "train", te_batches,
+                                logger)
             M.print_epoch_status("train", self.metrics, start)
             if logger:
                 logger.log(self.metrics, "train", self.start_time,
@@ -1110,7 +1175,7 @@ class Trainer:
                 splits = [s for s in self.dm.eval_splits if s != "test"]
                 for split in splits:
                     start = time.time()
-                    self.eval_epoch(state.params, split, logger=logger)
+                    self.eval_epoch(state.variables, split, logger=logger)
                     M.print_epoch_status(split, self.metrics, start)
                 W.log_avg_validation(self.wandb_run, self.metrics, splits)
 
@@ -1130,7 +1195,7 @@ class Trainer:
 
         if not cfg.train_only and "test" in self.dm.eval_splits:
             start = time.time()
-            self.eval_epoch(state.params, "test", logger=logger)
+            self.eval_epoch(state.variables, "test", logger=logger)
             M.print_epoch_status("test", self.metrics, start)
         if logger:
             logger.close()

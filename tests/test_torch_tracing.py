@@ -13,7 +13,11 @@ at a tiny width:
 * the parameters after an epoch are the same bits with spans live and off;
 * ``--profile_dir`` writes ``spans.json`` beside ``trace.json``;
 * ``tools/analyze_trace.py`` puts each long idle gap of the device down to
-  the innermost span the host was in, from a trace without Python stacks.
+  the innermost span the host was in, from a trace without Python stacks;
+* counters (``tracing.count``): off they keep nothing; live, the expert
+  layers' loads of an 'mla-moe' epoch are copied to the host once, when
+  the session closes, one entry a layer a step; they add no ``wait:``
+  span.
 """
 import collections
 import json
@@ -265,3 +269,73 @@ def test_analyze_trace_puts_each_idle_gap_down_to_a_span(tmp_path, capsys):
             "wait:kabsch_svd, 0.040 ms in train.forward"
             in capsys.readouterr().out)
     assert T.gap_spans([], [], []) == []
+
+
+# a tiny 'mla-moe' model: 1 dense and 2 expert layers of 4 experts, top 2
+MOE = dict(model="mla-moe", d_model=16, d_ff=32, n_heads=2, n_layers=3,
+           dropout=0.0, mla_moe=dict(
+               kv_lora_rank=8, qk_nope_head_dim=8, qk_rope_head_dim=4,
+               v_head_dim=8, rope_theta=50000.0, first_k_dense_replace=1,
+               moe_intermediate_size=8, n_routed_experts=4,
+               num_experts_per_tok=2, n_shared_experts=1,
+               routed_scaling_factor=2.446, rms_norm_eps=1e-5,
+               bias_update_speed=1e-3, seq_aux_alpha=1e-4))
+
+
+def test_counters_off_keep_nothing(data, tmp_path):
+    tr = trainer(data, tmp_path, **MOE)
+    state = fresh(tr)
+    tr.train_epoch(state)  # a session may be left from another test
+    last = tracing.last_session()
+    tracing.count("x", torch.ones(3))
+    tr.train_epoch(state)
+    assert tracing._counters == {}
+    assert tracing.last_session() is last
+
+
+def test_counters_live_are_read_once_at_session_close(data, tmp_path,
+                                                      monkeypatch):
+    tr = trainer(data, tmp_path, **MOE)
+    state = fresh(tr)
+    reads = []
+    real_read = tracing._read_counters
+
+    def read(counters):
+        reads.append(len(tracing._open))
+        return real_read(counters)
+
+    monkeypatch.setattr(tracing, "_read_counters", read)
+    residues = []
+    step = tr.train_step
+
+    def noting(state, batch, *args, **kwargs):
+        residues.append(int((batch.seq != tr.cfg.pad_id).sum()))
+        return step(state, batch, *args, **kwargs)
+
+    monkeypatch.setattr(tr, "train_step", noting)
+    with profile(activities=[ProfilerActivity.CPU]):
+        tr.train_epoch(state)
+    s = tracing.last_session()
+    assert reads == [0]  # once, when the epoch span has closed
+    steps = s["count"]["train.step"]
+    assert sorted(s["counters"]) == ["moe.load.layers.1", "moe.load.layers.2"]
+    step_ids = sorted({sp["step"] for sp in s["spans"]
+                       if sp["name"] == "train.step"})
+    for c in s["counters"].values():
+        assert sorted(c["steps"]) == step_ids and len(c["values"]) == steps
+        for v in c["values"]:
+            assert len(v) == 4 and sum(v) == int(sum(v)) > 0
+    # k = 2 routed experts a real residue, step by step
+    for c in s["counters"].values():
+        assert [sum(v) for v in c["values"]] == [2 * n for n in residues]
+
+
+def test_counters_add_no_wait_span(data, tmp_path):
+    tr = trainer(data, tmp_path, **MOE)
+    state = fresh(tr)
+    with profile(activities=[ProfilerActivity.CPU]):
+        tr.train_epoch(state)
+    s = tracing.last_session()
+    assert s["counters"]
+    waits = {n for n in s["count"] if n.startswith(tracing.WAIT)}
+    assert waits <= {"wait:train.flush"}
