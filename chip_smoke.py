@@ -6,13 +6,13 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
 
 1. device: card name, torch and CUDA versions, nvidia-smi name and power
    limit;
-2. build: compiles the six kernel libraries from this checkout at once,
+2. build: compiles the seven kernel libraries from this checkout at once,
    one nvcc each: csrc/drmsd_fwd.cu (K1a), csrc/drmsd_train.cu (K1b, K1c),
    csrc/drmsd_variants.cu (K4a, K4b, K4c), csrc/sidechain.cu (K2a, K2b),
    csrc/attention.cu (K3a and the flash backward, float32 and bf16
-   instances) and csrc/kabsch.cu (K5); prints each bf16 kernel's
-   registers and spill bytes for every head dimension from the build's
-   ptxas -v, and fails on a spill at D = 64;
+   instances), csrc/kabsch.cu (K5) and csrc/adam.cu (K6); prints each
+   bf16 kernel's registers and spill bytes for every head dimension from
+   the build's ptxas -v, and fails on a spill at D = 64;
 3. kernels against their plain PyTorch versions on the card.
    dRMSD (K1a, K1b, K1c), ~70% of atoms valid and one protein all masked,
    at B=8 x N = 600, 768, 3584, 7000 and at the training step's B=16 x
@@ -72,7 +72,17 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
    relative of the tensor path run in float64 on the same inputs, and of
    the float32 tensor path up to that one's own gap; one launch and no
    stream synchronisation a call (the tensor path: its SVD's two); times
-   by CUDA events, device-only times and the bound (bytes over 3.35 TB/s);
+   by CUDA events, device-only times and the bound (bytes over 3.35 TB/s).
+   The optimizer's update (K6) on the flagship's parameters (conv-enc
+   d_model 512 x 6 layers, 28.1 M in 105 tensors), seeded weights and
+   gradients that engage the clip, Adam with weight decay and the Noam
+   step: three updates through ``Optimizer.update`` on the kernel and on
+   the foreach chain (impl "torch", fed the kernel's float64 norm), every
+   parameter and both moments within 2 ulp or 1e-6 relative; two launches
+   an update and no stream synchronisation; then
+   tools/bench_adam.py's ``bench_set`` on the same set: both paths' times
+   by CUDA events, device-only times and the bound (32 bytes a parameter
+   over 3.35 TB/s);
 4. goldens on the card: NeRF coordinates (tests/golden/coords.npz,
    realistic_coords.npz) <= 1e-3 A, and the conv-enc model forward
    (tests/golden/model_parity_conv-enc.npz) <= 2e-5 with TF32 off; then
@@ -94,12 +104,15 @@ Phases, each failing loudly (traceback, non-zero exit, no result line):
 6. the training slice at the same width (combined loss, Adam, Noam,
    coupled weight decay, clip 1.0, dropout 0.1), residue-budget batches of
    15 proteins of length 255-256 padded to B=16 x L=256:
-   ``Trainer.train_epoch`` over 9 steps in the same three arms; finite
-   losses; per step K1b launched twice, K2a and K2b once, K1a and K1c
-   never; ms per step and residues/s from interleaved epochs; and at
-   dropout 0 from identical weights, one step's loss (within 1e-4
-   relative) and every parameter's gradient (within 1e-3 of its largest
-   entry) of the all-kernels path against the all-plain path. Phases 5
+   ``Trainer.train_epoch`` over 9 steps in the same three arms, the
+   all-plain arm's optimizer on the foreach chain (impl "torch"); finite
+   losses; per step K1b and K6 launched twice, K2a and K2b once, K1a and
+   K1c never (K6 twice a train step in every later phase that trains:
+   the clip's norm pass and the update); ms per step and residues/s from
+   interleaved epochs; and at dropout 0 from identical weights, one
+   step's loss (within 1e-4 relative) and every parameter's gradient
+   (within 1e-3 of its largest entry) of the all-kernels path against the
+   all-plain path. Phases 5
    and 6 run the trainers' default data path, the device store (each
    timed phase prints the path it ran), and also count each arm's device
    operations and device time per step (a batch gathered from the store,
@@ -389,6 +402,7 @@ from protein_transformer_tpu_torch.models.flax_import import (
 from protein_transformer_tpu_torch.models.torch_import import (
     load_reference_checkpoint, reference_names, state_dict_to_port)
 from protein_transformer_tpu_torch.ops import _build
+from protein_transformer_tpu_torch.ops import adam as AD
 from protein_transformer_tpu_torch.ops import attention as A
 from protein_transformer_tpu_torch.ops import drmsd as D
 from protein_transformer_tpu_torch.ops import drmsd_variants as V
@@ -408,12 +422,13 @@ from protein_transformer_tpu_torch.scripts import (
     dataset_item_to_pdb, downsample_dataset, export_embeddings_to_tsv,
     group_predictions, plot, proteinnet_to_dataset)
 from protein_transformer_tpu_torch.tools import (
-    analyze_trace, bench_attention, bench_drmsd_kernel, bench_kabsch,
-    bench_ladder, bench_logging, bench_protocol, gen_dev_data, gen_scale_data,
-    oracle_floor, stress_pipeline, trace_ladder)
+    analyze_trace, bench_adam, bench_attention, bench_drmsd_kernel,
+    bench_kabsch, bench_ladder, bench_logging, bench_protocol, gen_dev_data,
+    gen_scale_data, oracle_floor, stress_pipeline, trace_ladder)
 from protein_transformer_tpu_torch.tools.bench_geometry import (
     sync_count, sync_sites)
-from protein_transformer_tpu_torch.training import batch_probe, cli, flops
+from protein_transformer_tpu_torch.training import (
+    batch_probe, cli, flops, optim)
 from protein_transformer_tpu_torch.training import wandb_logging as W
 from protein_transformer_tpu_torch.training.checkpoint import (
     CheckpointManager)
@@ -425,7 +440,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 DEV_DATA = os.path.join(ROOT, "examples", "dev_data")
 LIBRARIES = ("drmsd_fwd", "drmsd_train", "drmsd_variants", "sidechain",
-             "attention", "kabsch")
+             "attention", "kabsch", "adam")
 # (B, N): the sizes of the TPU kernel's tests, then the training step's
 # full-atom (14 x 256) and backbone (3 x 256) sweeps at B=16
 KERNEL_CASES = ((8, 600), (8, 768), (8, 3584), (8, 7000), (16, 768),
@@ -468,11 +483,12 @@ MODEL = "conv-enc|21,11,3|1,1,1"
 # the RMSD's Kabsch superposition being one kernel (ops/kabsch.py); the run
 # prints the lines of any it finds
 EVAL_SYNCS = 0
-# arm -> (drmsd_impl, sidechain_impl); drmsd_impl also picks the eval
-# step's superposition RMSD: K5 in the "all" and "drmsd" arms, the tensor
-# path with its SVD in the "plain" arm
-ARMS = {"all": ("cuda", "cuda"), "drmsd": ("cuda", "torch"),
-        "plain": ("torch", "torch")}
+# arm -> (drmsd_impl, sidechain_impl, the optimizer's impl); drmsd_impl also
+# picks the eval step's superposition RMSD: K5 in the "all" and "drmsd"
+# arms, the tensor path with its SVD in the "plain" arm, whose optimizer is
+# the foreach chain
+ARMS = {"all": ("cuda", "cuda", "auto"), "drmsd": ("cuda", "torch", "auto"),
+        "plain": ("torch", "torch", "torch")}
 
 # The card's peaks for the bounds: HBM bytes/s, fp32 FLOP/s outside the
 # tensor cores and dense TF32 FLOP/s inside them (NVIDIA's H100 SXM data
@@ -1193,6 +1209,97 @@ def phase_kabsch_kernel(card) -> dict:
     return out
 
 
+# K6 against the foreach chain fed the kernel's float64 norm, every entry of
+# the parameters and both moments after K6_UPDATES updates: within K6_ULP
+# ulp of float32 or K6_REL_TOL relative (tests/test_torch_adam.py's limit)
+K6_ULP, K6_REL_TOL = 2, 1e-6
+K6_UPDATES = 3
+
+
+def k6_float64_norm(grads, sliced=None):
+    """The global norm as K6 takes it: the float64 sum of the squares, its
+    root rounded to float32 (one rank: no gradient is a slice)."""
+    return torch.sqrt(sum(g.double().square().sum() for g in grads)).float()
+
+
+def k6_updates(impl, params, grads_seq):
+    """Updates of a copy of ``params`` through ``Optimizer.update`` on the
+    path ``impl``, Adam with decay, the clip at 1.0 and the Noam step, one
+    a gradient list of ``grads_seq``; the foreach chain takes the norm as
+    K6 does. Returns (the parameters and both moments, K6's launches)."""
+    named = {k: v.clone() for k, v in params.items()}
+    tx = optim.Optimizer("adam", optim.noam_schedule(512, 4000), True, 1.0,
+                         impl=impl)
+    if impl == "torch":
+        tx.global_norm = k6_float64_norm
+    state = tx.init(named)
+    before = AD.adam_update_cuda.launches
+    for grads in grads_seq:
+        state = tx.update(named, [g.clone() for g in grads], state)
+    return ([*named.values(), *state.mu, *state.nu],
+            AD.adam_update_cuda.launches - before)
+
+
+def phase_adam_kernel(dev, card) -> dict:
+    """K6 on the flagship's parameters against the foreach chain, then both
+    timed by bench_adam's ``bench_set``. Returns the tool's row with the
+    largest gaps."""
+    cfg = TrainConfig(model=MODEL, d_model=512, d_ff=2048, n_heads=8,
+                      n_layers=6).finalize()
+    shapes = bench_adam.shapes(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = {f"p{i}": 0.02 * torch.randn(s, device=dev, generator=gen)
+              for i, s in enumerate(shapes)}
+    grads_seq = [[1e-3 * torch.randn(s, device=dev, generator=gen)
+                  for s in shapes] for _ in range(K6_UPDATES)]
+    norm = float(k6_float64_norm(grads_seq[0]))
+    require(norm > 1.0, f"the gradients engage the clip: norm {norm}")
+    got, launches = k6_updates("cuda", params, grads_seq)
+    want, plain_launches = k6_updates("torch", params, grads_seq)
+    require(launches == ADAM_LAUNCHES * K6_UPDATES and plain_launches == 0,
+            f"K6 launched {launches} times in {K6_UPDATES} updates (expected "
+            f"{ADAM_LAUNCHES * K6_UPDATES}), the foreach chain "
+            f"{plain_launches} (expected 0)")
+    bad, gap_abs, gap_rel = 0, 0.0, 0.0
+    for a, b in zip(got, want):
+        b64 = b.double()
+        gap = (a.double() - b64).abs()
+        ulp = (torch.nextafter(b.abs(), torch.full_like(b, math.inf))
+               - b.abs()).double()
+        bad += int(((gap > K6_ULP * ulp)
+                    & (gap > K6_REL_TOL * b64.abs())).sum())
+        gap_abs = max(gap_abs, float(gap.max()))
+        gap_rel = max(gap_rel, float(torch.where(
+            b64 != 0, gap / b64.abs(), gap).max()))
+    require(bad == 0, f"K6 against the foreach chain after {K6_UPDATES} "
+                      f"updates: {bad} entries farther than {K6_ULP} ulp and "
+                      f"{K6_REL_TOL} relative (largest gap {gap_abs:.3e}, "
+                      f"{gap_rel:.3e} relative)")
+    named = dict(params)
+    tx = optim.Optimizer("adam", 1e-3, True, 1.0)
+    state = tx.update(named, grads_seq[0], tx.init(named))
+    sites = sync_sites(lambda: tx.update(named, grads_seq[1], state))
+    require(not sites, f"a K6 update synchronises the stream: {where(sites)}")
+    row = bench_adam.bench_set("flagship", cfg, dev)
+    k6, plain = row["cuda"], row["torch"]
+    require(k6["launches"] == ADAM_LAUNCHES and plain["launches"] == 0,
+            f"bench_adam: K6 {k6['launches']} launches an update, the "
+            f"foreach chain {plain['launches']}")
+    print(f"[kernel] K6 on the flagship's {row['params']} parameters "
+          f"({row['tensors']} tensors): within {K6_ULP} ulp or {K6_REL_TOL} "
+          f"relative of the foreach chain after {K6_UPDATES} updates "
+          f"(largest gap {gap_abs:.3e}, {gap_rel:.3e} relative), "
+          f"{ADAM_LAUNCHES} launches and no synchronisation an update; "
+          f"{k6['ms']:.4f} ms ({k6['device_ms']:.4f} on the device, "
+          f"{k6['device_ops']:.0f} operations) vs the foreach chain "
+          f"{plain['ms']:.4f} ({plain['device_ms']:.4f}, "
+          f"{plain['device_ops']:.0f} operations); bound "
+          f"{row['bound_ms']:.5f} ms by bytes ({bench_adam.BYTES_PER_PARAM} "
+          f"B a parameter over 3.35 TB/s), {100 * k6['share_of_peak']:.1f}% "
+          f"of it ({card})")
+    return {**row, "max_abs_err": gap_abs, "max_rel_err": gap_rel}
+
+
 def phase_goldens(dev):
     for name in ("coords.npz", "realistic_coords.npz"):
         z = np.load(os.path.join(GOLDEN, name))
@@ -1269,13 +1376,21 @@ def flagship(arm: str, out_dir: str, **kw) -> TrainConfig:
     """The flagship width's config for one arm; ``kw`` overrides the
     defaults below (structure logging off: these phases time the step
     itself)."""
-    drmsd_impl, sidechain_impl = ARMS[arm]
+    drmsd_impl, sidechain_impl, _ = ARMS[arm]
     settings = {"model": MODEL, "loss": "combined", "bucket_sizes": (256,),
                 "batch_size": 8, "name": arm, "log_structure_step": 0,
                 "log_val_struct_step": 0, **kw}
     return TrainConfig(d_model=512, d_ff=2048, n_heads=8, n_layers=6,
                        drmsd_impl=drmsd_impl, sidechain_impl=sidechain_impl,
                        out_dir=out_dir, **settings)
+
+
+def arm_trainer(arm: str, out_dir: str, dev, data, **kw) -> Trainer:
+    """A trainer of ``flagship(arm, out_dir, **kw)`` whose optimizer takes
+    the arm's path."""
+    tr = Trainer(flagship(arm, out_dir, **kw), device=dev, data=data)
+    tr.tx.impl = ARMS[arm][2]
+    return tr
 
 
 def random_weights(trainer, dev):
@@ -1303,7 +1418,11 @@ COUNTERS = {"drmsd_fwd": (D.drmsd_stats_cuda, "launches"),
             "drmsd_fwd_sqrt1": (V.drmsd_stats_sqrt1_cuda, "launches"),
             "drmsd_fwd_mxu": (V.drmsd_stats_mxu_cuda, "launches"),
             "drmsd_grad_a_mxu": (V.drmsd_grad_a_mxu_cuda, "launches"),
-            "kabsch_rmsd": (K.kabsch_rmsd_cuda, "launches")}
+            "kabsch_rmsd": (K.kabsch_rmsd_cuda, "launches"),
+            "adam_update": (AD.adam_update_cuda, "launches")}
+# K6 launches an update: every run here clips (at 1.0), so the norm pass and
+# the update, for a model of fewer tensors than one launch's table holds
+ADAM_LAUNCHES = 2
 
 
 def reset_launches() -> None:
@@ -1354,8 +1473,7 @@ def phase_slice(dev, card, out_dir):
     split = "test"
     data = make_dataset(n_train=8, n_eval=16, min_len=255, max_len=256,
                         seed=0, device=dev)
-    trainers = {arm: Trainer(flagship(arm, out_dir), device=dev, data=data)
-                for arm in ARMS}
+    trainers = {arm: arm_trainer(arm, out_dir, dev, data) for arm in ARMS}
     params = random_weights(trainers["all"], dev)
     n_batches = sum(1 for _ in trainers["all"].dm.eval_index_batches(split))
     n_res = int(trainers["all"].dm.eval_splits[split].lens.sum())
@@ -1493,8 +1611,8 @@ def one_step(dev, data, params, out_dir, arm="all", double=False, **kw):
     on the first training batch, in float64 throughout when ``double``.
     Returns (loss, {parameter: gradient}, {feed-forward layer: which hidden
     units each real residue's ReLU lets through}, the loss's name)."""
-    tr = Trainer(flagship(arm, out_dir, dropout=0.0, max_seq_len=256, **kw),
-                 device=dev, data=data)
+    tr = arm_trainer(arm, out_dir, dev, data, dropout=0.0, max_seq_len=256,
+                     **kw)
     dtype = torch.float64 if double else torch.float32
     tr.model.to(dtype)
     leaves = {k: v.detach().to(dev, dtype).clone().requires_grad_()
@@ -1592,8 +1710,8 @@ def phase_train(dev, card, out_dir):
                         seed=0, device=dev)
     kw = dict(optimizer="adam", lr_scheduling="noam", max_seq_len=256,
               repeat_train=TRAIN_REPEAT)
-    trainers = {arm: Trainer(flagship(arm, out_dir, **kw), device=dev,
-                             data=data) for arm in ARMS}
+    trainers = {arm: arm_trainer(arm, out_dir, dev, data, **kw)
+                for arm in ARMS}
     params = random_weights(trainers["all"], dev)
     states = {arm: tr.state_from(params) for arm, tr in trainers.items()}
     for arm, tr in trainers.items():  # warm-up epoch, every arm
@@ -1605,9 +1723,10 @@ def phase_train(dev, card, out_dir):
     launches = read_launches()
     require(steps >= 8, f"{steps} training steps, expected at least 8")
     require(launches == launched(drmsd_fwd_grad=2 * steps,
-                                 sidechain_fwd=steps, sidechain_bwd=steps),
-            f"training launches {launches}: expected per step K1b twice, "
-            f"K2a and K2b once for {steps} steps, K1a and K1c none")
+                                 sidechain_fwd=steps, sidechain_bwd=steps,
+                                 adam_update=ADAM_LAUNCHES * steps),
+            f"training launches {launches}: expected per step K1b and K6 "
+            f"twice, K2a and K2b once for {steps} steps, K1a and K1c none")
     times = {arm: [] for arm in ARMS}
     rates = {arm: [] for arm in ARMS}
     times["all"].append(seconds / steps)
@@ -1730,7 +1849,8 @@ def phase_cli(dev, card, out_dir):
     n_eval = 2 * sum(eval_steps[s] for s in valid) + eval_steps["test"]
     expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * 2 * steps,
                         sidechain_fwd=2 * steps + n_eval,
-                        sidechain_bwd=2 * steps, kabsch_rmsd=n_eval)
+                        sidechain_bwd=2 * steps, kabsch_rmsd=n_eval,
+                        adam_update=ADAM_LAUNCHES * 2 * steps)
     require(launches == expected,
             f"CLI launches {launches}: expected {expected} for 2 epochs of "
             f"{steps} train steps and {n_eval} eval steps")
@@ -2066,7 +2186,8 @@ def phase_predict(dev, card, out_dir):
     launches = read_launches()
     expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * steps,
                         sidechain_fwd=steps + n_eval, sidechain_bwd=steps,
-                        flash_attn_fwd=6 * n_eval, kabsch_rmsd=n_eval)
+                        flash_attn_fwd=6 * n_eval, kabsch_rmsd=n_eval,
+                        adam_update=ADAM_LAUNCHES * steps)
     require(launches == expected,
             f"flash CLI launches {launches}: expected {expected} ({steps} "
             f"train steps at dropout 0.1, which keep the materialised "
@@ -2186,7 +2307,8 @@ def phase_flash_train(dev, card, out_dir):
     launches = read_launches()
     expected = launched(drmsd_fwd_grad=2 * steps, sidechain_fwd=steps,
                         sidechain_bwd=steps, flash_attn_fwd=6 * steps,
-                        flash_attn_bwd=6 * steps)
+                        flash_attn_bwd=6 * steps,
+                        adam_update=ADAM_LAUNCHES * steps)
     require(steps >= 4 and launches == expected,
             f"flash training launches {launches}: expected {expected} for "
             f"{steps} steps")
@@ -2571,10 +2693,12 @@ def enc_dec_sampling_full(dev, card, out_dir) -> tuple:
         torch.cuda.empty_cache()
     launches = read_launches()
     expected = launched(drmsd_fwd_grad=2 * n_steps, sidechain_fwd=n_steps,
-                        sidechain_bwd=n_steps)
+                        sidechain_bwd=n_steps,
+                        adam_update=ADAM_LAUNCHES * n_steps)
     require(launches == expected,
             f"sampled enc-dec launches {launches}: expected {expected} for "
-            f"{n_steps} train steps (K1b twice, K2a and K2b once a step)")
+            f"{n_steps} train steps (K1b and K6 twice, K2a and K2b once a "
+            f"step)")
     return rows, launches
 
 
@@ -2679,13 +2803,14 @@ def phase_enc_dec(dev, card, out_dir):
             + len(range(0, total, LOG_VAL_EVERY)))
         expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * total,
                             sidechain_fwd=total + n_eval + n_logged,
-                            sidechain_bwd=total, kabsch_rmsd=n_eval)
+                            sidechain_bwd=total, kabsch_rmsd=n_eval,
+                            adam_update=ADAM_LAUNCHES * total)
         require(len(steps) == 2 and min(steps) >= 4
                 and launches[arm] == expected,
                 f"enc-dec CLI launches, logging {arm}: {launches[arm]}; "
                 f"expected {expected} for epochs of {steps} train steps "
-                f"(K1b twice, K2a and K2b once a step), {n_eval} eval steps "
-                f"(K1a twice, K2a and K5 once) and {n_logged} logged "
+                f"(K1b and K6 twice, K2a and K2b once a step), {n_eval} eval "
+                f"steps (K1a twice, K2a and K5 once) and {n_logged} logged "
                 f"structures "
                 "(K2a once each), no K3")
         require("[ Epoch 1 ]" in out and "(Valid-10)" in out
@@ -2978,13 +3103,14 @@ def phase_dev_data(dev, card, out_dir):
         total = sum(steps)
         expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * total,
                             sidechain_fwd=total + n_eval,
-                            sidechain_bwd=total, kabsch_rmsd=n_eval)
+                            sidechain_bwd=total, kabsch_rmsd=n_eval,
+                            adam_update=ADAM_LAUNCHES * total)
         require(len(steps) == 2 and min(steps) >= 2
                 and launches == expected,
                 f"dev data CLI launches, --device_data {flag}: {launches}; "
                 f"expected {expected} for epochs of {steps} train steps (K1b "
-                f"twice, K2a and K2b once a step) and {n_eval} eval steps "
-                "(K1a twice, K2a and K5 once)")
+                f"and K6 twice, K2a and K2b once a step) and {n_eval} eval "
+                "steps (K1a twice, K2a and K5 once)")
         want_path = "device store" if flag == "true" else \
             "prefetched host batches"
         require(epochs.paths == [want_path] * 2,
@@ -3321,7 +3447,8 @@ def phase_bf16(dev, card, out_dir):
         trainers["bfloat16"], states["bfloat16"])
     launches = read_launches()
     require(launches == launched(drmsd_fwd_grad=2 * steps,
-                                 sidechain_fwd=steps, sidechain_bwd=steps),
+                                 sidechain_fwd=steps, sidechain_bwd=steps,
+                                 adam_update=ADAM_LAUNCHES * steps),
             f"bf16 training launches {launches} for {steps} steps at "
             "dropout 0.1 (materialised attention)")
     require(params_moved(before, states["bfloat16"].params),
@@ -3362,7 +3489,8 @@ def phase_bf16(dev, card, out_dir):
     flash_launches = read_launches()
     expected = launched(drmsd_fwd_grad=2 * steps, sidechain_fwd=steps,
                         sidechain_bwd=steps, flash_attn_fwd_bf16=6 * steps,
-                        flash_attn_bwd_bf16=6 * steps)
+                        flash_attn_bwd_bf16=6 * steps,
+                        adam_update=ADAM_LAUNCHES * steps)
     require(flash_launches == expected,
             f"bf16 flash training launches {flash_launches}: expected "
             f"{expected}")
@@ -3428,7 +3556,8 @@ def phase_bf16(dev, card, out_dir):
     cli_launches = read_launches()
     expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * steps,
                         sidechain_fwd=steps + n_eval, sidechain_bwd=steps,
-                        flash_attn_fwd_bf16=6 * n_eval, kabsch_rmsd=n_eval)
+                        flash_attn_fwd_bf16=6 * n_eval, kabsch_rmsd=n_eval,
+                        adam_update=ADAM_LAUNCHES * steps)
     require(cli_launches == expected,
             f"bf16 CLI launches {cli_launches}: expected {expected}")
     run_dir = os.path.join(out_dir, "bf16")
@@ -3615,11 +3744,13 @@ def phase_wandb(dev, card, out_dir):
     steps = sum(n for _, n, _ in epochs)
     # every step's launches, the probe's (K1b twice, K2a and K2b once, as a
     # train step) at the end of each of the 2 epochs, the eval steps', and
-    # K2a once for the structure logged at step 0
+    # K2a once for the structure logged at step 0; K6 only in the steps (the
+    # probe updates nothing)
     expected = launched(drmsd_fwd=2 * n_eval,
                         drmsd_fwd_grad=2 * (steps + 2),
                         sidechain_fwd=steps + 2 + n_eval + 1,
-                        sidechain_bwd=steps + 2, kabsch_rmsd=n_eval)
+                        sidechain_bwd=steps + 2, kabsch_rmsd=n_eval,
+                        adam_update=ADAM_LAUNCHES * steps)
     require(epochs.paths == ["device store"] * 2 and launches == expected,
             f"wandb CLI launches {launches}: expected {expected} for "
             f"{steps} train steps on the store, 2 probes and {n_eval} eval "
@@ -3904,7 +4035,8 @@ MULTI_GPU_RUNS = (
     ("dp-2", "gloo", 2, ["--mesh_shape", "2"]),
     ("tp-2", "gloo", 2, ["--mesh_shape", "1", "2", "--mesh_axes", "data",
                          "model", "--attention_impl", "flash"]))
-MULTI_GPU_KERNELS = ("drmsd_fwd_grad", "sidechain_fwd", "sidechain_bwd")
+MULTI_GPU_KERNELS = ("drmsd_fwd_grad", "sidechain_fwd", "sidechain_bwd",
+                     "adam_update")
 MULTI_GPU_FLASH = ("flash_attn_fwd", "flash_attn_bwd")
 RANK_TIMEOUT = 300   # seconds a run's ranks may take, start-up included
 CSV_METRICS = ("drmsd", "ln_drmsd", "rmse", "rmsd", "combined")
@@ -4239,11 +4371,12 @@ def scale_convergence(dev, card, data_dir, out_dir, floor):
     n_eval = CONVERGENCE_EPOCHS * eval_steps["valid-70"] + eval_steps["test"]
     expected = launched(drmsd_fwd=2 * n_eval, drmsd_fwd_grad=2 * steps,
                         sidechain_fwd=steps + n_eval, sidechain_bwd=steps,
-                        kabsch_rmsd=n_eval)
+                        kabsch_rmsd=n_eval,
+                        adam_update=ADAM_LAUNCHES * steps)
     require(len(epochs) == CONVERGENCE_EPOCHS and launches == expected,
             f"convergence launches {launches}: expected {expected} for "
             f"{len(epochs)} epochs of {steps} train steps in all and "
-            f"{n_eval} eval steps (K1a, K1b, K2a, K2b and K5 each "
+            f"{n_eval} eval steps (K1a, K1b, K2a, K2b, K5 and K6 each "
             f"launched)")
     _, rows = csv_rows(os.path.join(out_dir, "scale", "scale.train"))
     by_mode = {mode: [r for r in rows if r["mode"] == mode
@@ -4338,14 +4471,16 @@ ATTENTION_WINDOW = dict(calls=5, repeats=3)
 
 
 def ladder_launches(spec) -> dict:
-    """K1b, K2a and K2b launches a train step of a ladder entry, as its
-    loss's code path calls them: none for mse; for a dRMSD-family loss one
-    sidechain build and its backward, and K1b over the backbone and over
-    all atoms, or over the backbone alone under --backbone_loss."""
+    """K1b, K2a, K2b and K6 launches a train step of a ladder entry, as its
+    loss's code path calls them: K6's two (the entries clip at 1.0) under
+    every loss; for a dRMSD-family loss also one sidechain build and its
+    backward, and K1b over the backbone and over all atoms, or over the
+    backbone alone under --backbone_loss."""
     if spec["loss"] == "mse":
-        return launched()
+        return launched(adam_update=ADAM_LAUNCHES)
     return launched(drmsd_fwd_grad=1 if spec["backbone_loss"] else 2,
-                    sidechain_fwd=1, sidechain_bwd=1)
+                    sidechain_fwd=1, sidechain_bwd=1,
+                    adam_update=ADAM_LAUNCHES)
 
 
 def ladder_runs(dev, card) -> dict:
@@ -4401,7 +4536,8 @@ def ladder_traces(dev, card, out_dir) -> dict:
         cats = res["categories"]
         per_step = ladder_launches(bench_ladder.LADDER[idx])
         for name, n in per_step.items():
-            if not n:
+            # K6 is filed by its launch site, under "optimizer"
+            if not n or name == "adam_update":
                 continue
             cat = next(c for c, _ in analyze_trace.HAND_KERNELS
                        if c.endswith(" " + name))
@@ -4585,10 +4721,10 @@ def bench_child(out_dir: str) -> int:
 
 def bench_launches(mode: str, steps: int) -> dict:
     """The launches of ``steps`` steps of a bench mode: a combined-loss
-    train step K1b twice, K2a and K2b once; the trainer loop K2a once more
-    for each structure it logs (train every log_structure_step steps, each
-    validation split every log_val_struct_step); an eval step K1a twice, K2a
-    and K5 once."""
+    train step K1b and K6 twice, K2a and K2b once; the trainer loop K2a
+    once more for each structure it logs (train every log_structure_step
+    steps, each validation split every log_val_struct_step); an eval step
+    K1a twice, K2a and K5 once."""
     if mode == "eval":
         return launched(drmsd_fwd=2 * steps, sidechain_fwd=steps,
                         kabsch_rmsd=steps)
@@ -4600,7 +4736,7 @@ def bench_launches(mode: str, steps: int) -> dict:
             VALID_SPLITS) * sum(1 for s in range(steps)
                                 if s % cfg.log_val_struct_step == 0)
     return launched(drmsd_fwd_grad=2 * steps, sidechain_fwd=steps + logged,
-                    sidechain_bwd=steps)
+                    sidechain_bwd=steps, adam_update=ADAM_LAUNCHES * steps)
 
 
 def bench_modes(card, out_dir) -> dict:
@@ -4721,6 +4857,7 @@ def main() -> int:
                                                         card)
     sc_table, sc_errs = timed(phase_sidechain_kernel, dev, card)
     k5_table = timed(phase_kabsch_kernel, card)
+    k6_row = timed(phase_adam_kernel, dev, card)
     attn_table = timed(phase_attention_kernel, dev, card)
     bf16_table = timed(phase_bf16_kernels, dev, card)
     timed(phase_goldens, dev)
@@ -4828,6 +4965,22 @@ def main() -> int:
                  "plain_device_ms": k5["torch"]["device_ms"],
                  "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
                  "library_ms": None})
+    rows.append({"name": "adam_update", "route": "cuda",
+                 "source": source + "adam.cu",
+                 # no TPU kernel: the JAX package's optimizer is optax's
+                 # chain, which XLA fuses
+                 "replaces": None,
+                 "reached_from":
+                     "protein_transformer_tpu/training/optim.py:38",
+                 "launches": train_launches["adam_update"],
+                 "max_abs_err": k6_row["max_abs_err"],
+                 "max_rel_err": k6_row["max_rel_err"],
+                 "ms": k6_row["cuda"]["ms"],
+                 "device_ms": k6_row["cuda"]["device_ms"],
+                 "plain_ms": k6_row["torch"]["ms"],
+                 "plain_device_ms": k6_row["torch"]["device_ms"],
+                 "bound_ms": k6_row["bound_ms"],
+                 "bound_by": k6_row["bound_by"], "library_ms": None})
     # no one PyTorch call computes a masked pair statistic: no library time
     for name, line in (("drmsd_fwd_sqrt1", 42), ("drmsd_fwd_mxu", 84),
                        ("drmsd_grad_a_mxu", 105)):

@@ -109,19 +109,24 @@ class _Span:
 
 def _read_counters(counters: dict) -> dict:
     """{name: {"steps": [...], "values": [[...], ...]}}, one entry a
-    ``count`` call, copied to the host in one transfer."""
+    ``count`` call; the values on a device copied to the host in one
+    transfer, those on the host read where they are (no transfer, so a
+    session of host counters alone never waits for the device)."""
     items = [(name, step, t) for name, calls in counters.items()
              for step, t in calls]
-    if not items:
-        return {}
-    flat = torch.cat([t.reshape(-1).double() for _, _, t in items]).cpu()
+    on_device = [t.reshape(-1).double() for _, _, t in items
+                 if t.device.type != "cpu"]
+    flat = torch.cat(on_device).cpu() if on_device else None
     out: dict = {}
     at = 0
     for name, step, t in items:
         entry = out.setdefault(name, {"steps": [], "values": []})
         entry["steps"].append(step)
-        entry["values"].append(flat[at:at + t.numel()].tolist())
-        at += t.numel()
+        if t.device.type == "cpu":
+            entry["values"].append(t.reshape(-1).double().tolist())
+        else:
+            entry["values"].append(flat[at:at + t.numel()].tolist())
+            at += t.numel()
     return out
 
 
@@ -165,9 +170,9 @@ def epoch(name: str, step: int | None = None):
 
 
 def count(name: str, value: torch.Tensor) -> None:
-    """Add ``value`` (a tensor, left where it is) to the counter ``name``
-    of the session being recorded, under the innermost open span's step;
-    nothing outside a session."""
+    """Add ``value`` (a tensor, left where it is: on the host for a count
+    the host knows) to the counter ``name`` of the session being recorded,
+    under the innermost open span's step; nothing outside a session."""
     if _recording is None:
         return
     step = _open[-1].step if _open else -1

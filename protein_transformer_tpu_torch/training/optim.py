@@ -17,12 +17,27 @@ parallelism (``shard``) a rank holds slices of some of them; the clip then
 takes the norm of the full parameters, as the JAX step does: the square
 sums of the sliced gradients are summed over the 'model' axis, and the
 replicated ones are counted once. The moments take their parameter's
-layout. The multi-tensor
-``torch._foreach_*`` ops keep the launch count per step flat in the number
-of parameter tensors; the update after the clip runs over groups of at
-most ``GROUP_BYTES`` of parameters, so that a model of billions of
-parameters does not hold three full-size temporaries at once. The step
-count lives on the host, so the schedule never reads the device.
+layout. The step count lives on the host, so the learning rate and the
+bias corrections are host floats and the update never reads the device.
+
+Two paths, chosen by the parameters' device (``ops.adam.resolve_impl``):
+
+* CUDA tensors take the hand-written kernel (``ops/adam.py``, K6): one
+  pass over the gradients for the norm, then one pass that clips, decays,
+  moves the moments and updates every parameter, 32 bytes a parameter in
+  two launches, with no temporaries and no wait for the device. It adds
+  the parameters it hands the kernel to the counter
+  ``optim.fused_params``, a host number.
+* CPU tensors (and ``impl="torch"``) take the multi-tensor
+  ``torch._foreach_*`` chain, the kernel's plain version: a launch count
+  flat in the number of parameter tensors, but a pass over memory an
+  operation. Its update after the clip runs over groups of at most
+  ``GROUP_BYTES`` of parameters, so that a model of billions of
+  parameters does not hold three full-size temporaries at once. The
+  kernel makes none, so the groups serve this path alone, where it runs
+  at that size: on the card with ``impl="torch"``, as
+  ``tools/bench_adam.py`` runs it beside the kernel at 2.42 B parameters.
+
 ``PlateauState`` and ``EarlyStopping`` are the JAX package's host-side
 state machines, copied as plain Python.
 """
@@ -33,11 +48,16 @@ from typing import Callable, Union
 
 import torch
 
+from protein_transformer_tpu_torch import tracing
+from protein_transformer_tpu_torch.ops import adam as adam_ops
+
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.98, 1e-9
 WEIGHT_DECAY = 1e-2
-# Adam's update runs over groups of parameters of at most this many bytes:
-# its three temporaries a parameter then stay under three times this (a
-# model under it updates in one group, the same launches as without)
+# The foreach path's update runs over groups of parameters of at most this
+# many bytes: its three temporaries a parameter then stay under three times
+# this (a model under it updates in one group, the same launches as
+# without). Without them the chain at 2.42 B parameters would hold 29 GB of
+# temporaries beside the 39 GB of parameters, gradients and moments.
 GROUP_BYTES = 1 << 30
 
 Schedule = Callable[[int], float]
@@ -69,10 +89,13 @@ class Optimizer:
     """The chain of ``make_optimizer``; ``update`` applies one step."""
 
     def __init__(self, optimizer: str, learning_rate: Union[float, Schedule],
-                 weight_decay: bool, clip: float | None):
+                 weight_decay: bool, clip: float | None, impl: str = "auto"):
         if optimizer not in ("adam", "sgd"):
             raise ValueError(f"Unknown optimizer {optimizer}")
+        adam_ops.resolve_impl(impl, "cpu")  # raises for an unknown impl
         self.optimizer = optimizer
+        # the path: "auto" (by the parameters' device), "cuda" or "torch"
+        self.impl = impl
         self.learning_rate = learning_rate
         self.weight_decay = WEIGHT_DECAY if weight_decay else 0.0
         self.clip = clip
@@ -103,6 +126,13 @@ class Optimizer:
             return float(self.learning_rate(count))
         return float(self.learning_rate)
 
+    def scalars(self, count: int, lr_scale: float = 1.0) -> tuple:
+        """(the signed step, Adam's two bias corrections 1 - b^t) of the
+        update after ``count`` updates, t = count + 1: host floats."""
+        t = count + 1
+        return (-self.lr(count) * lr_scale, 1.0 - ADAM_B1 ** t,
+                1.0 - ADAM_B2 ** t)
+
     def init(self, params: dict) -> OptState:
         if self.optimizer == "sgd":
             return OptState(0, [], [])
@@ -113,17 +143,28 @@ class Optimizer:
     def update(self, params: dict, grads, state: OptState,
                lr_scale: float = 1.0) -> OptState:
         """Apply one update to ``params`` in place; grads is a sequence in
-        the params' order and is consumed (scaled in place)."""
+        the params' order and is consumed (the foreach path scales it in
+        place; the kernel only reads it)."""
         ps = list(params.values())
         gs = list(grads)
+        lr, bc1, bc2 = self.scalars(state.count, lr_scale)
+        if ps and adam_ops.resolve_impl(self.impl, ps[0].device) == "cuda":
+            adam = self.optimizer == "adam"
+            adam_ops.adam_update_cuda(
+                ps, gs, state.mu if adam else None,
+                state.nu if adam else None, lr=lr,
+                weight_decay=self.weight_decay, clip=self.clip,
+                sliced=[k in self.sharded for k in params], axis=self.axis,
+                b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS, bc1=bc1, bc2=bc2)
+            tracing.count("optim.fused_params", torch.tensor(
+                [sum(p.numel() for p in ps)]))
+            return OptState(state.count + 1, state.mu, state.nu)
         if self.clip:
             norm = self.global_norm(gs, [k in self.sharded for k in params])
             factor = torch.where(norm < self.clip, 1.0, self.clip / norm)
             torch._foreach_mul_(gs, factor)
         if self.weight_decay:
             torch._foreach_add_(gs, ps, alpha=self.weight_decay)
-        count = state.count + 1
-        lr = -self.lr(state.count) * lr_scale
         for part in _groups(ps, GROUP_BYTES):
             p_, g_ = [ps[i] for i in part], [gs[i] for i in part]
             if self.optimizer == "adam":
@@ -132,14 +173,14 @@ class Optimizer:
                 torch._foreach_lerp_(mu, g_, 1.0 - ADAM_B1)
                 torch._foreach_mul_(nu, ADAM_B2)
                 torch._foreach_addcmul_(nu, g_, g_, value=1.0 - ADAM_B2)
-                mu_hat = torch._foreach_div(mu, 1.0 - ADAM_B1 ** count)
-                denom = torch._foreach_div(nu, 1.0 - ADAM_B2 ** count)
+                mu_hat = torch._foreach_div(mu, bc1)
+                denom = torch._foreach_div(nu, bc2)
                 torch._foreach_sqrt_(denom)
                 torch._foreach_add_(denom, ADAM_EPS)
                 g_ = torch._foreach_div(mu_hat, denom)
                 del mu_hat, denom
             torch._foreach_add_(p_, g_, alpha=lr)
-        return OptState(count, state.mu, state.nu)
+        return OptState(state.count + 1, state.mu, state.nu)
 
 
 def _groups(tensors: list, limit: int) -> list:
